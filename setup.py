@@ -69,13 +69,19 @@ setup(
     name="infinistore-tpu",
     version="0.1.0",
     description="A TPU-native KV-cache memory pool",
-    packages=find_packages(include=["infinistore_tpu", "infinistore_tpu.*"]),
-    package_data={"infinistore_tpu": ["_native/*.so"]},
+    packages=find_packages(include=["infinistore_tpu", "infinistore_tpu.*",
+                                    "infinistore_tpu_torch",
+                                    "infinistore_tpu_torch.*"]),
+    # The PyTorch port builds its store library and CUDA kernels on
+    # first use, from native/src and its own csrc/ sources.
+    package_data={"infinistore_tpu": ["_native/*.so"],
+                  "infinistore_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     cmdclass=_cmdclass,
     python_requires=">=3.10",
     install_requires=["numpy"],
     extras_require={
         "tpu": ["jax"],
+        "cuda": ["torch"],
         "train": ["optax", "orbax-checkpoint"],
         "test": ["pytest"],
     },
