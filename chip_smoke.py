@@ -18,17 +18,39 @@ Phases, in order; any failure exits non-zero before the result line:
    into one device page pool, decode the 4 sequences as a batch, and a
    prefix-hit request that prefills only its new tail. Launch counts
    show the path ran through both kernels.
-5. A JSON line of per-kernel numbers, the card line, and as the last
+5. Paged verify kernel (csrc/paged_verify.cu) against its plain version:
+   the speculative-verify shape (m = 5 over K2's ragged lengths, with and
+   without a window, bf16 and f32), a 512-token chunk over 1536 cached
+   tokens, and a row whose new tokens run past the page table.
+6. Serving at Llama-3.1-8B width, bf16, through the port's
+   ServingEngine and its store on SHM: engine A (8 slots, speculative
+   decoding) serves 8 cold requests, then 8 that regenerate or extend
+   them (prefix hits, K3 verify steps); engine B (512-token chunked
+   prefill, 4-step bursts, a pool small enough to preempt) serves 8
+   more; the HTTP front end answers 4 concurrent requests over engine
+   A. Launch counts show all three kernels ran (32 per model call);
+   K3 is held to its plain version per layer on one speculative and one
+   chunk step; every finished request is teacher-forced through one
+   dense prefill, and a planted page-table fault shows that check bites.
+7. Exact parity at float32, Llama-3.1-8B widths, 4 layers: speculative,
+   chunked + multi-step + preempting through the store, and a
+   store-backed second round give the tokens of a plain store-less
+   engine.
+8. A JSON line of per-kernel numbers, the card line, and as the last
    line {"ok": true, "device": {...}}.
 """
 
+import collections
+import dataclasses
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 import uuid
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -296,7 +318,7 @@ def phase_decode(torch, pd, plain, gen):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def phase_main(torch, np, report):
+def phase_main(torch, np, report, params):
     from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
                                        InfinityConnection, ServerConfig,
                                        TYPE_SHM, TYPE_STREAM)
@@ -317,16 +339,6 @@ def phase_main(torch, np, report):
         f"{pool_bytes / 2**30:.2f} GiB, /dev/shm free "
         f"{shm_free / 2**30:.1f} GiB")
     check(shm_free > 2 * pool_bytes, "not enough /dev/shm for the pool")
-
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    params = llama.init_params(gen, cfg, "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in [params["embed"], params["lm_head"],
-                                       params["final_ln"]]
-                   + [w for la in params["layers"] for w in la.values()])
-    say(f"model: {n_params / 1e9:.2f} B params bf16 in "
-        f"{time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED)
     prompts = [torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)),
@@ -605,6 +617,658 @@ def phase_main(torch, np, report):
         srv.stop()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: paged verify
+# ---------------------------------------------------------------------------
+
+def verify_work(seq_lens, m, width, page, window, H, KV, D, esize):
+    """(FLOPs, bytes) one verify call needs: 4 H D FLOPs per (query row,
+    attended position) pair; each live K/V position read once per kv
+    head, q read and the output written once."""
+    t_end = width * page
+    pairs = live = 0
+    for sl in seq_lens:
+        for j in range(m):
+            limit = sl + j + 1
+            lo = max(limit - window, 0) if window else 0
+            pairs += max(min(limit, t_end) - lo, 0)
+        lo = max(sl + 1 - window, 0) if window else 0
+        live += max(min(sl + m, t_end) - lo, 0)
+    flops = 4.0 * H * D * pairs
+    nbytes = (live * KV * D * 2 + 2 * len(seq_lens) * m * H * D) * esize
+    return flops, nbytes
+
+
+# (label, dtype, seq_lens, m, window, table width or None: room for all)
+VERIFY_CASES = (
+    ("spec", "bfloat16", DECODE_SEQ_LENS, 5, 0, None),
+    ("spec", "bfloat16", DECODE_SEQ_LENS, 5, 256, None),
+    ("spec", "float32", DECODE_SEQ_LENS, 5, 0, None),
+    ("spec", "float32", DECODE_SEQ_LENS, 5, 256, None),
+    ("chunk", "bfloat16", (0, 1536), 512, 0, None),
+    ("past the table", "bfloat16", (100, 2000), 64, 0, 128),
+)
+
+
+def verify_readings(torch, kernel, plain, gen):
+    """Run the paged verify kernel and its plain version on every
+    VERIFY_CASES shape over a shuffled pool, the table padded with -1
+    and out-of-range ids; yield (case, args, relative error, max abs
+    error)."""
+    H, KV, D, P = 32, 8, 128, 16
+    for case in VERIFY_CASES:
+        _, dt, lens, m, win, width = case
+        need = [-(-(s + m) // P) for s in lens]
+        width = width or max(need) + 2
+        need = [min(n, width) for n in need]
+        n_pages = sum(need) + 64
+        perm = torch.randperm(n_pages, generator=torch.Generator()
+                              .manual_seed(SEED)).int()
+        table = padded_table(torch, need, width, n_pages, perm).cuda()
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                getattr(torch, dt))
+
+        args = (rn(len(lens), m, H, D), rn(n_pages, P, KV, D),
+                rn(n_pages, P, KV, D), table,
+                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        out = kernel(*args, window=win)
+        torch.cuda.synchronize()
+        ref = plain(*args, window=win)
+        yield case, args, rel_err(out, ref), abs_err(out, ref)
+
+
+def phase_verify(torch, pv, plain, gen):
+    say("== phase 5: paged verify kernel vs plain ==")
+    H, KV, D, P = 32, 8, 128, 16
+    rows = {}
+    for case, args, rel, err in verify_readings(
+            torch, pv.paged_flash_verify, plain, gen):
+        label, dt, lens, m, win, _ = case
+        tol = TOL_REL[dt]
+        ms = cuda_ms(torch, lambda: pv.paged_flash_verify(
+            *args, window=win), 50)
+        plain_ms = cuda_ms(torch, lambda: plain(*args, window=win), 5,
+                           warmup=1)
+        flops, nbytes = verify_work(lens, m, args[3].shape[1], P, win, H,
+                                    KV, D, args[0].element_size())
+        bms, by = bound_ms(flops, nbytes,
+                           PEAK_BF16 if dt == "bfloat16" else PEAK_F32)
+        say(f"verify {label} {dt} B={len(lens)} m={m} window={win}: rel "
+            f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bms:.5f} ({by})")
+        check(rel <= tol, f"paged verify disagrees ({label}): {rel} > {tol}")
+        rows.setdefault((label, dt), dict(err=err, ms=ms, plain_ms=plain_ms,
+                                          bound_ms=bms, bound_by=by))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serving at Llama-3.1-8B width
+# ---------------------------------------------------------------------------
+
+ROUND1 = (2048, 2048, 1536, 1536, 1024, 1024, 512, 512)
+NEW_TOKENS = 64
+TURN_NEW = 128     # next-turn requests: prompt + output + these tokens
+B_PROMPT = 2048    # engine B's cold prompts
+EXTEND_NEW = 256   # engine B: round-1 prompts extended by these tokens
+HTTP_PROMPT, HTTP_NEW = 512, 16
+# Teacher-forced check: a generated token's logit in one dense prefill of
+# prompt + output may trail that row's maximum by at most delta =
+# DELTA_FACTOR x the bf16 logit noise between the kernel and plain
+# attention paths, measured in this run as the largest |logit|
+# difference over one dense prefill of a finished request (0.30 on an
+# H100 at 8B width). A sound engine emits the argmax t of logits that
+# differ from the dense ones by at most that noise, so the dense maximum
+# a leads t by at most |noise at a| + |noise at t|: twice the noise.
+# Sound requests read a gap of 0.16 there; a page-table row shifted by
+# one page reads 3.4.
+DELTA_FACTOR = 2.0
+
+
+class CountingModel:
+    """The port's llama module, counting the model calls the engine
+    makes (each runs one attention kernel per layer)."""
+
+    COUNTED = ("prefill", "prefill_with_prefix", "decode_step",
+               "verify_step")
+
+    def __init__(self, module):
+        self.module = module
+        self.calls = collections.Counter()
+
+    def __getattr__(self, name):
+        fn = getattr(self.module, name)
+        if name not in self.COUNTED:
+            return fn
+
+        def counted(*a, **kw):
+            self.calls[name] += 1
+            return fn(*a, **kw)
+        return counted
+
+
+class ContinuationProposer:
+    """Proposes the recorded continuation of a prompt while the context
+    still follows it (the regenerate requests of round 2)."""
+
+    def __init__(self):
+        self.known = {}  # prompt length -> {prompt tuple: continuation}
+
+    def add(self, prompt, continuation):
+        self.known.setdefault(len(prompt), {})[tuple(prompt)] = list(
+            continuation)
+
+    def __call__(self, context, k):
+        for n, table in self.known.items():
+            cont = table.get(tuple(context[:n]))
+            if cont is not None and context[n:] == cont[:len(context) - n]:
+                return cont[len(context) - n:len(context) - n + k]
+        return []
+
+
+def run_leg(torch, eng, name, reqs, report):
+    """Serve ``reqs`` to completion on ``eng``; print and record the
+    leg's numbers. Returns {request_id: tokens}."""
+    times = collections.defaultdict(list)
+
+    def on_token(rid, _tok):
+        times[rid].append(time.perf_counter())
+
+    for r in reqs:
+        r.on_token = on_token
+    before = dict(eng.stats)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {r.request_id: done[r.request_id] for r in reqs}
+    d = {k: eng.stats[k] - before[k] for k in eng.stats}
+    ttft = [(times[r.request_id][0] - t0) * 1e3 for r in reqs]
+    itl = [(t[-1] - t[0]) / (len(t) - 1) * 1e3 for t in times.values()
+           if len(t) > 1]
+    n_prompt = sum(len(r.prompt) for r in reqs)
+    n_gen = sum(len(v) for v in out.values())
+    leg = dict(requests=len(reqs), prompt_tokens=n_prompt,
+               generated_tokens=n_gen, wall_s=wall, gen_tok_s=n_gen / wall,
+               ttft_ms_p50=statistics.median(ttft), ttft_ms_max=max(ttft),
+               itl_ms_mean=statistics.mean(itl) if itl else None,
+               **{k: d[k] for k in ("prefix_hit_pages", "restored_pages",
+                                    "offloaded_pages", "spec_proposed",
+                                    "spec_accepted", "preemptions",
+                                    "chunk_steps", "burst_steps")})
+    say(f"serving {name}: {len(reqs)} requests, {n_prompt} prompt + "
+        f"{n_gen} generated tokens in {wall:.2f} s, {n_gen / wall:.1f} "
+        f"generated tok/s; TTFT p50 {leg['ttft_ms_p50']:.1f} max "
+        f"{leg['ttft_ms_max']:.1f} ms; mean inter-token "
+        f"{leg['itl_ms_mean'] or 0:.2f} ms; prefix_hit_pages "
+        f"{d['prefix_hit_pages']} restored_pages {d['restored_pages']} "
+        f"offloaded_pages {d['offloaded_pages']} spec "
+        f"{d['spec_accepted']}/{d['spec_proposed']} preemptions "
+        f"{d['preemptions']} chunk_steps {d['chunk_steps']} burst_steps "
+        f"{d['burst_steps']}")
+    report[name] = leg
+    return out
+
+
+def http_leg(torch, ServingHTTPServer, eng, prompts, report):
+    """4 concurrent /generate requests through the HTTP front end over
+    ``eng``: 2 streaming, 2 not."""
+    web = ServingHTTPServer(eng)
+    port = web.start()
+    results = [None] * len(prompts)
+
+    def client(i):
+        body = json.dumps({"prompt": prompts[i], "max_new_tokens": HTTP_NEW,
+                           "stream": i % 2 == 0}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/generate",
+                                     data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            status = resp.status
+            if i % 2:
+                results[i] = (status, None, json.loads(resp.read()))
+                return
+            streamed, final = [], None
+            for line in resp:
+                line = line.decode().strip()
+                if line.startswith("data: "):
+                    ev = json.loads(line[6:])
+                    if ev.get("done"):
+                        final = ev
+                    else:
+                        streamed.append(ev["token"])
+            results[i] = (status, streamed, final)
+
+    try:
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = time.perf_counter() - t0
+        stats = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/stats", timeout=60).read())
+    finally:
+        web.shutdown()
+    for i, res in enumerate(results):
+        check(res is not None and res[0] == 200, f"HTTP request {i}: {res}")
+        status, streamed, final = res
+        check(final is not None and len(final["tokens"]) == HTTP_NEW,
+              f"HTTP request {i} returned {final}")
+        if streamed is not None:
+            check(streamed == final["tokens"],
+                  f"HTTP request {i}: streamed tokens differ from the list")
+    check(stats["requests_done"] == len(prompts) and stats["engine_ok"],
+          f"HTTP /stats: {stats}")
+    leg = dict(requests=len(prompts), wall_s=wall,
+               ttft_ms_mean=stats.get("ttft_ms_mean"),
+               ttft_ms_max=stats.get("ttft_ms_max"),
+               tok_s_mean=stats.get("tok_s_mean"))
+    say(f"serving http: {len(prompts)} concurrent /generate (2 streaming) "
+        f"answered 200 in {wall:.2f} s; TTFT mean {leg['ttft_ms_mean']} max "
+        f"{leg['ttft_ms_max']} ms; tok/s per request {leg['tok_s_mean']}; "
+        f"/stats counts {stats['requests_done']}")
+    report["http"] = leg
+    return {i: results[i][2]["tokens"] for i in range(len(prompts))}
+
+
+def layer_checked_step(torch, llama, pv, plain, eng, window):
+    """One eng.step() whose verify attention runs the kernel and the
+    plain version side by side in every layer on that layer's own
+    inputs; returns the per-layer relative errors over the rows that have
+    a position to attend."""
+    rels = []
+
+    def both(q, kp, vp, pt, sl, window=0):
+        out = pv.paged_flash_verify(q, kp, vp, pt, sl, window=window)
+        ref = plain(q, kp, vp, pt, sl, window=window)
+        m = q.shape[1]
+        t_end = pt.shape[1] * kp.shape[1]
+        limit = sl.long()[:, None] + torch.arange(m, device=q.device) + 1
+        rows = (limit - window < t_end) if window else \
+            torch.ones_like(limit, dtype=torch.bool)
+        rels.append(rel_err(out[rows], ref[rows]))
+        return out
+
+    saved = llama.verify_attention
+    llama.verify_attention = both
+    try:
+        while not rels and (eng.queue or any(eng.slots)):
+            eng.step()
+    finally:
+        llama.verify_attention = saved
+    return rels
+
+
+def teacher_forced_gaps(torch, llama, params, cfg, pairs):
+    """For each (prompt, generated tokens): one dense prefill over prompt
+    + output; the gap between each generated token's logit and its row's
+    maximum. Returns (largest gap, exact-argmax share)."""
+    worst, exact, total = 0.0, 0, 0
+    for prompt, out in pairs:
+        toks = torch.tensor([list(prompt) + list(out)], dtype=torch.int32,
+                            device="cuda")
+        with torch.no_grad():
+            logits, _ = llama.prefill(params, cfg, toks)
+        rows = logits[0, len(prompt) - 1:len(prompt) - 1 + len(out)]
+        tok = torch.tensor(out, device="cuda").long()
+        gap = rows.max(dim=-1).values - rows.gather(1, tok[:, None])[:, 0]
+        worst = max(worst, gap.max().item())
+        exact += int((rows.argmax(dim=-1) == tok).sum())
+        total += len(out)
+        del logits
+    return worst, exact / max(total, 1)
+
+
+def logit_noise(torch, llama, plain_prefill, params, cfg, tokens):
+    """Largest |logit| difference between the dense prefill through the
+    flash kernel and through the plain attention, on ``tokens``."""
+    with torch.no_grad():
+        kernel_logits, _ = llama.prefill(params, cfg, tokens)
+        saved = llama.flash_prefill
+        llama.flash_prefill = plain_prefill
+        try:
+            plain_logits, _ = llama.prefill(params, cfg, tokens)
+        finally:
+            llama.flash_prefill = saved
+    return (kernel_logits - plain_logits).abs().max().item()
+
+
+def shifted_row_engine(serving, *a, **kw):
+    """An engine whose first slot's page-table row is shifted by one page
+    after admission: a planted bookkeeping fault."""
+    class Faulty(serving.ServingEngine):
+        def _do_admit_paged(self, slot_idx, *args, **kwargs):
+            super()._do_admit_paged(slot_idx, *args, **kwargs)
+            if slot_idx == 0:
+                row = self.page_table[0]
+                row[1:] = row[:-1].copy()
+                self._pages_rev += 1
+    return Faulty(*a, **kw)
+
+
+def start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens):
+    """A store server whose pool holds ``n_tokens`` tokens of KV at
+    ``cfg``'s geometry and dtype (growing if it must), after checking
+    /dev/shm."""
+    token_bytes = 2 * cfg.n_layers * cfg.kv_page_bytes() // cfg.page_size
+    pool_bytes = n_tokens * token_bytes
+    shm_free = shutil.disk_usage("/dev/shm").free
+    say(f"store: {token_bytes // 1024} KiB of KV per token, pool "
+        f"{pool_bytes / 2**30:.2f} GiB for {n_tokens} tokens, /dev/shm "
+        f"free {shm_free / 2**30:.1f} GiB")
+    check(shm_free > 1.5 * pool_bytes, "not enough /dev/shm for the pool")
+    srv = InfiniStoreServer(ServerConfig(
+        service_port=0, prealloc_size=pool_bytes / 2**30,
+        minimal_allocate_size=cfg.kv_page_bytes() // 1024,
+        auto_increase=True, extend_size=1,
+    ))
+    srv.start()
+    return srv
+
+
+def phase_serving(torch, np, params, report):
+    from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                       InfinityConnection, ServerConfig,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops.paged_attention import (
+        multi_token_paged_attention, prefill_attention)
+    from infinistore_tpu_torch.serving_http import ServingHTTPServer
+
+    say("== phase 6: serving at Llama-3.1-8B width, bf16 ==")
+    cfg = llama.LLAMA31_8B
+    L, P = cfg.n_layers, cfg.page_size
+    rng = np.random.default_rng(SEED + 6)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+    r1_prompts = [toks(n) for n in ROUND1]
+    turn_new = {i: toks(TURN_NEW) for i in (1, 3, 5, 7)}
+    b_cold = [toks(B_PROMPT) for _ in range(4)]
+    b_ext = {i: toks(EXTEND_NEW) for i in (0, 2, 4, 6)}
+    http_prompts = [toks(HTTP_PROMPT) for _ in range(4)]
+    # Tokens the store must hold: the distinct full pages every finished
+    # or preempted sequence offloads (repeats deduplicate), a quarter
+    # more for spare; the pool grows if that is short.
+    n_tokens = int(1.25 * (
+        sum(ROUND1) + 8 * NEW_TOKENS                  # round 1
+        + 4 * (TURN_NEW + 2 * NEW_TOKENS) + 4 * NEW_TOKENS  # round 2
+        + 4 * (B_PROMPT + EXTEND_NEW + 2 * NEW_TOKENS)  # engine B
+        + 4 * (HTTP_PROMPT + HTTP_NEW) + 2048))       # HTTP, checks
+    srv = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens)
+    conn = InfinityConnection(ClientConfig(
+        host_addr="127.0.0.1", service_port=srv.service_port,
+        connection_type=TYPE_SHM))
+    conn.connect()
+    check(conn.shm_connected, "SHM path not active")
+    store = tcuda.CudaKVStore(conn, "cuda")
+    model = CountingModel(llama)
+    proposer = ContinuationProposer()
+    try:
+        eng_a = serving.ServingEngine(
+            params, cfg, serving.ServingConfig(
+                max_slots=8, spec_k=4, max_pages_per_seq=160,
+                total_pages=8 * 160 + 1),
+            store=store, proposer=proposer, model=model)
+        eng_b = serving.ServingEngine(
+            params, cfg, serving.ServingConfig(
+                max_slots=4, prefill_chunk=512, host_steps=4,
+                max_pages_per_seq=160, total_pages=4 * B_PROMPT // P + 9),
+            store=store, model=model)
+        say(f"engine A: 8 slots, spec_k 4, {eng_a.sc.total_pages} pool "
+            f"pages; engine B: 4 slots, chunk 512, host_steps 4, "
+            f"{eng_b.sc.total_pages} pool pages (room for its 4 cold "
+            f"prompts and 8 pages more)")
+
+        fa.reset_launches()
+        pd.reset_launches()
+        pv.reset_launches()
+        model.calls.clear()
+        finished = []  # (prompt, tokens) of every finished request
+
+        # -- round 1: 8 cold requests --
+        reqs = [serving.Request(f"r1_{i}", p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(r1_prompts)]
+        out1 = run_leg(torch, eng_a, "round1", reqs, report)
+        finished += [(r.prompt, out1[r.request_id]) for r in reqs]
+        r1_out = [out1[f"r1_{i}"] for i in range(len(ROUND1))]
+
+        # -- round 2: 4 regenerate + 4 next-turn requests --
+        reqs = []
+        for i, p in enumerate(r1_prompts):
+            if i % 2 == 0:
+                proposer.add(p, r1_out[i])
+                reqs.append(serving.Request(f"regen_{i}", p,
+                                            max_new_tokens=NEW_TOKENS))
+            else:
+                reqs.append(serving.Request(
+                    f"turn_{i}", p + r1_out[i] + turn_new[i],
+                    max_new_tokens=NEW_TOKENS))
+        out2 = run_leg(torch, eng_a, "round2", reqs, report)
+        finished += [(r.prompt, out2[r.request_id]) for r in reqs]
+
+        # -- engine B: chunked prefill, bursts, preemption --
+        reqs = [serving.Request(f"b_cold_{i}", p, max_new_tokens=NEW_TOKENS)
+                for i, p in enumerate(b_cold)]
+        reqs += [serving.Request(f"b_ext_{i}", r1_prompts[i] + b_ext[i],
+                                 max_new_tokens=NEW_TOKENS)
+                 for i in (0, 2, 4, 6)]
+        outb = run_leg(torch, eng_b, "engineB", reqs, report)
+        finished += [(r.prompt, outb[r.request_id]) for r in reqs]
+
+        # -- the HTTP front end over engine A --
+        outh = http_leg(torch, ServingHTTPServer, eng_a, http_prompts,
+                        report)
+        finished += [(http_prompts[i], outh[i]) for i in outh]
+        torch.cuda.synchronize()
+
+        calls = dict(model.calls)
+        k1, k2, k3 = fa.launches, pd.launches, pv.launches
+        n_pf = calls.get("prefill", 0) + calls.get("prefill_with_prefix", 0)
+        say(f"serving launches: flash_prefill {k1} (= {L} x {n_pf} "
+            f"prefills), paged_decode {k2} (= {L} x "
+            f"{calls.get('decode_step', 0)} decode steps), paged_verify "
+            f"{k3} (= {L} x {calls.get('verify_step', 0)} verify steps)")
+        check(k1 == L * n_pf and k1 > 0, "flash prefill launch count")
+        check(k2 == L * calls.get("decode_step", 0) and k2 > 0,
+              "paged decode launch count")
+        check(k3 == L * calls.get("verify_step", 0) and k3 > 0,
+              "paged verify launch count")
+        report["launches"] = {"flash_prefill": k1, "paged_decode": k2,
+                              "paged_verify": k3}
+        tot = {k: eng_a.stats[k] + eng_b.stats[k] for k in eng_a.stats}
+        say(f"engine stats (A + B): {json.dumps(tot)}")
+        for key, lo in (("prefix_hit_pages", 1), ("spec_proposed", 1),
+                        ("chunk_steps", 1), ("burst_steps", 1),
+                        ("preemptions", 1)):
+            check(tot[key] >= lo, f"serving never exercised {key}")
+
+        # ---- checks outside the counted run ----
+        # K3 against its plain version in every layer, on the engines'
+        # own inputs: one speculative step (engine A, a proposer that
+        # always drafts) and one 512-token chunk step (engine B).
+        eng_a.proposer = lambda ctx, k: [ctx[-1]] * k
+        eng_a.submit(serving.Request("check_spec", r1_prompts[6],
+                                     max_new_tokens=8))
+        spec_rel = layer_checked_step(torch, llama, pv,
+                                      multi_token_paged_attention, eng_a,
+                                      cfg.window)
+        eng_a.run()
+        eng_b.submit(serving.Request("check_chunk", toks(1024),
+                                     max_new_tokens=4))
+        chunk_rel = layer_checked_step(torch, llama, pv,
+                                       multi_token_paged_attention, eng_b,
+                                       cfg.window)
+        eng_b.run()
+        for name, rels in (("speculative", spec_rel), ("chunk", chunk_rel)):
+            worst = max(rels)
+            say(f"{name} step, K3 vs plain attention in each of {len(rels)} "
+                f"layers: worst rel err {worst:.3e} (layer "
+                f"{rels.index(worst)}, tol {TOL_REL['bfloat16']:g})")
+            check(len(rels) == L and worst <= TOL_REL["bfloat16"],
+                  f"paged verify kernel vs plain on the {name} step")
+
+        # Teacher-forced check of every finished request.
+        noise_seq = finished[0]
+        noise = logit_noise(
+            torch, llama, prefill_attention, params, cfg,
+            torch.tensor([noise_seq[0] + noise_seq[1]], dtype=torch.int32,
+                         device="cuda"))
+        delta = DELTA_FACTOR * noise
+        t0 = time.perf_counter()
+        worst, exact = teacher_forced_gaps(torch, llama, params, cfg,
+                                           finished)
+        say(f"teacher-forced check of {len(finished)} finished requests "
+            f"({time.perf_counter() - t0:.1f} s): largest gap to the dense "
+            f"row maximum {worst:.4f}, exact argmax share {exact:.4f}; "
+            f"delta {delta:.4f} = {DELTA_FACTOR:g} x logit noise "
+            f"{noise:.4f} (flash kernel vs plain attention, dense prefill "
+            f"of {len(noise_seq[0]) + len(noise_seq[1])} tokens)")
+        check(worst <= delta, f"teacher-forced gap {worst} > delta {delta}")
+        # The check bites: a page-table row shifted by one page.
+        faulty = shifted_row_engine(
+            serving, params, cfg, serving.ServingConfig(
+                max_slots=2, max_pages_per_seq=40, total_pages=81))
+        fp = r1_prompts[6]
+        fout = faulty.run([serving.Request("fault", fp, max_new_tokens=16)])
+        fgap, fexact = teacher_forced_gaps(torch, llama, params, cfg,
+                                           [(fp, fout["fault"])])
+        say(f"planted fault (slot 0's page-table row shifted by one page): "
+            f"largest gap {fgap:.4f} ({fgap / delta:.1f} x delta), exact "
+            f"argmax share {fexact:.4f}")
+        check(fgap > 2 * delta, "the teacher-forced check missed a "
+              "shifted page-table row")
+        report["teacher_forced"] = dict(
+            requests=len(finished), worst_gap=worst, exact_share=exact,
+            delta=delta, logit_noise=noise, fault_gap=fgap)
+        del eng_a, eng_b, faulty
+    finally:
+        store.close()
+        conn.close()
+        srv.stop()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 7: exact parity at float32
+# ---------------------------------------------------------------------------
+
+F32_LAYERS = 4
+F32_PROMPTS = (2048, 1536, 1024, 512)
+F32_NEW = 32
+
+
+def phase_f32(torch, np, report):
+    from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                       InfinityConnection, ServerConfig,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import llama
+
+    say(f"== phase 7: exact parity at float32, Llama-3.1-8B widths, "
+        f"{F32_LAYERS} layers ==")
+    cfg = dataclasses.replace(llama.LLAMA31_8B, n_layers=F32_LAYERS,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 7), cfg, "cuda")
+    torch.cuda.synchronize()
+    say(f"model: {F32_LAYERS} layers float32 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in F32_PROMPTS]
+    ample = dict(max_slots=4, max_pages_per_seq=160, total_pages=4 * 160 + 1)
+
+    def requests(ps, tag):
+        return [serving.Request(f"{tag}{i}", p, max_new_tokens=F32_NEW)
+                for i, p in enumerate(ps)]
+
+    def served(eng, reqs, name):
+        t0 = time.perf_counter()
+        out = eng.run(reqs)
+        torch.cuda.synchronize()
+        say(f"f32 {name}: {len(reqs)} requests in "
+            f"{time.perf_counter() - t0:.2f} s; stats "
+            f"{json.dumps({k: v for k, v in eng.stats.items() if v})}")
+        return [out[r.request_id] for r in reqs]
+
+    ref = served(serving.ServingEngine(
+        params, cfg, serving.ServingConfig(**ample)), requests(prompts, "r"),
+        "reference (plain, store-less)")
+    srv = start_store(InfiniStoreServer, ServerConfig, cfg,
+                      2 * sum(F32_PROMPTS) * 2)
+    conn = InfinityConnection(ClientConfig(
+        host_addr="127.0.0.1", service_port=srv.service_port,
+        connection_type=TYPE_SHM))
+    conn.connect()
+    store = tcuda.CudaKVStore(conn, "cuda")
+    try:
+        oracle = ContinuationProposer()
+        for p, o in zip(prompts, ref):
+            oracle.add(p, o)
+        spec_eng = serving.ServingEngine(
+            params, cfg, serving.ServingConfig(spec_k=4, **ample),
+            proposer=oracle)
+        spec = served(spec_eng, requests(prompts, "s"), "spec_k 4")
+        check(spec == ref, "f32 speculative tokens differ from the plain "
+              "engine's")
+        check(spec_eng.stats["spec_accepted"] > 0, "f32 spec accepted none")
+
+        need = sum(-(-n // cfg.page_size) for n in F32_PROMPTS)
+        chunk_eng = serving.ServingEngine(
+            params, cfg, serving.ServingConfig(
+                max_slots=4, prefill_chunk=256, host_steps=4,
+                max_pages_per_seq=160, total_pages=need + 5),
+            store=store)
+        chunk = served(chunk_eng, requests(prompts, "c"),
+                       "chunk 256 + host_steps 4 + store, tight pool")
+        check(chunk == ref, "f32 chunked/multi-step/preempted tokens differ "
+              "from the plain engine's")
+        check(chunk_eng.stats["preemptions"] >= 1 and
+              chunk_eng.stats["chunk_steps"] > 0 and
+              chunk_eng.stats["burst_steps"] > 0,
+              "f32 chunk leg did not preempt, chunk and burst")
+
+        turn2 = [p + o + [int(t) for t in rng.integers(0, cfg.vocab_size,
+                                                       64)]
+                 for p, o in zip(prompts, ref)]
+        ref2 = served(serving.ServingEngine(
+            params, cfg, serving.ServingConfig(**ample)),
+            requests(turn2, "t"), "round 2 reference (store-less)")
+        hit_eng = serving.ServingEngine(
+            params, cfg, serving.ServingConfig(**ample), store=store)
+        hit = served(hit_eng, requests(turn2, "h"), "round 2 with the store")
+        check(hit == ref2, "f32 store-backed round 2 tokens differ from the "
+              "plain engine's")
+        check(hit_eng.stats["prefix_hit_pages"] > 0, "f32 round 2 never hit")
+        say("f32 parity: speculative, chunked + multi-step + preempting "
+            "through the store, and a store-backed second round all give "
+            "the plain engine's tokens exactly")
+        report["f32"] = dict(
+            spec_accepted=spec_eng.stats["spec_accepted"],
+            preemptions=chunk_eng.stats["preemptions"],
+            prefix_hit_pages=hit_eng.stats["prefix_hit_pages"])
+    finally:
+        store.close()
+        conn.close()
+        srv.stop()
+    del params
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -623,27 +1287,59 @@ def main():
 
     from infinistore_tpu_torch import _native
     from infinistore_tpu_torch._device import disable_tf32
+    from infinistore_tpu_torch.models import llama
     from infinistore_tpu_torch.ops import _kernels
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_verify as pv
     from infinistore_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, prefill_attention)
+        multi_token_paged_attention, paged_decode_attention,
+        prefill_attention)
 
     t_start = time.perf_counter()
     card = card_line()
     say(f"== phase 1: device and build ==\ncard: {card}")
     disable_tf32()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        say(f"-- {name}: {phase_s[name]:.1f} s")
+        return out
+
     try:
-        build_all(_native, _kernels)
+        timed("build", build_all, _native, _kernels)
         gen = torch.Generator(device="cuda").manual_seed(SEED)
-        k1 = phase_flash(torch, fa, prefill_attention, gen)
-        phase_decode(torch, pd, paged_decode_attention, gen)
+        k1 = timed("flash", phase_flash, torch, fa, prefill_attention, gen)
+        timed("decode", phase_decode, torch, pd, paged_decode_attention,
+              gen)
+        t0 = time.perf_counter()
+        params = llama.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED),
+            llama.LLAMA31_8B, "cuda")
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in
+                       [params["embed"], params["lm_head"],
+                        params["final_ln"]]
+                       + [w for la in params["layers"] for w in la.values()])
+        say(f"model: {n_params / 1e9:.2f} B params bf16 in "
+            f"{time.perf_counter() - t0:.1f} s")
         report = {}
-        phase_main(torch, np, report)
+        timed("main path", phase_main, torch, np, report, params)
+        k3 = timed("verify", phase_verify, torch, pv,
+                   multi_token_paged_attention, gen)
+        serve_report = {}
+        timed("serving", phase_serving, torch, np, params, serve_report)
+        del params
+        torch.cuda.empty_cache()
+        timed("f32 parity", phase_f32, torch, np, serve_report)
     except SmokeError as e:
         say(f"FAIL: {e}")
         return 1
     k2 = report["k2"]
+    k3 = k3[("spec", "bfloat16")]
     kernels = [
         {"name": "flash_prefill", "route": "cuda",
          "source": "infinistore_tpu_torch/csrc/flash_prefill.cu",
@@ -659,10 +1355,19 @@ def main():
          "max_abs_err": k2["err"], "ms": k2["ms"],
          "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
+        {"name": "paged_verify", "route": "cuda",
+         "source": "infinistore_tpu_torch/csrc/paged_verify.cu",
+         "replaces": "infinistore_tpu/ops/pallas_paged_attention.py:364",
+         "launches": serve_report["launches"]["paged_verify"],
+         "max_abs_err": k3["err"], "ms": k3["ms"],
+         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "bound_by": k3["bound_by"], "library_ms": None},
     ]
     main_path = {k: v for k, v in report.items()
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))
+    say("serving: " + json.dumps(serve_report))
+    say("phase seconds: " + json.dumps(phase_s))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)

@@ -4,11 +4,12 @@ The counterpart of ``infinistore_tpu/models/llama.py``: the same
 ``LlamaConfig``, the same parameter leaf names (a plain dict), the same
 GQA + RoPE (with Llama-3.1 scaling) + SwiGLU stack, and the same page
 layout the store moves. Attention goes only through the dispatchers of
-``ops.flash_attention`` and ``ops.paged_flash_decode``: the CUDA kernels
-for tensors on the card, their plain versions for CPU tensors.
+``ops.flash_attention``, ``ops.paged_flash_decode`` and
+``ops.paged_flash_verify``: the CUDA kernels for tensors on the card,
+their plain versions for CPU tensors.
 
-Not in this module yet: ``verify_step``, ``loss_fn``/``train_step`` and
-int8 weights (``quantize_params``).
+Not in this module yet: ``loss_fn``/``train_step`` and int8 weights
+(``quantize_params``).
 """
 
 import functools
@@ -23,6 +24,7 @@ from .._device import disable_tf32, resolve_device
 from ..ops.flash_attention import flash_prefill
 from ..ops.paged_attention import drop_mode_rows, scatter_rows
 from ..ops.paged_flash_decode import decode_attention
+from ..ops.paged_flash_verify import verify_attention
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                  "float16": torch.float16}
@@ -329,6 +331,62 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
         x = x + _mlp(layer, x, cfg)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x[:, 0]), k_pages, v_pages
+
+
+@torch.no_grad()
+def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
+                v_pages, page_table, valid_len=None):
+    """m-token decode over paged KV: speculative decoding's verify step
+    and the chunked-prefill inner step. Consumes m tokens per sequence in
+    one pass and returns next-token logits at every one of the m
+    positions, as if ``decode_step`` had run m times.
+
+    tokens:     [batch, m] int — token j lands at position seq_lens[b] + j
+    seq_lens:   [batch] int32 — tokens already in cache (excl. these m)
+    k_pages/v_pages: [n_layers, n_pages, page, n_kv, hd]
+    page_table: [batch, max_pages] int32
+    valid_len:  [batch] int or None — real tokens per row; padded columns
+                (j >= valid_len[b]) write their KV into page 0 (the
+                engine's scratch page) at slot j % page_size. None: all m
+                are real.
+
+    The m tokens' KV is scattered into the pages IN PLACE: ``k_pages``
+    and ``v_pages`` are updated and returned (the JAX version returns new
+    arrays). A position past the page table is dropped. Returns (logits
+    [batch, m, vocab] float32, k_pages, v_pages)."""
+    disable_tf32()
+    b, m = tokens.shape
+    n_pages = k_pages.shape[1]
+    page = cfg.page_size
+    x = _embed(params, tokens, cfg)  # [b, m, d]
+    cols = torch.arange(m, device=tokens.device)
+    positions = seq_lens.long()[:, None] + cols[None, :]
+    page_idx = positions // page
+    in_table = page_idx < page_table.shape[1]
+    target_page = page_table.gather(
+        1, page_idx.clamp(max=page_table.shape[1] - 1)).long()
+    # A position past the table has no page: aim it outside the pool so
+    # the scatter drops it.
+    target_page = torch.where(in_table, target_page, n_pages)
+    slot = positions % page
+    if valid_len is not None:
+        ok = cols[None, :] < valid_len.to(tokens.device).long()[:, None]
+        target_page = torch.where(ok, target_page, 0)
+        slot = torch.where(ok, slot, (cols % page)[None, :])
+    # Every layer writes the same (page, slot) targets: find them once.
+    entries, rows = drop_mode_rows(target_page, slot, n_pages, page)
+    lens = seq_lens.to(torch.int32)
+
+    for li, layer in enumerate(params["layers"]):
+        q, k, v = _qkv(layer, x, cfg, positions)
+        kp = scatter_rows(k_pages[li], k, entries, rows)
+        vp = scatter_rows(v_pages[li], v, entries, rows)
+        attn = verify_attention(q.contiguous(), kp, vp, page_table, lens,
+                                window=cfg.window)
+        x = x + _attn_out(layer, attn.reshape(b, m, -1))
+        x = x + _mlp(layer, x, cfg)
+    x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
+    return _logits(params, x), k_pages, v_pages
 
 
 # ---------------------------------------------------------------------------

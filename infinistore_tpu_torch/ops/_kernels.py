@@ -39,6 +39,10 @@ _DECLS = {
     # B, H, KV, D, N, P, max_pages, window, stream
     "istpu_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _P],
+    # q, k_pages, v_pages, page_table, seq_lens, out, is_bf16,
+    # B, m, H, KV, D, N, P, max_pages, window, stream
+    "istpu_paged_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,9 +1,10 @@
 """Paged-KV attention ops in plain PyTorch.
 
 The counterpart of ``infinistore_tpu/ops/paged_attention.py``. These are
-the CPU path of the port and the oracle both CUDA kernels are held to:
-``flash_prefill`` and ``paged_flash_decode`` take these functions for CPU
-tensors and a hand-written kernel for CUDA tensors.
+the CPU path of the port and the oracle its CUDA kernels are held to:
+``flash_prefill``, ``decode_attention`` and ``verify_attention`` take
+these functions for CPU tensors and a hand-written kernel for CUDA
+tensors.
 
 Precision follows the JAX package's ``matmul_precision``: float32 stays
 true float32 (no TF32 — the entry points switch TF32 off), and bf16
@@ -115,6 +116,44 @@ def prefill_attention(q, k, v, causal=True, window=0):
         logits = logits.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return out.to(q.dtype)
+
+
+def multi_token_paged_attention(q, k_pages, v_pages, page_table, seq_lens,
+                                window=0):
+    """m-token attention over paged KV: the verify step of speculative
+    decoding and the inner op of chunked prefill.
+
+    q: [batch, m, n_heads, hd], m new tokens per sequence whose KV is
+    already scattered into the pages at positions seq_lens[b] + j;
+    k_pages/v_pages: [n_pages, page, n_kv, hd]; page_table: [batch,
+    max_pages] int32 (ids clamped into the pool); seq_lens: [batch] int32,
+    tokens in the cache BEFORE these m, so token j sees positions
+    < seq_lens[b] + j + 1 and, with a window, >= that limit - window.
+    Returns [batch, m, n_heads, hd]."""
+    batch, m, n_heads, hd = q.shape
+    page = k_pages.shape[1]
+    n_kv = k_pages.shape[2]
+    max_pages = page_table.shape[1]
+    n_rep = n_heads // n_kv
+
+    k = gather_pages(k_pages, page_table).reshape(
+        batch, max_pages * page, n_kv, hd)
+    v = gather_pages(v_pages, page_table).reshape(
+        batch, max_pages * page, n_kv, hd)
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    logits = torch.einsum("bmhd,bthd->bhmt", q.float(), k.float()) \
+        * hd ** -0.5
+    t_pos = torch.arange(max_pages * page, device=q.device)[None, None, :]
+    limit = (seq_lens.long()[:, None]
+             + torch.arange(m, device=q.device)[None, :] + 1)[..., None]
+    valid = t_pos < limit  # [b, m, T]
+    if window:
+        valid &= t_pos >= limit - window
+    logits = logits.masked_fill(~valid[:, None], _NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bhmt,bthd->bmhd", probs.float(), v.float())
     return out.to(q.dtype)
 
 

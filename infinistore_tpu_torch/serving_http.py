@@ -1,0 +1,365 @@
+"""Network serving front end over :class:`ServingEngine`: the port's own
+copy of ``infinistore_tpu/serving_http.py`` (which imports no JAX), with
+the same API and concurrency model (the reference delegates this layer
+to vLLM, design.rst:54-63; this package owns the engine, so it owns the
+serving edge too).
+
+Stdlib-only (`http.server`, matching the control plane's choice): one
+dedicated ENGINE THREAD drives the continuous-batching loop; HTTP
+handler threads submit requests into it and stream tokens back as they
+are produced.
+
+API:
+
+- ``POST /generate`` — JSON body::
+
+      {"prompt": [token ids], "max_new_tokens": 16, "temperature": 0.0,
+       "top_k": 0, "seed": 0, "stream": true}
+
+  With ``stream`` (default true) the response is chunked
+  ``text/event-stream``: one ``data: {"token": t}`` event per generated
+  token as the engine emits it (through speculation bursts, chunked
+  prefill and preemptions alike — on_token ordering is the engine's
+  exactly-once contract), then ``data: {"done": true, "tokens": [...],
+  "ttft_ms": ..., "tok_s": ...}``. Without it, one JSON object with the
+  full output and the same timings.
+- ``GET /stats`` — engine counters plus per-request serving metrics:
+  requests served, mean/max TTFT ms, mean tok/s, in-flight count.
+- ``GET /health`` — liveness.
+
+Concurrency model: the engine is single-threaded by design (one decode
+loop, whose CUDA work runs on that thread's default stream); the HTTP
+layer is the multiplexer. Handler threads never
+touch the engine — they talk to it through thread-safe queues, so N
+concurrent clients batch into the SAME decode steps (continuous
+batching), which is the entire point of the engine.
+"""
+
+import json
+import queue
+import threading
+import time
+import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from .serving import Request
+
+_DONE = object()
+
+
+class _ReqState:
+    __slots__ = ("queue", "submit_t", "first_t", "done_t", "n_tokens",
+                 "tokens")
+
+    def __init__(self):
+        self.queue = queue.Queue()
+        self.submit_t = time.perf_counter()
+        self.first_t = None
+        self.done_t = None
+        self.n_tokens = 0
+        self.tokens = None
+
+
+class ServingHTTPServer:
+    """HTTP front end over one engine. ``serve_forever`` blocks; use
+    ``start()`` for a background thread (tests, embedding)."""
+
+    def __init__(self, engine, host="127.0.0.1", port=0):
+        self.engine = engine
+        self._submit = queue.Queue()
+        self._reqs = {}  # in-flight only: completed entries fold into _agg
+        self._agg = {"done": 0, "ttft_sum": 0.0, "ttft_max": 0.0,
+                     "tok_s_sum": 0.0, "tok_s_n": 0}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._broken = False
+        self._engine_thread = None
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *a):  # quiet; /stats is the signal
+                pass
+
+            def _json(self, code, obj):
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/health":
+                    self._json(200, {"status": "ok"})
+                elif self.path == "/stats":
+                    self._json(200, outer.stats())
+                else:
+                    self._json(404, {"error": "not found"})
+
+            def do_POST(self):
+                if self.path != "/generate":
+                    self._json(404, {"error": "not found"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                    prompt = [int(t) for t in req["prompt"]]
+                except Exception as e:
+                    self._json(400, {"error": f"bad request: {e}"})
+                    return
+                stream = bool(req.get("stream", True))
+                try:
+                    rid, st = outer.submit_request(
+                        prompt,
+                        max_new_tokens=int(req.get("max_new_tokens", 16)),
+                        temperature=float(req.get("temperature", 0.0)),
+                        top_k=int(req.get("top_k", 0)),
+                        seed=int(req.get("seed", 0)),
+                    )
+                except ValueError as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                if not stream:
+                    while True:
+                        item = outer._next_item(rid, st)
+                        if item is _DONE:
+                            break
+                    self._json(200, outer._result(rid, st))
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", "text/event-stream")
+                self.send_header("Cache-Control", "no-cache")
+                self.send_header("Transfer-Encoding", "chunked")
+                self.end_headers()
+
+                def chunk(obj):
+                    data = f"data: {json.dumps(obj)}\n\n".encode()
+                    self.wfile.write(
+                        f"{len(data):x}\r\n".encode() + data + b"\r\n"
+                    )
+                    self.wfile.flush()
+
+                while True:
+                    item = outer._next_item(rid, st)
+                    if item is _DONE:
+                        break
+                    chunk({"token": item})
+                chunk({"done": True, **outer._result(rid, st)})
+                self.wfile.write(b"0\r\n\r\n")
+                self.wfile.flush()
+
+        self.httpd = ThreadingHTTPServer((host, port), Handler)
+        self.httpd.daemon_threads = True
+        self.port = self.httpd.server_address[1]
+
+    # -- engine side ---------------------------------------------------
+
+    def submit_request(self, prompt, **kw):
+        # Validate BEFORE registering: a rejected request must not leave
+        # an orphaned _ReqState inflating the in-flight count forever.
+        # (These mirror engine.submit's cheap checks so the HTTP client
+        # gets a 400 rather than a hung stream.)
+        if len(prompt) < 1:
+            raise ValueError("empty prompt")
+        if kw.get("max_new_tokens", 16) < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        rid = uuid.uuid4().hex[:16]
+        st = _ReqState()
+
+        def on_token(_rid, tok):
+            if st.first_t is None:
+                st.first_t = time.perf_counter()
+            st.n_tokens += 1
+            st.queue.put(int(tok))
+
+        req = Request(rid, prompt, on_token=on_token, **kw)
+        # Register and enqueue under ONE lock hold, with the _broken
+        # check inside it: the engine's failure path flips _broken and
+        # snapshots _reqs under the same lock, so every request is
+        # either (a) registered before the flip — in the snapshot, gets
+        # failed — or (b) sees _broken and is rejected here. Without
+        # this a request registering between the flip and the snapshot
+        # would hang its handler forever.
+        with self._lock:
+            if self._broken:
+                raise ValueError("engine is down")
+            self._reqs[rid] = st
+            self._submit.put((rid, req))
+        return rid, st
+
+    def _next_item(self, rid, st):
+        """Handler-side dequeue with a liveness backstop: if the engine
+        died (or the server is shutting down) and this request somehow
+        missed its failure delivery, bail out as done instead of
+        blocking the HTTP thread forever. The bail path retires the
+        request from the in-flight map AND folds it into the served
+        aggregates — _finish_req never ran for it, and a request must
+        not vanish from both requests_inflight and requests_done."""
+        while True:
+            try:
+                return st.queue.get(timeout=1.0)
+            except queue.Empty:
+                if self._broken or self._stop.is_set():
+                    if st.done_t is None:
+                        st.done_t = time.perf_counter()
+                    if st.tokens is None:
+                        st.tokens = []
+                    with self._lock:
+                        if self._reqs.pop(rid, None) is not None:
+                            self._fold_locked(st)
+                    return _DONE
+
+    def _result(self, rid, st):
+        ttft = (st.first_t - st.submit_t) * 1e3 if st.first_t else None
+        dur = (st.done_t or time.perf_counter()) - st.submit_t
+        return {
+            "request_id": rid,
+            "tokens": st.tokens,
+            "ttft_ms": round(ttft, 2) if ttft is not None else None,
+            "tok_s": round(st.n_tokens / dur, 1) if dur > 0 else None,
+        }
+
+    def _fold_locked(self, st):
+        """Fold one finished request into the running aggregates.
+        Caller holds self._lock and has already popped it from _reqs."""
+        a = self._agg
+        a["done"] += 1
+        if st.first_t is not None:
+            ttft = (st.first_t - st.submit_t) * 1e3
+            a["ttft_sum"] += ttft
+            a["ttft_max"] = max(a["ttft_max"], ttft)
+        if st.done_t > st.submit_t:
+            a["tok_s_sum"] += st.n_tokens / (st.done_t - st.submit_t)
+            a["tok_s_n"] += 1
+
+    def _finish_req(self, rid, st, tokens):
+        """Deliver a completion and fold its metrics into the running
+        aggregates; the _ReqState leaves _reqs so server memory and
+        /stats cost stay O(in-flight), not O(requests ever served)."""
+        st.tokens = tokens
+        st.done_t = time.perf_counter()
+        with self._lock:
+            if self._reqs.pop(rid, None) is not None:
+                self._fold_locked(st)
+        st.queue.put(_DONE)
+
+    def stats(self):
+        eng = dict(self.engine.stats)
+        with self._lock:
+            a = dict(self._agg)
+            live = len(self._reqs)
+        out = {
+            "engine": eng,
+            "requests_done": a["done"],
+            "requests_inflight": live,
+            "engine_ok": not self._broken,
+        }
+        if a["done"]:
+            out["ttft_ms_mean"] = round(a["ttft_sum"] / a["done"], 2)
+            out["ttft_ms_max"] = round(a["ttft_max"], 2)
+        if a["tok_s_n"]:
+            out["tok_s_mean"] = round(a["tok_s_sum"] / a["tok_s_n"], 1)
+        return out
+
+    def _engine_loop(self):
+        """The single engine driver: admit newly submitted requests,
+        step the continuous batch, and deliver completions. Handler
+        threads only ever touch the queues."""
+        eng = self.engine
+        while not self._stop.is_set():
+            progressed = False
+            while True:
+                try:
+                    rid, req = self._submit.get_nowait()
+                except queue.Empty:
+                    break
+                with self._lock:
+                    st = self._reqs.get(rid)
+                try:
+                    eng.submit(req)
+                except Exception:
+                    # Impossible request (e.g. needs more pages than the
+                    # engine has): deliver an empty result rather than
+                    # hanging the client.
+                    if st is not None:
+                        self._finish_req(rid, st, [])
+                    continue
+                progressed = True
+            if eng.queue or any(s is not None for s in eng.slots):
+                before_out = len(eng.outputs)
+                try:
+                    decoded = eng.step()
+                except Exception:
+                    # A failed device step leaves the engine's pools in
+                    # an undefined state (a half-written step): go DOWN
+                    # cleanly — fail every waiting client instead of
+                    # leaving them blocked on silent queues, and refuse
+                    # new work (/stats reports engine_ok: false).
+                    # _broken flips under the SAME lock submit_request
+                    # registers under, so the pending snapshot is
+                    # complete: late submitters see _broken and get a
+                    # 400; everyone else is in the snapshot. The _submit
+                    # queue is then drained for hygiene — every entry in
+                    # it is also in the snapshot.
+                    with self._lock:
+                        self._broken = True
+                        pending = list(self._reqs.items())
+                    while True:
+                        try:
+                            self._submit.get_nowait()
+                        except queue.Empty:
+                            break
+                    for rid, st in pending:
+                        self._finish_req(rid, st, [])
+                    return
+                if (decoded == 0 and len(eng.outputs) == before_out
+                        and eng.queue
+                        and not any(s is not None for s in eng.slots)):
+                    # Every slot (hence the whole pool) is free and the
+                    # head request still cannot admit: it never will.
+                    # Fail IT with whatever it produced, keep serving
+                    # (run()'s stall rule, without killing the server).
+                    work = eng.queue.pop(0)
+                    eng.outputs[work.req.request_id] = list(work.done)
+                progressed = True
+                for rid in list(eng.outputs):
+                    out = eng.outputs.pop(rid)
+                    with self._lock:
+                        st = self._reqs.get(rid)
+                    if st is None:
+                        continue
+                    self._finish_req(rid, st, out)
+            if not progressed:
+                time.sleep(0.002)
+
+    # -- lifecycle -----------------------------------------------------
+
+    def start(self):
+        self._engine_thread = threading.Thread(
+            target=self._engine_loop, name="istpu-engine", daemon=True
+        )
+        self._engine_thread.start()
+        self._http_thread = threading.Thread(
+            target=self.httpd.serve_forever, name="istpu-http", daemon=True
+        )
+        self._http_thread.start()
+        return self.port
+
+    def serve_forever(self):
+        self._engine_thread = threading.Thread(
+            target=self._engine_loop, name="istpu-engine", daemon=True
+        )
+        self._engine_thread.start()
+        self.httpd.serve_forever()
+
+    def shutdown(self):
+        self._stop.set()
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        if self._engine_thread is not None:
+            self._engine_thread.join(timeout=30)
+
+
+__all__ = ["ServingHTTPServer"]

@@ -35,8 +35,9 @@ def test_port_imports_and_runs_with_jax_blocked():
         import infinistore_tpu_torch
         import infinistore_tpu_torch.server, infinistore_tpu_torch.cluster
         from infinistore_tpu_torch import cuda
-        from infinistore_tpu_torch.example import demo_prefill
+        from infinistore_tpu_torch.example import demo_prefill, serve
         from infinistore_tpu_torch.models import llama
+        from infinistore_tpu_torch import serving, serving_http
         cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=1,
                                 n_heads=2, n_kv_heads=1, d_ff=64,
                                 page_size=4, dtype="float32")
@@ -49,6 +50,10 @@ def test_port_imports_and_runs_with_jax_blocked():
         lg, _, _ = llama.decode_step(p, cfg, tok[:, 0], torch.tensor(
             [5], dtype=torch.int32), kp, kp.clone(), table)
         assert torch.isfinite(lg).all()
+        eng = serving.ServingEngine(p, cfg, serving.ServingConfig(
+            max_slots=2, total_pages=8, spec_k=2), device="cpu")
+        out = eng.run([serving.Request("r", [1, 2, 3, 1, 2], 4)])
+        assert len(out["r"]) == 4
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ISOLATED_OK")
@@ -71,7 +76,11 @@ def _sources():
 
 def test_no_source_imports_jax_or_the_jax_package():
     offenders = []
-    for path in _sources():
+    paths = list(_sources())
+    for mod in ("serving.py", "serving_http.py", "example/serve.py",
+                "ops/paged_flash_verify.py"):
+        assert os.path.join(PKG, mod) in paths, mod
+    for path in paths:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
         for node in ast.walk(tree):
@@ -88,8 +97,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
-    from infinistore_tpu_torch import cuda
-    from infinistore_tpu_torch.example import demo_prefill
+    from infinistore_tpu_torch import cuda, serving
+    from infinistore_tpu_torch.example import demo_prefill, serve
     from infinistore_tpu_torch.models import llama
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -102,3 +111,7 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         demo_prefill.run("127.0.0.1", 1)
     with pytest.raises(RuntimeError, match="CUDA"):
         llama.params_from_jax({"embed": [[0.0]]}, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serving.ServingEngine({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.run("127.0.0.1", 1)

@@ -1,6 +1,7 @@
 """The port's Llama against the JAX package's, on the same weights
-(``params_from_jax``) and the same numpy tokens: prefill, prefix prefill
-and three paged decode steps, logits and KV. float32; the 2e-4
+(``params_from_jax``) and the same numpy tokens: prefill, prefix prefill,
+three paged decode steps and a ragged verify step, logits and KV.
+float32; the 2e-4
 tolerance is the JAX package's own for its dense-vs-paged identities
 (summation order through 2 layers and a 256-wide vocab projection)."""
 
@@ -136,3 +137,91 @@ def test_page_helpers_round_trip_and_prefix_identity():
                                      restored)
     np.testing.assert_allclose(tail.numpy(), full[:, p_len:].numpy(),
                                rtol=TOL, atol=TOL)
+
+
+def _paged_prefill(jcfg, j_kvs, table, n_pages):
+    """Pools [L, n_pages, page, kv, hd] holding the prefill KV of each
+    row at its table's pages (page 0, the scratch page, is in no row)."""
+    shape = (jcfg.n_layers, n_pages, *jcfg.kv_page_shape())
+    kp = np.zeros(shape, np.float32)
+    vp = np.zeros(shape, np.float32)
+    for li, (k, v) in enumerate(j_kvs):
+        pk, pv = jl.kv_to_pages(jcfg, k, v)
+        for b in range(table.shape[0]):
+            kp[li, table[b, :pk.shape[1]]] = np.asarray(pk[b])
+            vp[li, table[b, :pv.shape[1]]] = np.asarray(pv[b])
+    return kp, vp
+
+
+@pytest.mark.parametrize("variant", ["tiny", "window_rope_scaling"])
+def test_verify_step_matches_jax(variant):
+    """verify_step over a ragged batch (valid_len 3 and 2 of m = 3): the
+    logits at every position and every page of the pools, scratch page
+    included, against the JAX verify_step."""
+    jcfg, tcfg = _cfgs(variant)
+    jparams = jl.init_params(jax.random.PRNGKey(2), jcfg)
+    tparams = tl.params_from_jax(_jax_params_numpy(jparams), device="cpu")
+    rng = np.random.default_rng(12)
+    s, m = 13, 3
+    tokens = rng.integers(0, jcfg.vocab_size, (2, s)).astype(np.int32)
+    step = rng.integers(0, jcfg.vocab_size, (2, m)).astype(np.int32)
+    _, j_kvs = jl.prefill(jparams, jcfg, jnp.asarray(tokens))
+    table = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    kp, vp = _paged_prefill(jcfg, j_kvs, table, n_pages=10)
+    seq_lens = np.array([s, s - 2], np.int32)
+    valid = np.array([3, 2], np.int32)
+    j_lg, j_kp, j_vp = jl.verify_step(
+        jparams, jcfg, jnp.asarray(step), jnp.asarray(seq_lens),
+        jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table),
+        jnp.asarray(valid))
+    t_kp, t_vp = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    t_lg, t_kp2, t_vp2 = tl.verify_step(
+        tparams, tcfg, torch.from_numpy(step), torch.from_numpy(seq_lens),
+        t_kp, t_vp, torch.from_numpy(table), torch.from_numpy(valid))
+    assert t_kp2 is t_kp and t_vp2 is t_vp  # updated in place
+    np.testing.assert_allclose(t_lg.numpy(), np.asarray(j_lg), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(t_kp.numpy(), np.asarray(j_kp), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_allclose(t_vp.numpy(), np.asarray(j_vp), rtol=TOL,
+                               atol=TOL)
+
+
+def test_verify_step_equals_sequential_decode():
+    """The identity speculative decoding rests on (the JAX package's
+    test_verify_step_equals_sequential_decode): m verify tokens give the
+    logits and pages of m single decode steps."""
+    _, tcfg = _cfgs("tiny")
+    params = tl.init_params(torch.Generator().manual_seed(3), tcfg,
+                            device="cpu")
+    rng = np.random.default_rng(7)
+    s, m = 12, 3
+    tokens = torch.from_numpy(
+        rng.integers(0, tcfg.vocab_size, (2, s)).astype(np.int32))
+    step = torch.from_numpy(
+        rng.integers(0, tcfg.vocab_size, (2, m)).astype(np.int32))
+    _, kvs = tl.prefill(params, tcfg, tokens)
+    # Row 0 owns pages 0-3, row 1 pages 4-7.
+    table = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32)
+    shape = (tcfg.n_layers, 8, *tcfg.kv_page_shape())
+    k_pages, v_pages = torch.zeros(shape), torch.zeros(shape)
+    for li, (k, v) in enumerate(kvs):
+        kp, vp = tl.kv_to_pages(tcfg, k, v)
+        for b in range(2):
+            k_pages[li, table[b, :kp.shape[1]].long()] = kp[b]
+            v_pages[li, table[b, :vp.shape[1]].long()] = vp[b]
+    seq_lens = torch.full((2,), s, dtype=torch.int32)
+    ks, vs = k_pages.clone(), v_pages.clone()
+    seq_logits = []
+    for j in range(m):
+        lg, ks, vs = tl.decode_step(params, tcfg, step[:, j], seq_lens + j,
+                                    ks, vs, table)
+        seq_logits.append(lg)
+    ver, kv2, vv2 = tl.verify_step(params, tcfg, step, seq_lens, k_pages,
+                                   v_pages, table)
+    for j in range(m):
+        np.testing.assert_allclose(ver[:, j].numpy(),
+                                   seq_logits[j].numpy(), rtol=TOL,
+                                   atol=TOL)
+    np.testing.assert_allclose(kv2.numpy(), ks.numpy(), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(vv2.numpy(), vs.numpy(), rtol=TOL, atol=TOL)

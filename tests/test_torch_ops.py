@@ -15,9 +15,13 @@ from infinistore_tpu.ops.pallas_flash_attention import (
 from infinistore_tpu.ops.pallas_paged_attention import (
     paged_flash_decode as jax_paged_decode,
 )
+from infinistore_tpu.ops.pallas_paged_attention import (
+    paged_flash_verify as jax_paged_verify,
+)
 from infinistore_tpu_torch.ops import flash_attention as fa
 from infinistore_tpu_torch.ops import paged_attention as tpa
 from infinistore_tpu_torch.ops import paged_flash_decode as pd
+from infinistore_tpu_torch.ops import paged_flash_verify as pv
 
 TOL = 2e-5  # f32: summation order only
 
@@ -111,6 +115,66 @@ def test_decode_plain_matches_pallas(heads, kv_heads, hd, window, seq_lens):
     assert pd.launches == launches
 
 
+def _verify_inputs(seed, m, heads, kv_heads, hd, page, n_pages, max_pages,
+                   seq_lens, pad):
+    """Random q and pages, and a table of distinct shuffled ids; with
+    ``pad``, the entries past the pages a row uses (up to seq_len + m)
+    are -1 and n_pages + 5 in turn."""
+    rng = np.random.default_rng(seed)
+    batch = len(seq_lens)
+    q = _np(rng, batch, m, heads, hd)
+    kp = _np(rng, n_pages, page, kv_heads, hd)
+    vp = _np(rng, n_pages, page, kv_heads, hd)
+    table = rng.permutation(n_pages)[:batch * max_pages].reshape(
+        batch, max_pages).astype(np.int32)
+    if pad:
+        for b, sl in enumerate(seq_lens):
+            used = min(-(-(sl + m) // page), max_pages)
+            table[b, used:] = np.where(np.arange(max_pages - used) % 2,
+                                       n_pages + 5, -1)
+    return q, kp, vp, table, np.asarray(seq_lens, dtype=np.int32)
+
+
+@pytest.mark.parametrize(
+    "m,heads,kv_heads,hd,page,max_pages,seq_lens,window,pad",
+    [
+        # the shapes of the JAX package's verify kernel tests
+        (4, 8, 8, 128, 16, 4, [7, 40], 0, False),     # MHA
+        (3, 8, 2, 128, 16, 4, [16, 50], 0, False),    # GQA 4:1, odd m
+        (5, 4, 2, 64, 8, 4, [20], 0, False),          # group 2, hd 64
+        (2, 16, 4, 32, 8, 4, [1, 15, 29], 0, False),  # group 4, hd 32
+        (1, 8, 4, 128, 16, 4, [33], 0, False),        # m = 1: decode
+        # empty cache, and a chunk spanning several pages
+        (12, 4, 2, 64, 8, 4, [0, 5], 0, False),
+        (3, 4, 2, 64, 8, 4, [21, 13], 12, False),     # sliding window
+        (4, 8, 2, 32, 8, 6, [3, 17, 30], 0, True),    # -1 / N+5 padding
+        (6, 4, 2, 32, 8, 3, [4, 21], 0, False),       # 21 + 6 > 24
+    ],
+)
+def test_verify_plain_matches_jax(m, heads, kv_heads, hd, page, max_pages,
+                                  seq_lens, window, pad):
+    q, kp, vp, table, sl = _verify_inputs(
+        m * 100 + len(seq_lens), m, heads, kv_heads, hd, page, n_pages=32,
+        max_pages=max_pages, seq_lens=seq_lens, pad=pad)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, table, sl)]
+    got = tpa.multi_token_paged_attention(*args, window=window).numpy()
+    want_pallas = np.asarray(jax_paged_verify(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(table), jnp.asarray(sl), interpret=True, window=window))
+    # The XLA op fills out-of-range ids with NaN where the kernels clamp
+    # them: give it the clamped table (the same pages).
+    want_xla = np.asarray(jpa.multi_token_paged_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+        jnp.asarray(np.clip(table, 0, kp.shape[0] - 1)), jnp.asarray(sl),
+        window=window))
+    np.testing.assert_allclose(got, want_pallas, rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(got, want_xla, rtol=TOL, atol=TOL)
+    launches = pv.launches
+    via = pv.verify_attention(*args, window=window)
+    assert torch.equal(via, torch.from_numpy(got))
+    assert pv.launches == launches
+
+
 def test_scatters_match_jax_drop_mode():
     """Out-of-range targets are dropped and negative ones wrap, exactly
     as JAX's mode="drop" scatter does."""
@@ -150,9 +214,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                               torch.zeros(4, 8, 2, 32),
                               torch.zeros(1, 2, dtype=torch.int32),
                               torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        pv.paged_flash_verify(q, torch.zeros(4, 8, 2, 32),
+                              torch.zeros(4, 8, 2, 32),
+                              torch.zeros(1, 2, dtype=torch.int32),
+                              torch.ones(1, dtype=torch.int32))
     meta = torch.empty(1, 4, 2, 32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fa.flash_prefill(meta, meta, meta)
     with pytest.raises(ValueError, match="unsupported device"):
         pd.decode_attention(torch.empty(1, 2, 32, device="meta"), None,
                             None, None, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pv.verify_attention(meta, None, None, None, None)

@@ -7,7 +7,7 @@ Needs one NVIDIA GPU and nvcc. For the unchanged kernel sources and for
 each fault in FAULTS, copies infinistore_tpu_torch/csrc into a temporary
 directory, applies the fault (one exact text substitution), builds the
 copy with the flags of ops/_kernels.py, loads it in place of the port's
-kernels and runs chip_smoke.py's phase 2 and phase 3 cases against the
+kernels and runs chip_smoke.py's phase 2, 3 and 5 cases against the
 plain versions. Prints each case's relative error beside its tolerance,
 then the card line and a JSON summary as the last line. Exits non-zero
 if the unchanged sources fail a case or a faulty build passes them all.
@@ -44,6 +44,15 @@ FAULTS = (
     ("decode: window floor one page high", "paged_decode.cu",
      "for (int j = low / P + warp;",
      "for (int j = (low > 0 ? low / P + 1 : 0) + warp;"),
+    ("verify: skips the last live page", "paged_verify.cu",
+     "if (pos < hi) {",
+     "if (pos < (hi - 1) / P * P) {"),
+    ("verify: limit one token too far", "paged_verify.cu",
+     "const int limit = seq_len + min(row, R - 1) / G + 1;",
+     "const int limit = seq_len + min(row, R - 1) / G + 2;"),
+    ("verify: window floor a page high", "paged_verify.cu",
+     "const int low = window > 0 ? limit - window : 0;",
+     "const int low = window > 0 ? limit - window + P : 0;"),
 )
 
 
@@ -87,8 +96,10 @@ def main():
     from infinistore_tpu_torch.ops import _kernels
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_verify as pv
     from infinistore_tpu_torch.ops.paged_attention import (
-        paged_decode_attention, prefill_attention)
+        multi_token_paged_attention, paged_decode_attention,
+        prefill_attention)
 
     disable_tf32()
     summary, ok = {}, True
@@ -107,6 +118,12 @@ def main():
                     gen):
                 readings["decode " + " ".join(map(str, case))] = (rel,
                                                                   case[0])
+            for case, _, rel, _ in chip_smoke.verify_readings(
+                    torch, pv.paged_flash_verify,
+                    multi_token_paged_attention, gen):
+                label = "verify " + " ".join(
+                    str(c) for c in case if not isinstance(c, tuple))
+                readings[label] = (rel, case[1])
             caught = []
             for label, (rel, dt) in readings.items():
                 tol = chip_smoke.TOL_REL[dt]
