@@ -36,8 +36,18 @@ Phases, in order; any failure exits non-zero before the result line:
    chunked + multi-step + preempting through the store, and a
    store-backed second round give the tokens of a plain store-less
    engine.
-8. A JSON line of per-kernel numbers, the card line, and as the last
-   line {"ok": true, "device": {...}}.
+8. Flash backward kernels (csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu)
+   and K1's row logsumexp against their plain versions, bf16 and f32:
+   the training shape (2048 x 2048), a 512-token suffix over 2048 (with
+   and without a 256 window), not causal, a ragged 1000, hd 64 and 32.
+9. Training at Llama-3.1-8B width cut to 16 layers, bf16: 4 AdamW steps
+   through llama.train_step on one 2049-token batch; the loss falls,
+   every leaf gets a finite grad, and each step launches K1, K5 and K6
+   once per layer. Then, at 2 layers, the loss and every leaf's grad with
+   the kernels against the same Function on its plain leaves (f32 and
+   bf16).
+10. A JSON line of per-kernel numbers, the card line, and as the last
+    line {"ok": true, "device": {...}}.
 """
 
 import collections
@@ -122,6 +132,22 @@ def rel_err(out, ref):
 
 def abs_err(out, ref):
     return (out.float() - ref.float()).abs().max().item()
+
+
+def grad_rel_err(out, ref, dead_exact=False):
+    """rel_err for gradients. A row whose true value is zero by
+    cancellation (query 0 under a causal mask sees only key 0, so dP = D
+    and dS = 0) holds only rounding noise, so each row's norm is floored
+    at 1e-2 of the reference's RMS row norm. With ``dead_exact``, a row
+    the reference gives exactly zero (a kv row no query sees) must be
+    exactly zero (else inf)."""
+    o = out.float().reshape(-1, out.shape[-1])
+    r = ref.float().reshape(-1, ref.shape[-1])
+    norm = r.norm(dim=-1)
+    if dead_exact and bool((o[norm == 0] != 0).any()):
+        return float("inf")
+    floor = 1e-2 * norm.square().mean().sqrt().clamp_min(1e-30)
+    return ((o - r).norm(dim=-1) / norm.clamp_min(floor)).max().item()
 
 
 def bound_ms(flops, nbytes, peak):
@@ -1269,6 +1295,292 @@ def phase_f32(torch, np, report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 8: flash backward
+# ---------------------------------------------------------------------------
+
+# (dtype, s_q, s_kv, causal, window, hd); batch 1, 32 heads, 8 kv heads.
+_BWD_SHAPES = (
+    (2048, 2048, True, 0, 128),    # the training shape
+    (512, 2048, True, 0, 128),     # 512 queries over a 1536 prefix
+    (512, 2048, True, 256, 128),   # ... with a window: dead kv rows
+    (1000, 1000, False, 0, 128),   # not causal, ragged
+    (1000, 1000, True, 0, 64),     # ragged, hd 64
+    (300, 700, True, 128, 32),     # ragged prefix + window, hd 32
+)
+BWD_CASES = tuple((dt, *shape) for dt in ("bfloat16", "float32")
+                  for shape in _BWD_SHAPES)
+# Backward kernels against their plain versions: the largest per-row
+# relative L2 error (grad_rel_err) over each of lse, dq, dk and dv. On an
+# H100 the sound kernels read at most 6.7e-3 (bf16) and 2.6e-6 (f32);
+# kernels with a planted fault (a kv tile skipped, the q-tile range one
+# tile late, one head of the group, the window floor a tile high, lse
+# without log(l)) read 0.58 and more (tools/torch_kernel_faults.py).
+TOL_BWD = {"bfloat16": 1.5e-2, "float32": 1e-5}
+
+
+def bwd_readings(torch, fa, gen):
+    """Run K1 with lse, K5 and K6 and their plain versions on every
+    BWD_CASES shape, the backward of both given the plain forward's o and
+    lse; yield (case, args, {name: relative error}, {name: max abs
+    error}), args being (q, k, v, do, lse, dvec, causal, window)."""
+    H, KV = 32, 8
+    for case in BWD_CASES:
+        dt, sq, skv, causal, win, D = case
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                getattr(torch, dt))
+
+        q, k, v = rn(1, sq, H, D), rn(1, skv, KV, D), rn(1, skv, KV, D)
+        do = rn(1, sq, H, D)
+        _, lse_k = fa.flash_prefill_attention(q, k, v, causal=causal,
+                                              window=win, with_lse=True)
+        o, lse = fa.flash_forward_lse_plain(q, k, v, causal, win)
+        dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, dvec, causal, win)
+        dq = fa.flash_bwd_dq(*args)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        torch.cuda.synchronize()
+        ref = dict(lse=lse, dq=fa.flash_bwd_dq_plain(*args))
+        ref["dk"], ref["dv"] = fa.flash_bwd_dkv_plain(*args)
+        got = dict(lse=lse_k, dq=dq, dk=dk, dv=dv)
+        yield (case, args,
+               {n: grad_rel_err(got[n], ref[n], n in ("dk", "dv"))
+                for n in got},
+               {n: abs_err(got[n], ref[n]) for n in got})
+
+
+def phase_bwd(torch, fa, gen):
+    say("== phase 8: flash backward kernels (and K1's lse) vs plain ==")
+    H = 32
+    rows = {}
+    for case, args, rel, err in bwd_readings(torch, fa, gen):
+        dt, sq, skv, causal, win, D = case
+        q, k, v, do, lse, dvec = args[:6]
+        tol = TOL_BWD[dt]
+        first = (sq, skv, causal, win, D) == _BWD_SHAPES[0]
+        iters = 10 if first else 2
+        ms_dq = cuda_ms(torch, lambda: fa.flash_bwd_dq(*args), iters)
+        ms_dkv = cuda_ms(torch, lambda: fa.flash_bwd_dkv(*args), iters)
+        plain_dq = cuda_ms(torch, lambda: fa.flash_bwd_dq_plain(*args), 2,
+                           warmup=1)
+        plain_dkv = cuda_ms(torch, lambda: fa.flash_bwd_dkv_plain(*args), 2,
+                            warmup=1)
+        pairs = causal_pairs(sq, skv, win) if causal else sq * skv
+        prod = 2.0 * H * D * pairs  # FLOP of one product over the pairs
+        esize = q.element_size()
+        peak = PEAK_BF16 if dt == "bfloat16" else PEAK_F32
+        rows_bytes = 2 * lse.numel() * 4  # lse and D, f32
+        dq_bound = bound_ms(3 * prod, (2 * q.numel() + 2 * k.numel()
+                                       + do.numel()) * esize + rows_bytes,
+                            peak)
+        dkv_bound = bound_ms(4 * prod, (q.numel() + do.numel()
+                                        + 4 * k.numel()) * esize
+                             + rows_bytes, peak)
+        lib_ms = lse_ms = None
+        if first:
+            lse_ms = cuda_ms(torch, lambda: fa.flash_prefill_attention(
+                q, k, v, causal=causal, window=win, with_lse=True), iters)
+        if first and dt == "bfloat16":
+            # Yardstick only, never called by the port: one backward of
+            # PyTorch's SDPA on the same inputs (its one call does the
+            # work of both K5 and K6).
+            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                          for x in (q, k, v))
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)
+            dot = do.transpose(1, 2)
+            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True), 10)
+            del out
+        worst = max(rel.values())
+        say(f"bwd {dt} Sq={sq} Skv={skv} causal={causal} window={win} "
+            f"hd={D}: rel err lse {rel['lse']:.3e} dq {rel['dq']:.3e} dk "
+            f"{rel['dk']:.3e} dv {rel['dv']:.3e} (tol {tol:g}); dq kernel_ms "
+            f"{ms_dq:.4f} plain_ms {plain_dq:.4f} bound_ms "
+            f"{dq_bound[0]:.4f} ({dq_bound[1]}); dkv kernel_ms {ms_dkv:.4f} "
+            f"plain_ms {plain_dkv:.4f} bound_ms {dkv_bound[0]:.4f} "
+            f"({dkv_bound[1]})"
+            + (f"; K1 with lse {lse_ms:.4f} ms" if lse_ms else "")
+            + (f"; library_ms {lib_ms:.4f} (SDPA backward, dq+dk+dv)"
+               if lib_ms else ""))
+        check(worst <= tol, f"flash backward disagrees ({case}): {rel}")
+        if first:
+            rows[dt] = dict(
+                dq=dict(err=err["dq"], ms=ms_dq, plain_ms=plain_dq,
+                        bound_ms=dq_bound[0], bound_by=dq_bound[1],
+                        library_ms=lib_ms),
+                dkv=dict(err=max(err["dk"], err["dv"]), ms=ms_dkv,
+                         plain_ms=plain_dkv, bound_ms=dkv_bound[0],
+                         bound_by=dkv_bound[1], library_ms=lib_ms),
+                k1_lse_ms=lse_ms, rel=rel)
+        del args, q, k, v, do, lse, dvec
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 9: training at Llama-3.1-8B width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 16   # 32 layers of bf16 params, grads and AdamW moments
+                    # (64 GB) and their activations do not fit in 80 GB
+TRAIN_TOKENS = 2049  # one batch: 2048 positions and their targets
+TRAIN_STEPS = 4
+TRAIN_LR = 1e-3
+PARITY_LAYERS = 2
+# Kernel vs plain leaves, relative L2 of each leaf's grad at 2 layers.
+# float32 differs only in summation order (an H100 reads 7.0e-6). In
+# bf16 every rounding difference of the attention kernels (at most
+# 6.7e-3 per call in phase 8) flows through both layers into every
+# grad: the limit is 7.5x that phase-8 reading (an H100 reads 2.0e-2).
+TRAIN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+
+
+def train_batch(torch, np, cfg, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                        (1, TRAIN_TOKENS)),
+                           dtype=torch.int32, device="cuda")
+
+
+def leaf_rel(a, b):
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def phase_train(torch, np, fa, report):
+    from infinistore_tpu_torch.models import llama
+
+    say(f"== phase 9: training at Llama-3.1-8B width, {TRAIN_LAYERS} "
+        f"layers, bf16 ==")
+    cfg = dataclasses.replace(llama.LLAMA31_8B, n_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 9), cfg, "cuda")
+    opt = llama.adamw(params, TRAIN_LR)
+    leaves = llama.param_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    torch.cuda.synchronize()
+    say(f"model: {n_params / 1e9:.2f} B params bf16 in "
+        f"{time.perf_counter() - t0:.1f} s; AdamW lr {TRAIN_LR}")
+    tokens = train_batch(torch, np, cfg, SEED + 9)
+
+    ev = {n: torch.cuda.Event(enable_timing=True)
+          for n in ("f0", "f1", "o0", "o1")}
+
+    def timed_loss(p, c, t):
+        ev["f0"].record()
+        value = llama.loss_fn(p, c, t)
+        ev["f1"].record()
+        return value
+
+    hooks = [opt.register_step_pre_hook(lambda *_: ev["o0"].record()),
+             opt.register_step_post_hook(lambda *_: ev["o1"].record())]
+    steps = []
+    fa.reset_launches()
+    try:
+        for i in range(TRAIN_STEPS):
+            before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = llama.train_step(params, opt, cfg, tokens, loss=timed_loss)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launched = [a - b for a, b in zip(
+                (fa.launches, fa.dq_launches, fa.dkv_launches), before)]
+            step = dict(loss=loss.item(), wall_ms=wall * 1e3,
+                        fwd_ms=ev["f0"].elapsed_time(ev["f1"]),
+                        bwd_ms=ev["f1"].elapsed_time(ev["o0"]),
+                        opt_ms=ev["o0"].elapsed_time(ev["o1"]),
+                        tok_s=(TRAIN_TOKENS - 1) / wall, launches=launched)
+            steps.append(step)
+            say(f"step {i + 1}: loss {step['loss']:.5f}; wall "
+                f"{step['wall_ms']:.1f} ms ({step['tok_s']:.0f} tok/s): "
+                f"forward {step['fwd_ms']:.1f} ms, backward "
+                f"{step['bwd_ms']:.1f} ms, optimizer {step['opt_ms']:.1f} "
+                f"ms; launches K1/K5/K6 {launched}")
+            check(launched == [TRAIN_LAYERS] * 3,
+                  f"step {i + 1} launched K1/K5/K6 {launched} times, not "
+                  f"{TRAIN_LAYERS} each")
+            check(np.isfinite(step["loss"]), f"step {i + 1}: loss "
+                  f"{step['loss']}")
+            if i == 0:
+                missing = [j for j, t in enumerate(leaves)
+                           if t.grad is None
+                           or not bool(torch.isfinite(t.grad).all())]
+                check(not missing, f"step 1: leaves {missing} have no "
+                      "finite grad")
+                wqkv = [params["layers"][li][w].grad.norm().item()
+                        for li in (0, TRAIN_LAYERS - 1)
+                        for w in ("wq", "wk", "wv")]
+                say(f"step 1: all {len(leaves)} leaves have a finite grad; "
+                    f"|grad| of wq/wk/wv in layers 0 and "
+                    f"{TRAIN_LAYERS - 1}: "
+                    + " ".join(f"{g:.3e}" for g in wqkv))
+                check(all(g > 0 for g in wqkv), "wq/wk/wv grads are zero")
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = {"flash_prefill": fa.launches, "flash_bwd_dq":
+                fa.dq_launches, "flash_bwd_dkv": fa.dkv_launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(steps[-1]["loss"] < steps[0]["loss"],
+          f"loss did not fall: {[s['loss'] for s in steps]}")
+    steady = steps[1:]
+    summary = {k: statistics.mean(s[k] for s in steady)
+               for k in ("wall_ms", "fwd_ms", "bwd_ms", "opt_ms", "tok_s")}
+    say(f"training: losses {[round(s['loss'], 5) for s in steps]}; steps "
+        f"2-{TRAIN_STEPS} mean wall {summary['wall_ms']:.1f} ms "
+        f"({summary['tok_s']:.0f} tok/s), forward {summary['fwd_ms']:.1f}, "
+        f"backward {summary['bwd_ms']:.1f}, optimizer "
+        f"{summary['opt_ms']:.1f} ms; peak allocated "
+        f"{peak / 2**30:.2f} GiB; launches {launches}")
+    report["train"] = dict(steps=steps, steady=summary,
+                           peak_GiB=peak / 2**30, launches=launches)
+    del params, opt, leaves, loss
+    torch.cuda.empty_cache()
+
+    # ---- checks outside the counted run: kernels vs plain leaves ----
+    def plain_prefill(q, k, v, causal=True, window=0):
+        return fa.FlashAttention.apply(q, k, v, causal, window,
+                                       fa.PLAIN_LEAVES)
+
+    parity = {}
+    for dt in ("float32", "bfloat16"):
+        pcfg = dataclasses.replace(llama.LLAMA31_8B, n_layers=PARITY_LAYERS,
+                                   dtype=dt)
+        params = llama.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED + 10), pcfg,
+            "cuda")
+        leaves = llama.trainable(params)
+        tokens = train_batch(torch, np, pcfg, SEED + 10)
+        loss_k = llama.loss_fn(params, pcfg, tokens)
+        grads_k = torch.autograd.grad(loss_k, leaves)
+        saved = llama.flash_prefill
+        llama.flash_prefill = plain_prefill
+        try:
+            loss_p = llama.loss_fn(params, pcfg, tokens)
+            grads_p = torch.autograd.grad(loss_p, leaves)
+        finally:
+            llama.flash_prefill = saved
+        rels = [leaf_rel(a, b) for a, b in zip(grads_k, grads_p)]
+        worst = max(rels)
+        loss_rel = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+        say(f"parity {dt}, {PARITY_LAYERS} layers: loss {loss_k.item():.6f}"
+            f" (kernels) vs {loss_p.item():.6f} (plain), rel "
+            f"{loss_rel:.3e}; worst leaf grad rel L2 {worst:.3e} (leaf "
+            f"{rels.index(worst)} of {len(rels)}, tol {TRAIN_TOL[dt]:g})")
+        check(worst <= TRAIN_TOL[dt] and loss_rel <= TRAIN_TOL[dt],
+              f"{dt} training grads, kernels vs plain leaves: {worst}")
+        parity[dt] = dict(loss_rel=loss_rel, worst_leaf_rel=worst)
+        del params, leaves, grads_k, grads_p, loss_k, loss_p
+        torch.cuda.empty_cache()
+    report["train"]["parity"] = parity
+
+
 def main():
     try:
         import torch
@@ -1335,6 +1647,9 @@ def main():
         del params
         torch.cuda.empty_cache()
         timed("f32 parity", phase_f32, torch, np, serve_report)
+        bwd = timed("backward", phase_bwd, torch, fa, gen)
+        train_report = {}
+        timed("training", phase_train, torch, np, fa, train_report)
     except SmokeError as e:
         say(f"FAIL: {e}")
         return 1
@@ -1363,10 +1678,29 @@ def main():
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
     ]
+    train_launches = train_report["train"]["launches"]
+    for name, key, src, line in (
+            ("flash_bwd_dq", "dq", "flash_bwd_dq.cu", 403),
+            ("flash_bwd_dkv", "dkv", "flash_bwd_dkv.cu", 448)):
+        row = bwd["bfloat16"][key]
+        # library_ms: one SDPA backward, which does the work of both.
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"infinistore_tpu_torch/csrc/{src}",
+            "replaces": f"infinistore_tpu/ops/pallas_flash_attention.py:"
+                        f"{line}",
+            "launches": train_launches[name], "max_abs_err": row["err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
     main_path = {k: v for k, v in report.items()
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))
     say("serving: " + json.dumps(serve_report))
+    say("training: " + json.dumps(train_report))
+    say("backward at the training shape: " + json.dumps(
+        {dt: {"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}
+         for dt, r in bwd.items()}))
     say("phase seconds: " + json.dumps(phase_s))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -2,7 +2,9 @@
 // sliding window) for Hopper, sm_90a.
 //
 // Replaces: infinistore_tpu/ops/pallas_flash_attention.py::_kernel (the
-// forward, reached through _forward_impl / flash_prefill_attention).
+// forward, reached through _forward_impl / flash_prefill_attention, and
+// with_lse=True under _flash_with_vjp: with a non-null `lse` it also
+// writes each row's logsumexp for the backward kernels).
 //
 // What bounds it on an H100: operations. At Sq = Skv = 2048, hd = 128,
 // 32 heads, a causal pass is ~3.4e10 FLOP against ~4e7 bytes of q/k/v/o,
@@ -17,7 +19,9 @@
 // (wmma bf16 16x16x16, f32 accumulation); the online softmax is f32 in
 // registers, two lanes per row. Tiles past the shifted diagonal
 // (kv_len - q_len) and below the window band are never loaded; only
-// boundary and ragged tiles build a mask, with -1e30 as the masked logit.
+// boundary and ragged tiles build a mask, with -1e30 as the masked logit
+// (the range, interior rule and mask are flash_tile.cuh's, shared with
+// the backward kernels).
 // The f32 variant keeps the same structure with plain FMA loops, so f32
 // stays true f32 (no TF32). The tile fold is shared with the paged verify
 // kernel (flash_tile.cuh). This is the simple version: wmma over
@@ -35,31 +39,12 @@ namespace {
 using istpu::from_float;
 using namespace istpu::tile;
 
-// Rows [start, start + 64) of one head, zero past `n_rows`, 16 bytes a
-// thread per step. Rows are `row_stride` elements apart in global memory.
-template <typename T, int HD, int LD>
-__device__ void load_tile(T* dst, const T* src, size_t row_stride,
-                          int start, int n_rows) {
-    constexpr int VEC = 16 / sizeof(T);
-    constexpr int VPR = HD / VEC;
-    for (int i = threadIdx.x; i < BK * VPR; i += THREADS) {
-        const int r = i / VPR;
-        const int c = (i % VPR) * VEC;
-        const int s = start + r;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (s < n_rows) {
-            val = *reinterpret_cast<const uint4*>(src + (size_t)s * row_stride + c);
-        }
-        *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-    }
-}
-
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Sq,
-                     int Skv, int H, int KV, int causal, int window,
-                     float scale) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Skv, int H, int KV,
+                     int causal, int window, float scale) {
     constexpr int LD = Layout<T, HD>::LD;
     constexpr int OC = HD / 2;  // output columns held by one lane
 
@@ -73,7 +58,6 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int q_start = blockIdx.x * BQ;
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
-    const int offset = Skv - Sq;  // a cached prefix shifts the diagonal
 
     const size_t q_stride = (size_t)H * HD;
     const size_t kv_stride = (size_t)KV * HD;
@@ -83,17 +67,8 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     load_tile<T, HD, LD>(sm.Q, qbase, q_stride, q_start, Sq);
 
-    // Live kv tiles: none past the last row's diagonal, none wholly
-    // below the first row's window floor.
-    const int q_last = min(q_start + BQ, Sq) - 1;
-    int kt_end = (Skv + BK - 1) / BK;
-    int kt_begin = 0;
-    if (causal) {
-        kt_end = min(kt_end, (q_last + offset) / BK + 1);
-        if (window > 0) {
-            kt_begin = max(q_start + offset - window + 1, 0) / BK;
-        }
-    }
+    int kt_begin, kt_end;
+    kv_tiles(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
 
     const int half = lane & 1;
     const int pos_q = q_start + warp * 16 + (lane >> 1);
@@ -110,25 +85,12 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         load_tile<T, HD, LD>(sm.V, vbase, kv_stride, k_start, Skv);
         __syncthreads();
 
-        bool interior = (k_start + BK <= Skv) && (q_start + BQ <= Sq);
-        if (causal) {
-            interior = interior && (k_start + BK - 1 <= q_start + offset);
-            if (window > 0) {
-                interior = interior &&
-                           (k_start > q_start + BQ - 1 + offset - window);
-            }
-        }
+        const bool interior =
+            interior_tile(q_start, k_start, Sq, Skv, causal, window);
         fold_tile<T, HD>(qf, sm, warp, lane, scale, interior,
                          [&](int col) {
-                             const int pos_k = k_start + col;
-                             bool ok = pos_k < Skv && pos_q < Sq;
-                             if (causal) {
-                                 ok = ok && pos_k <= pos_q + offset;
-                                 if (window > 0) {
-                                     ok = ok && pos_k > pos_q + offset - window;
-                                 }
-                             }
-                             return ok;
+                             return keeps(pos_q, k_start + col, Sq, Skv,
+                                          causal, window);
                          },
                          st);
     }
@@ -137,12 +99,17 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
         T* orow = o + (((size_t)b * Sq + pos_q) * H + h) * HD + half * OC;
 #pragma unroll
         for (int c = 0; c < OC; ++c) orow[c] = from_float<T>(st.acc[c] / st.l);
+        // The row logsumexp in the units of the scaled logits, which the
+        // backward kernels recompute P = exp(S * scale - lse) in.
+        if (lse != nullptr && half == 0) {
+            lse[(size_t)bh * Sq + pos_q] = st.m + logf(st.l);
+        }
     }
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KV, int causal, int window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KV, int causal, int window,
            cudaStream_t stream) {
     const size_t smem = Layout<T, HD>::bytes();
     auto kern = flash_prefill_kernel<T, HD>;
@@ -152,19 +119,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     const dim3 grid((Sq + BQ - 1) / BQ, B * H);
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KV,
+        static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KV,
         causal, window, (float)(1.0 / sqrt((double)HD)));
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_hd(int D, const void* q, const void* k, const void* v, void* o,
-                int B, int Sq, int Skv, int H, int KV, int causal,
+                float* lse, int B, int Sq, int Skv, int H, int KV, int causal,
                 int window, cudaStream_t s) {
     switch (D) {
-        case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, s);
-        case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, s);
-        case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, causal, window, s);
+        case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, s);
+        case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, s);
+        case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal, window, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -172,17 +139,20 @@ int dispatch_hd(int D, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q [B, Sq, H, D], k/v [B, Skv, KV, D], out [B, Sq, H, D]; all
-// contiguous, bf16 (is_bf16 = 1) or f32. Returns cudaGetLastError().
+// contiguous, bf16 (is_bf16 = 1) or f32. lse: f32 [B, H, Sq], the row
+// logsumexp of the scaled logits, or null for none. Returns
+// cudaGetLastError().
 extern "C" int istpu_flash_prefill(const void* q, const void* k,
-                                   const void* v, void* out, int is_bf16,
+                                   const void* v, void* out, float* lse,
+                                   int is_bf16,
                                    int B, int Sq, int Skv, int H, int KV,
                                    int D, int causal, int window,
                                    void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (is_bf16) {
-        return dispatch_hd<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, KV,
-                                          causal, window, s);
+        return dispatch_hd<__nv_bfloat16>(D, q, k, v, out, lse, B, Sq, Skv,
+                                          H, KV, causal, window, s);
     }
-    return dispatch_hd<float>(D, q, k, v, out, B, Sq, Skv, H, KV, causal,
-                              window, s);
+    return dispatch_hd<float>(D, q, k, v, out, lse, B, Sq, Skv, H, KV,
+                              causal, window, s);
 }

@@ -1,10 +1,13 @@
-// Tile code shared by the flash prefill (flash_prefill.cu) and paged
-// verify (paged_verify.cu) kernels. A CTA of 4 warps owns 64 query rows,
-// 16 per warp, staged in shared memory with the 64-row K and V tile it is
-// folding. bf16 runs S = Q K^T and P V on the tensor cores (wmma
-// 16x16x16, f32 accumulation); f32 runs plain FMA loops, so f32 stays
-// true f32 (no TF32). The online softmax is f32 in registers, two lanes
-// per row, with -1e30 as the masked logit.
+// Tile code shared by the flash prefill (flash_prefill.cu), paged verify
+// (paged_verify.cu) and flash backward (flash_bwd_dq.cu,
+// flash_bwd_dkv.cu) kernels. A CTA of 4 warps owns 64 rows, 16 per warp,
+// staged in shared memory with the 64-row tiles it is folding. bf16 runs
+// the tile products on the tensor cores (wmma 16x16x16, f32
+// accumulation); f32 runs plain FMA loops, so f32 stays true f32 (no
+// TF32). Softmax arithmetic is f32 in registers, two lanes per row, with
+// -1e30 as the masked logit. The dense kernels (K1, K5, K6) share one
+// live-tile range, one interior rule and one mask, so the forward and
+// the backward can never disagree on which (query, key) pairs count.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -217,6 +220,264 @@ __device__ __forceinline__ void fold_tile(const QFrag (&qf)[HD / 16],
     }
     __syncwarp();
 }
+
+// Rows [start, start + 64) of one head, zero past `n_rows`, 16 bytes a
+// thread per step. Rows are `row_stride` elements apart in global memory.
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          size_t row_stride, int start,
+                                          int n_rows) {
+    constexpr int VEC = 16 / sizeof(T);
+    constexpr int VPR = HD / VEC;
+    for (int i = threadIdx.x; i < BK * VPR; i += THREADS) {
+        const int r = i / VPR;
+        const int c = (i % VPR) * VEC;
+        const int s = start + r;
+        uint4 val = make_uint4(0u, 0u, 0u, 0u);
+        if (s < n_rows) {
+            val = *reinterpret_cast<const uint4*>(src + (size_t)s * row_stride + c);
+        }
+        *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+    }
+}
+
+// ---- dense attention geometry (K1, K5, K6) ----
+// Query i sees key j when j <= i + (Skv - Sq) under `causal` (a cached
+// prefix shifts the diagonal) and, with a window, j > i + (Skv - Sq) -
+// window; padded rows and keys see nothing (the JAX package's _tile_mask).
+__device__ __forceinline__ bool keeps(int pos_q, int pos_k, int Sq, int Skv,
+                                      int causal, int window) {
+    bool ok = pos_k < Skv && pos_q < Sq;
+    if (causal) {
+        const int offset = Skv - Sq;
+        ok = ok && pos_k <= pos_q + offset;
+        if (window > 0) ok = ok && pos_k > pos_q + offset - window;
+    }
+    return ok;
+}
+
+// The live kv tiles [begin, end) of the q tile at q_start: none past the
+// last row's diagonal, none wholly below the first row's window floor.
+__device__ __forceinline__ void kv_tiles(int q_start, int Sq, int Skv,
+                                         int causal, int window, int& begin,
+                                         int& end) {
+    const int offset = Skv - Sq;
+    const int q_last = min(q_start + BQ, Sq) - 1;
+    end = (Skv + BK - 1) / BK;
+    begin = 0;
+    if (causal) {
+        end = min(end, (q_last + offset) / BK + 1);
+        if (window > 0) {
+            begin = max(q_start + offset - window + 1, 0) / BK;
+        }
+    }
+}
+
+// The mirror image, for the kv tile at k_start: the live q tiles
+// [begin, end). None above the first one whose last row reaches the
+// tile's first key, none past the last one whose first row still has the
+// tile's last key inside its window (the JAX package's _q_idx and the
+// dk/dv kernel's `live`).
+__device__ __forceinline__ void q_tiles(int k_start, int Sq, int Skv,
+                                        int causal, int window, int& begin,
+                                        int& end) {
+    const int offset = Skv - Sq;
+    end = (Sq + BQ - 1) / BQ;
+    begin = 0;
+    if (causal) {
+        begin = max(k_start - offset, 0) / BQ;
+        if (window > 0) {
+            const int last = k_start + BK - 1 - offset + window - 1;
+            end = last < 0 ? 0 : min(end, last / BQ + 1);
+        }
+    }
+}
+
+// True when every (query, key) pair of the tile is kept: no mask needed.
+__device__ __forceinline__ bool interior_tile(int q_start, int k_start,
+                                              int Sq, int Skv, int causal,
+                                              int window) {
+    bool interior = (k_start + BK <= Skv) && (q_start + BQ <= Sq);
+    if (causal) {
+        const int offset = Skv - Sq;
+        interior = interior && (k_start + BK - 1 <= q_start + offset);
+        if (window > 0) {
+            interior = interior &&
+                       (k_start > q_start + BQ - 1 + offset - window);
+        }
+    }
+    return interior;
+}
+
+// ---- backward tiles (K5, K6) ----
+
+template <typename T, int HD>
+struct BwdLayout {
+    using L = Layout<T, HD>;
+    // Four staged tiles (two row-tiles of one side, K and V or Q and dO
+    // of the other), each warp's f32 scratch and its P / dS tile, and two
+    // row vectors (lse and D) of 64 floats.
+    static constexpr size_t bytes() {
+        return 4 * L::kTile + L::kScratch + L::kP + 2 * sizeof(float) * BQ;
+    }
+};
+
+template <typename T, int HD>
+struct BwdSmem {
+    T* Q;
+    T* dO;
+    T* K;
+    T* V;
+    float* S;
+    T* P;
+    float* lse;
+    float* D;
+
+    __device__ explicit BwdSmem(unsigned char* base) {
+        using L = Layout<T, HD>;
+        Q = reinterpret_cast<T*>(base);
+        dO = Q + BQ * L::LD;
+        K = dO + BQ * L::LD;
+        V = K + BK * L::LD;
+        S = reinterpret_cast<float*>(V + BK * L::LD);
+        P = reinterpret_cast<T*>(S + WARPS * 16 * L::SLD);
+        lse = reinterpret_cast<float*>(P + WARPS * 16 * L::PLD);
+        D = lse + BQ;
+    }
+};
+
+using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16,
+                                       16, float>;
+
+// Sw[16 x 64] = A[16 x HD] B^T for one warp: A's 16 rows and B's 64 rows
+// both `LD` apart in shared memory. bf16 on the tensor cores, f32 with
+// FMA (lane: row lane / 2, columns [half * 32, +32)).
+template <typename T, int HD>
+__device__ __forceinline__ void abt(const T* A, const T* B, float* Sw,
+                                    int lane) {
+    using L = Layout<T, HD>;
+    constexpr int LD = L::LD, SLD = L::SLD;
+    if constexpr (sizeof(T) == 2) {
+        using namespace nvcuda;
+        const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(A);
+        const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(B);
+        AccFrag sf[BK / 16];
+#pragma unroll
+        for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sf[n], 0.0f);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+            QFrag af;
+            wmma::load_matrix_sync(af, a + kk * 16, LD);
+#pragma unroll
+            for (int n = 0; n < BK / 16; ++n) {
+                // B^T as a col-major operand: element (k, n) sits at B[n][k].
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                               wmma::col_major> bf;
+                wmma::load_matrix_sync(bf, b + n * 16 * LD + kk * 16, LD);
+                wmma::mma_sync(sf[n], af, bf, sf[n]);
+            }
+        }
+#pragma unroll
+        for (int n = 0; n < BK / 16; ++n) {
+            wmma::store_matrix_sync(Sw + n * 16, sf[n], SLD,
+                                    wmma::mem_row_major);
+        }
+    } else {
+        const int r = lane >> 1, half = lane & 1;
+        const T* arow = A + r * LD;
+        for (int j = 0; j < 32; ++j) {
+            const T* brow = B + (half * 32 + j) * LD;
+            float s = 0.0f;
+#pragma unroll 8
+            for (int d = 0; d < HD; ++d) {
+                s = fmaf(to_float(arow[d]), to_float(brow[d]), s);
+            }
+            Sw[r * SLD + half * 32 + j] = s;
+        }
+    }
+}
+
+// A warp's f32 accumulator of 16 rows x HD columns: wmma fragments for
+// bf16, and for f32 the lane's row lane / 2, columns [half * HD / 2, +HD / 2).
+template <typename T, int HD>
+struct RowAcc {
+    AccFrag f[HD / 16];
+    float a[HD / 2];
+
+    __device__ RowAcc() {
+        if constexpr (sizeof(T) == 2) {
+#pragma unroll
+            for (int n = 0; n < HD / 16; ++n) {
+                nvcuda::wmma::fill_fragment(f[n], 0.0f);
+            }
+        } else {
+#pragma unroll
+            for (int c = 0; c < HD / 2; ++c) a[c] = 0.0f;
+        }
+    }
+
+    // acc += Pw[16 x 64] B[64 x HD]: Pw is the warp's P / dS tile (`PLD`
+    // apart), B 64 staged rows `LD` apart.
+    __device__ __forceinline__ void add_ab(const T* Pw, const T* B,
+                                           int lane) {
+        using L = Layout<T, HD>;
+        constexpr int LD = L::LD, PLD = L::PLD;
+        if constexpr (sizeof(T) == 2) {
+            using namespace nvcuda;
+            const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(Pw);
+            const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(B);
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk) {
+                QFrag af;
+                wmma::load_matrix_sync(af, p + kk * 16, PLD);
+#pragma unroll
+                for (int n = 0; n < HD / 16; ++n) {
+                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                                   wmma::row_major> bf;
+                    wmma::load_matrix_sync(bf, b + kk * 16 * LD + n * 16, LD);
+                    wmma::mma_sync(f[n], af, bf, f[n]);
+                }
+            }
+        } else {
+            const int r = lane >> 1, half = lane & 1;
+            for (int j = 0; j < BK; ++j) {
+                const float pj = to_float(Pw[r * PLD + j]);
+                const T* brow = B + j * LD + half * (HD / 2);
+#pragma unroll
+                for (int c = 0; c < HD / 2; ++c) {
+                    a[c] = fmaf(pj, to_float(brow[c]), a[c]);
+                }
+            }
+        }
+    }
+
+    // Write the lane's half row (row lane / 2 of the warp's 16) to `dst`
+    // (HD / 2 elements, at the row's column half * HD / 2) if `live`; Sw
+    // is the warp's f32 scratch, used to unpack the fragments.
+    __device__ __forceinline__ void store(T* dst, bool live, float* Sw,
+                                          int lane) {
+        constexpr int SLD = Layout<T, HD>::SLD;
+        const int r = lane >> 1, half = lane & 1;
+        if constexpr (sizeof(T) == 2) {
+#pragma unroll
+            for (int n = 0; n < HD / 16; ++n) {
+                nvcuda::wmma::store_matrix_sync(Sw + n * 16, f[n], SLD,
+                                                nvcuda::wmma::mem_row_major);
+            }
+            __syncwarp();
+            if (live) {
+#pragma unroll
+                for (int c = 0; c < HD / 2; ++c) {
+                    dst[c] = from_float<T>(Sw[r * SLD + half * (HD / 2) + c]);
+                }
+            }
+            __syncwarp();
+        } else if (live) {
+#pragma unroll
+            for (int c = 0; c < HD / 2; ++c) dst[c] = a[c];
+        }
+    }
+};
 
 }  // namespace tile
 }  // namespace istpu

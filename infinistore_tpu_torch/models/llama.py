@@ -8,8 +8,14 @@ layout the store moves. Attention goes only through the dispatchers of
 ``ops.paged_flash_verify``: the CUDA kernels for tensors on the card,
 their plain versions for CPU tensors.
 
-Not in this module yet: ``loss_fn``/``train_step`` and int8 weights
-(``quantize_params``).
+Training (``loss_fn``, ``train_step``) differentiates the dense forward
+with autograd: parameters stay a plain dict whose leaves require grad
+(:func:`trainable`), attention's gradient is ``ops.flash_attention``'s
+recompute backward (kernels K5 and K6 on the card), and the optimizer is
+``torch.optim.AdamW`` with optax's ``adamw`` defaults (:func:`adamw`).
+``decode_step`` and ``verify_step`` run without grad.
+
+Not in this module yet: int8 weights (``quantize_params``).
 """
 
 import functools
@@ -269,10 +275,18 @@ def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
     return _logits(params, x), kvs
 
 
+def forward_dense(params, cfg: LlamaConfig, tokens):
+    """Dense causal forward (training and prefill compute): tokens
+    [batch, seq] -> (logits [batch, seq, vocab] float32, per-layer (k, v)
+    [batch, seq, n_kv, hd]). Differentiable when the leaves require
+    grad."""
+    return _forward_stack(params, cfg, tokens)
+
+
 def prefill(params, cfg: LlamaConfig, tokens):
     """tokens [batch, seq] -> (logits [batch, seq, vocab] float32,
     per-layer (k, v) [batch, seq, n_kv, hd]) — the KV to page out."""
-    return _forward_stack(params, cfg, tokens)
+    return forward_dense(params, cfg, tokens)
 
 
 def prefill_with_prefix(params, cfg: LlamaConfig, tokens, prefix_kvs,
@@ -387,6 +401,66 @@ def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
         x = x + _mlp(layer, x, cfg)
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x), k_pages, v_pages
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def token_nll(logits, targets):
+    """Mean next-token NLL (float32 log-softmax) — shared by every model
+    family's loss."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+
+
+def loss_fn(params, cfg: LlamaConfig, tokens):
+    """Next-token cross-entropy (float32 accumulation) of tokens [batch,
+    seq + 1]."""
+    logits, _ = forward_dense(params, cfg, tokens[:, :-1])
+    return token_nll(logits, tokens[:, 1:])
+
+
+def param_leaves(params):
+    """Every parameter tensor of the dict, in sorted-key order (as JAX
+    flattens a dict)."""
+    if isinstance(params, dict):
+        return [t for k in sorted(params) for t in param_leaves(params[k])]
+    if isinstance(params, (list, tuple)):
+        return [t for v in params for t in param_leaves(v)]
+    return [params]
+
+
+def trainable(params):
+    """Make every leaf require grad (in place) and return the leaves, the
+    list an optimizer takes."""
+    leaves = param_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    return leaves
+
+
+def adamw(params, lr):
+    """The counterpart of ``optax.adamw(lr)``: AdamW over every leaf with
+    optax's defaults (b1 0.9, b2 0.999, eps 1e-8 added to the bias-
+    corrected root, decoupled weight decay 1e-4). Moments take each
+    leaf's dtype, as optax's do (bf16 leaves keep bf16 moments)."""
+    return torch.optim.AdamW(trainable(params), lr=lr, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=1e-4)
+
+
+def train_step(params, optimizer, cfg, tokens, loss=None):
+    """One optimizer step: zero the grads, forward, backward, step. The
+    ONE optimizer-step implementation for all model families — pass
+    ``loss`` (called as loss(params, cfg, tokens)) to train another. The
+    leaves of ``params`` are updated IN PLACE (the JAX version returns
+    new ones). Returns the loss (detached, before the step)."""
+    loss_f = loss_fn if loss is None else loss
+    optimizer.zero_grad(set_to_none=True)
+    value = loss_f(params, cfg, tokens)
+    value.backward()
+    optimizer.step()
+    return value.detach()
 
 
 # ---------------------------------------------------------------------------

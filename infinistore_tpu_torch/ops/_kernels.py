@@ -32,9 +32,18 @@ _P = ct.c_void_p
 _I = ct.c_int
 # name -> argtypes of the C entry points (csrc/*.cu).
 _DECLS = {
-    # q, k, v, out, is_bf16, B, Sq, Skv, H, KV, D, causal, window, stream
-    "istpu_flash_prefill": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _P],
+    # q, k, v, out, lse (or null), is_bf16, B, Sq, Skv, H, KV, D, causal,
+    # window, stream
+    "istpu_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P],
+    # q, k, v, dout, lse, dvec, dq, is_bf16, B, Sq, Skv, H, KV, D, causal,
+    # window, stream
+    "istpu_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _P],
+    # q, k, v, dout, lse, dvec, dk, dv, is_bf16, B, Sq, Skv, H, KV, D,
+    # causal, window, stream
+    "istpu_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, page_table, seq_lens, out, is_bf16,
     # B, H, KV, D, N, P, max_pages, window, stream
     "istpu_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,40 +1,52 @@
-"""Flash prefill attention: the CUDA kernel ``csrc/flash_prefill.cu`` and
-its dispatcher.
+"""Flash attention, forward and backward: the CUDA kernels
+``csrc/flash_prefill.cu`` (K1, with an optional row logsumexp),
+``csrc/flash_bwd_dq.cu`` (K5) and ``csrc/flash_bwd_dkv.cu`` (K6), their
+plain PyTorch versions, the :class:`FlashAttention` autograd Function and
+the dispatcher :func:`flash_prefill`.
 
-Counterpart of ``infinistore_tpu/ops/pallas_flash_attention.py`` (the
-forward: ``flash_prefill_attention`` / ``flash_prefill``). The plain
-version of the same function is ``paged_attention.prefill_attention``;
-:func:`flash_prefill` takes it for CPU tensors only. A CUDA tensor
-launches the kernel or raises — there is no fallback.
+Counterpart of ``infinistore_tpu/ops/pallas_flash_attention.py``:
+``flash_prefill_attention`` / ``_forward_impl`` (K1), ``_bwd_dq_kernel``
+and ``_bwd_dkv_kernel`` behind ``_flash_backward`` (K5, K6),
+``_flash_with_vjp`` (:class:`FlashAttention`) and ``flash_prefill``.
+
+:func:`flash_prefill` with no gradient to track takes the forward-only
+route: K1 for CUDA tensors, ``paged_attention.prefill_attention`` for CPU
+tensors. When grad mode is on and q, k or v requires grad it goes through
+:class:`FlashAttention`, whose leaves are K1 (with lse), K5 and K6 for
+CUDA tensors and the plain versions below for CPU tensors. A CUDA tensor
+launches the kernels or raises — there is no fallback, and the output on
+the card always carries its ``grad_fn``.
 """
+
+import collections
 
 import torch
 
 from . import _kernels
-from .paged_attention import prefill_attention
+from .paged_attention import (_NEG_INF, _repeat_kv, causal_mask,
+                              check_causal, prefill_attention)
 
-# Launches of the kernel (incremented only where it is launched).
+# Launches of K1, K5 and K6 (incremented only where each is launched).
 launches = 0
+dq_launches = 0
+dkv_launches = 0
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 _HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    global launches, dq_launches, dkv_launches
+    launches = dq_launches = dkv_launches = 0
 
 
-def flash_prefill_attention(q, k, v, causal=True, window=0):
-    """Launch the CUDA flash prefill kernel.
-
-    q: [batch, s_q, n_heads, hd]; k/v: [batch, s_kv, n_kv, hd], CUDA,
-    contiguous, bf16 or float32, n_heads a multiple of n_kv, hd in
-    (32, 64, 128). s_kv may exceed s_q (suffix over a cached prefix: the
-    causal diagonal shifts by s_kv - s_q). Returns [batch, s_q, n_heads,
-    hd] in q's dtype."""
-    global launches
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check_kernel_args(q, k, v, causal, do=None, rows=()):
+    """What every kernel takes: q/k/v (and dO) CUDA, contiguous, 16-byte
+    aligned, one dtype (bf16 or f32), GQA shapes, hd in _HEAD_DIMS; row
+    vectors (lse, D) f32 [batch, n_heads, s_q] on the same card."""
+    named = [("q", q), ("k", k), ("v", v)] + ([("dout", do)] if do is not
+                                               None else [])
+    for name, t in named:
         if t.device.type != "cuda":
             raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
         if t.dtype not in _DTYPES or t.dtype != q.dtype:
@@ -47,37 +59,233 @@ def flash_prefill_attention(q, k, v, causal=True, window=0):
         if t.device != q.device:
             raise ValueError("q, k and v must be on one device")
     batch, s_q, n_heads, hd = q.shape
-    s_kv, n_kv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != batch or k.shape[3] != hd:
         raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} "
                          f"v {tuple(v.shape)} do not agree")
-    if n_heads % n_kv:
-        raise ValueError(f"n_heads {n_heads} not a multiple of n_kv {n_kv}")
+    if do is not None and do.shape != q.shape:
+        raise ValueError(f"dout {tuple(do.shape)} is not q's shape")
+    if n_heads % k.shape[2]:
+        raise ValueError(f"n_heads {n_heads} not a multiple of n_kv "
+                         f"{k.shape[2]}")
     if hd not in _HEAD_DIMS:
         raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
-    if causal and s_kv < s_q:
-        raise ValueError(
-            f"causal attention needs kv_len >= q_len, got {s_kv} < {s_q}"
-        )
+    check_causal(q, k, causal)
+    for name, t in rows:
+        if (t.device != q.device or t.dtype != torch.float32
+                or tuple(t.shape) != (batch, n_heads, s_q)
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"[{batch}, {n_heads}, {s_q}] on {q.device}")
+    return batch, s_q, k.shape[1], n_heads, k.shape[2], hd
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+def flash_prefill_attention(q, k, v, causal=True, window=0, with_lse=False):
+    """Launch K1, the CUDA flash prefill kernel.
+
+    q: [batch, s_q, n_heads, hd]; k/v: [batch, s_kv, n_kv, hd], CUDA,
+    contiguous, bf16 or float32, n_heads a multiple of n_kv, hd in
+    (32, 64, 128). s_kv may exceed s_q (suffix over a cached prefix: the
+    causal diagonal shifts by s_kv - s_q). Returns [batch, s_q, n_heads,
+    hd] in q's dtype; with ``with_lse``, also the row logsumexp of the
+    scaled logits, float32 [batch, n_heads, s_q]."""
+    global launches
+    batch, s_q, s_kv, n_heads, n_kv, hd = _check_kernel_args(q, k, v, causal)
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = _kernels.lib()
-    err = lib.istpu_flash_prefill(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+    lse = (torch.empty((batch, n_heads, s_q), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
+    if out.numel():
+        err = _kernels.lib().istpu_flash_prefill(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), _DTYPES[q.dtype],
+            batch, s_q, s_kv, n_heads, n_kv, hd, int(bool(causal)),
+            int(window), _kernels.stream_handle(q.device),
+        )
+        _kernels.check(err, "flash_prefill")
+        launches += 1
+    return (out, lse) if with_lse else out
+
+
+def flash_bwd_dq(q, k, v, do, lse, dvec, causal=True, window=0):
+    """Launch K5: dQ from q, k, v, the output cotangent ``do`` (q's shape
+    and dtype), the forward's ``lse`` and ``dvec`` = rowsum(dO * O), both
+    float32 [batch, n_heads, s_q]. Returns dq in q's dtype."""
+    global dq_launches
+    batch, s_q, s_kv, n_heads, n_kv, hd = _check_kernel_args(
+        q, k, v, causal, do, (("lse", lse), ("dvec", dvec)))
+    dq = torch.empty_like(q)
+    if not (dq.numel() and s_kv):
+        return dq.zero_()
+    err = _kernels.lib().istpu_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), _DTYPES[q.dtype],
+        batch, s_q, s_kv, n_heads, n_kv, hd, int(bool(causal)), int(window),
+        _kernels.stream_handle(q.device),
+    )
+    _kernels.check(err, "flash_bwd_dq")
+    dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, dvec, causal=True, window=0):
+    """Launch K6: dK and dV (arguments as :func:`flash_bwd_dq`), each
+    summed over its kv head's group of q heads. Returns (dk, dv) in k's
+    dtype."""
+    global dkv_launches
+    batch, s_q, s_kv, n_heads, n_kv, hd = _check_kernel_args(
+        q, k, v, causal, do, (("lse", lse), ("dvec", dvec)))
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if not (dk.numel() and s_q):
+        return dk.zero_(), dv.zero_()
+    err = _kernels.lib().istpu_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPES[q.dtype], batch, s_q, s_kv, n_heads, n_kv, hd,
         int(bool(causal)), int(window), _kernels.stream_handle(q.device),
     )
-    _kernels.check(err, "flash_prefill")
-    launches += 1
-    return out
+    _kernels.check(err, "flash_bwd_dkv")
+    dkv_launches += 1
+    return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the CPU path and the oracle of K1 (with lse), K5 and K6
+# ---------------------------------------------------------------------------
+
+def _acc_dtype(dtype):
+    """bf16 and f32 operands are multiplied in f32 (f32 stays true f32);
+    float64 stays float64, for gradcheck."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _masked_logits(q, k, causal, window):
+    """Scaled logits [batch, n_heads, s_q, s_kv] in the accumulation
+    type, the pairs the mask drops at -1e30 (the JAX package's
+    _tile_mask: shifted diagonal, window floor)."""
+    check_causal(q, k, causal)
+    acc = _acc_dtype(q.dtype)
+    kr = _repeat_kv(k, q.shape[2] // k.shape[2])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kr.to(acc)) \
+        * q.shape[-1] ** -0.5
+    if causal:
+        mask = causal_mask(q.shape[1], k.shape[1], window, q.device)
+        logits = logits.masked_fill(~mask, _NEG_INF)
+    return logits
+
+
+def flash_forward_lse_plain(q, k, v, causal=True, window=0):
+    """Plain version of K1 with lse: (out [batch, s_q, n_heads, hd] in
+    q's dtype, lse [batch, n_heads, s_q] float32 — float64 for float64
+    inputs)."""
+    acc = _acc_dtype(q.dtype)
+    logits = _masked_logits(q, k, causal, window)
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None]).to(q.dtype)
+    vr = _repeat_kv(v, q.shape[2] // v.shape[2])
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(acc), vr.to(acc))
+    return out.to(q.dtype), lse
+
+
+def _probs_and_ds(q, k, v, do, lse, dvec, causal, window):
+    """The backward tile recompute over the whole matrix (the JAX
+    package's _bwd_tile): P = exp(logits - lse), exactly 0 where masked,
+    and dS = P (dO V^T - D) scale, both [batch, n_heads, s_q, s_kv]."""
+    acc = _acc_dtype(q.dtype)
+    p = torch.exp(_masked_logits(q, k, causal, window)
+                  - lse.to(acc)[..., None])
+    vr = _repeat_kv(v, q.shape[2] // v.shape[2])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.to(acc), vr.to(acc))
+    ds = p * (dp - dvec.to(acc)[..., None]) * q.shape[-1] ** -0.5
+    return p, ds
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, dvec, causal=True, window=0):
+    """Plain version of K5: dQ = dS K, with dS rounded to k's dtype
+    before the product (ds.astype(k.dtype)). Returns dq in q's dtype."""
+    acc = _acc_dtype(q.dtype)
+    _, ds = _probs_and_ds(q, k, v, do, lse, dvec, causal, window)
+    kr = _repeat_kv(k, q.shape[2] // k.shape[2])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).to(acc), kr.to(acc))
+    return dq.to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, dvec, causal=True, window=0):
+    """Plain version of K6: dV = P^T dO and dK = dS^T Q per q head (P and
+    dS rounded to the operands' dtype first), summed over each kv head's
+    group. Returns (dk, dv) in k's dtype."""
+    acc = _acc_dtype(q.dtype)
+    p, ds = _probs_and_ds(q, k, v, do, lse, dvec, causal, window)
+    batch, s_kv, n_kv, hd = k.shape
+    group = q.shape[2] // n_kv
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).to(acc), do.to(acc))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).to(acc), q.to(acc))
+    dk = dk.reshape(batch, s_kv, n_kv, group, hd).sum(3)
+    dv = dv.reshape(batch, s_kv, n_kv, group, hd).sum(3)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The autograd Function and the dispatcher
+# ---------------------------------------------------------------------------
+
+# The three functions FlashAttention runs: forward with lse, dQ, dK/dV.
+Leaves = collections.namedtuple("Leaves", "forward dq dkv")
+
+
+def _kernel_forward(q, k, v, causal, window):
+    return flash_prefill_attention(q, k, v, causal=causal, window=window,
+                                   with_lse=True)
+
+
+KERNEL_LEAVES = Leaves(_kernel_forward, flash_bwd_dq, flash_bwd_dkv)
+PLAIN_LEAVES = Leaves(flash_forward_lse_plain, flash_bwd_dq_plain,
+                      flash_bwd_dkv_plain)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention whose gradient is the recompute backward (the JAX
+    package's _flash_with_vjp): the forward keeps q, k, v, out and the
+    row lse, and the backward computes D = rowsum(dO * O) in torch and
+    dQ, dK, dV through ``leaves`` — :data:`KERNEL_LEAVES` (K1, K5, K6) or
+    :data:`PLAIN_LEAVES`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, leaves):
+        out, lse = leaves.forward(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window, ctx.leaves = causal, window, leaves
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = g.to(q.dtype).contiguous()
+        acc = _acc_dtype(q.dtype)
+        # D = rowsum(dO * O), [batch, n_heads, s_q], as XLA computes it
+        # outside the kernels in the JAX package.
+        dvec = (do.to(acc) * out.to(acc)).sum(-1).transpose(1, 2)
+        dvec = dvec.to(lse.dtype).contiguous()
+        args = (q, k, v, do, lse, dvec, ctx.causal, ctx.window)
+        dq = ctx.leaves.dq(*args)
+        dk, dv = ctx.leaves.dkv(*args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_prefill(q, k, v, causal=True, window=0):
-    """Prefill attention: the CUDA kernel for CUDA tensors, the plain
-    PyTorch version for CPU tensors; anything else raises."""
+    """Prefill attention. With grad mode on and q, k or v requiring grad:
+    :class:`FlashAttention` (kernel leaves on the card, plain leaves on
+    the CPU). Otherwise K1 for CUDA tensors and the plain
+    ``prefill_attention`` for CPU tensors; any other device raises."""
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        leaves = KERNEL_LEAVES if q.device.type == "cuda" else PLAIN_LEAVES
+        return FlashAttention.apply(q, k, v, causal, window, leaves)
     if q.device.type == "cuda":
         return flash_prefill_attention(q, k, v, causal=causal, window=window)
-    if q.device.type == "cpu":
-        return prefill_attention(q, k, v, causal=causal, window=window)
-    raise ValueError(f"flash_prefill: unsupported device {q.device}")
+    return prefill_attention(q, k, v, causal=causal, window=window)

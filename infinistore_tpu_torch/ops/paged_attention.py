@@ -88,6 +88,27 @@ def _repeat_kv(x, n_rep):
     return x.repeat_interleave(n_rep, dim=-2)
 
 
+def check_causal(q, k, causal):
+    """Causal attention over fewer keys than queries has no diagonal."""
+    if causal and k.shape[1] < q.shape[1]:
+        raise ValueError(
+            f"causal attention needs kv_len >= q_len, got "
+            f"{k.shape[1]} < {q.shape[1]}"
+        )
+
+
+def causal_mask(s_q, s_kv, window, device):
+    """[s_q, s_kv] bool: query i keeps key j when j <= i + (s_kv - s_q)
+    (the diagonal shifted by a cached prefix) and, with window > 0,
+    j > i + (s_kv - s_q) - window."""
+    pos_q = torch.arange(s_q, device=device)[:, None]
+    pos_k = torch.arange(s_kv, device=device)[None, :]
+    mask = pos_k <= pos_q + (s_kv - s_q)
+    if window:
+        mask &= pos_k > pos_q + (s_kv - s_q) - window
+    return mask
+
+
 def prefill_attention(q, k, v, causal=True, window=0):
     """Dense causal attention for prefill.
 
@@ -96,23 +117,14 @@ def prefill_attention(q, k, v, causal=True, window=0):
     diagonal shifts right by s_kv - s_q. window > 0 adds the sliding
     band: each query sees at most the last ``window`` positions,
     itself included. Returns [batch, s_q, heads, hd] in q's dtype."""
-    if causal and k.shape[1] < q.shape[1]:
-        raise ValueError(
-            f"causal attention needs kv_len >= q_len, got "
-            f"{k.shape[1]} < {q.shape[1]}"
-        )
+    check_causal(q, k, causal)
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if causal:
-        s_q, s_kv = q.shape[1], k.shape[1]
-        pos_q = torch.arange(s_q, device=q.device)[:, None]
-        pos_k = torch.arange(s_kv, device=q.device)[None, :]
-        mask = pos_k <= pos_q + (s_kv - s_q)
-        if window:
-            mask &= pos_k > pos_q + (s_kv - s_q) - window
+        mask = causal_mask(q.shape[1], k.shape[1], window, q.device)
         logits = logits.masked_fill(~mask, _NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())

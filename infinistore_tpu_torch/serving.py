@@ -211,10 +211,12 @@ class _LazyHost:
         return self._host
 
 
+@torch.no_grad()
 def _admit_fused(params, cfg, tokens, model=llama):
-    """Cold admission: prefill ``tokens`` [1, s] and page its KV out.
-    Returns (the last position's logits row [vocab] float32, k and v
-    pages [L, n, page, kv, hd], the tail page zero-padded)."""
+    """Cold admission: prefill ``tokens`` [1, s] and page its KV out
+    (without grad, whether or not the leaves require it). Returns (the
+    last position's logits row [vocab] float32, k and v pages [L, n,
+    page, kv, hd], the tail page zero-padded)."""
     logits, kvs = model.prefill(params, cfg, tokens)
     return (logits[0, -1],) + _stack_pages(cfg, kvs)
 
@@ -268,18 +270,6 @@ def _checksum(x):
     return total
 
 
-def _leaves(tree):
-    """Parameter leaves in sorted-key order (as JAX flattens a dict)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 class ServingEngine:
     """Continuous-batching engine over the store for the port's Llama
     (``model`` is the module exposing prefill / prefill_with_prefix /
@@ -303,7 +293,7 @@ class ServingEngine:
                 "quantized_store (int8 pages on the store wire) is not "
                 "ported yet: it comes with the int8 slice (ops/kv_quant.py "
                 "and the quantized store methods)")
-        for leaf in _leaves(params):
+        for leaf in llama.param_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(
                     f"params lie on {leaf.device}, the engine on "
@@ -359,6 +349,7 @@ class ServingEngine:
             self._get_pages = store.get_kv_pages
             self._put_pages = store.put_kv_pages
 
+    @torch.no_grad()
     def _weights_fingerprint(self):
         """Cheap checkpoint identity for the store-key namespace: sha256
         over every leaf's (shape, dtype) plus a position-weighted float32
@@ -367,7 +358,7 @@ class ServingEngine:
         reduction order is not the JAX engine's, so the same checkpoint
         may fingerprint differently in the two packages: that is a cache
         miss, never a cross-hit."""
-        leaves = list(_leaves(self.params))
+        leaves = llama.param_leaves(self.params)
         h = hashlib.sha256()
         for leaf in leaves:
             dtype = str(leaf.dtype).replace("torch.", "")

@@ -19,7 +19,7 @@ BLOCKED = ("jax", "jaxlib", "ml_dtypes", "infinistore_tpu")
 def test_port_imports_and_runs_with_jax_blocked():
     """In a fresh interpreter (this one has JAX loaded already), block
     the JAX world with a meta-path finder, import every module of the
-    port and run a tiny CPU forward and decode step."""
+    port and run a tiny CPU forward, decode step and training step."""
     script = textwrap.dedent(f"""
         import importlib.abc, sys
         BLOCKED = {BLOCKED!r}
@@ -50,6 +50,9 @@ def test_port_imports_and_runs_with_jax_blocked():
         lg, _, _ = llama.decode_step(p, cfg, tok[:, 0], torch.tensor(
             [5], dtype=torch.int32), kp, kp.clone(), table)
         assert torch.isfinite(lg).all()
+        opt = llama.adamw(p, 1e-3)
+        loss = llama.train_step(p, opt, cfg, tok)
+        assert torch.isfinite(loss) and p["layers"][0]["wq"].grad is not None
         eng = serving.ServingEngine(p, cfg, serving.ServingConfig(
             max_slots=2, total_pages=8, spec_k=2), device="cpu")
         out = eng.run([serving.Request("r", [1, 2, 3, 1, 2], 4)])
@@ -78,7 +81,8 @@ def test_no_source_imports_jax_or_the_jax_package():
     offenders = []
     paths = list(_sources())
     for mod in ("serving.py", "serving_http.py", "example/serve.py",
-                "ops/paged_flash_verify.py"):
+                "ops/paged_flash_verify.py", "ops/flash_attention.py",
+                "models/llama.py"):
         assert os.path.join(PKG, mod) in paths, mod
     for path in paths:
         with open(path) as f:

@@ -8,8 +8,9 @@ each fault in FAULTS, copies infinistore_tpu_torch/csrc into a temporary
 directory, applies the fault (one exact text substitution), builds the
 copy with the flags of ops/_kernels.py, loads it in place of the port's
 kernels and runs chip_smoke.py's phase 2, 3 and 5 cases against the
-plain versions. Prints each case's relative error beside its tolerance,
-then the card line and a JSON summary as the last line. Exits non-zero
+plain versions, and phase 8's backward cases (K1's lse, K5, K6). Prints
+each case's relative error beside its tolerance, then the card line and
+a JSON summary as the last line. Exits non-zero
 if the unchanged sources fail a case or a faulty build passes them all.
 The repository's own sources and build are never touched.
 """
@@ -32,9 +33,22 @@ FAULTS = (
      "for (int kt = kt_begin; kt < kt_end; ++kt) {",
      "for (int kt = kt_begin; kt < kt_end - (kt_end - kt_begin > 1); "
      "++kt) {"),
-    ("flash: window floor one tile high", "flash_prefill.cu",
-     "kt_begin = max(q_start + offset - window + 1, 0) / BK;",
-     "kt_begin = max(q_start + offset - window + 1, 0) / BK + 1;"),
+    ("flash: window floor one tile high", "flash_tile.cuh",
+     "begin = max(q_start + offset - window + 1, 0) / BK;",
+     "begin = max(q_start + offset - window + 1, 0) / BK + 1;"),
+    ("flash: lse omits log(l)", "flash_prefill.cu",
+     "lse[(size_t)bh * Sq + pos_q] = st.m + logf(st.l);",
+     "lse[(size_t)bh * Sq + pos_q] = st.m;"),
+    ("bwd dq: skips the last live kv tile", "flash_bwd_dq.cu",
+     "for (int kt = kt_begin; kt < kt_end; ++kt) {",
+     "for (int kt = kt_begin; kt < kt_end - (kt_end - kt_begin > 1); "
+     "++kt) {"),
+    ("bwd dkv: q tiles start one late under a prefix", "flash_tile.cuh",
+     "begin = max(k_start - offset, 0) / BQ;",
+     "begin = max(k_start - offset, 0) / BQ + (offset > 0);"),
+    ("bwd dkv: only the group's first q head", "flash_bwd_dkv.cu",
+     "for (int g = 0; g < G; ++g) {",
+     "for (int g = 0; g < 1; ++g) {"),
     ("decode: skips the last page", "paged_decode.cu",
      "j <= last_page; j += WARPS",
      "j < last_page + (last_page == low / P); j += WARPS"),
@@ -124,9 +138,16 @@ def main():
                 label = "verify " + " ".join(
                     str(c) for c in case if not isinstance(c, tuple))
                 readings[label] = (rel, case[1])
+            tols = {label: chip_smoke.TOL_REL[dt]
+                    for label, (_, dt) in readings.items()}
+            for case, _, rels, _ in chip_smoke.bwd_readings(torch, fa, gen):
+                for out, rel in rels.items():
+                    label = "bwd " + " ".join(map(str, case)) + " " + out
+                    readings[label] = (rel, case[0])
+                    tols[label] = chip_smoke.TOL_BWD[case[0]]
             caught = []
             for label, (rel, dt) in readings.items():
-                tol = chip_smoke.TOL_REL[dt]
+                tol = tols[label]
                 fails = not rel <= tol
                 caught.append(fails)
                 print(f"{name} | {label}: rel err {rel:.3e} (tol {tol:g}) "
