@@ -12,6 +12,11 @@ Phases, in order; any failure exits non-zero before the result line:
    PyTorch version on the card, at the main path's shapes.
 3. Paged decode kernel (csrc/paged_decode.cu) against its plain version:
    ragged lengths, a shuffled pool, a table padded with out-of-range ids.
+   3b. The int8 paged decode kernel (csrc/paged_decode_q.cu, K4) against
+   its plain version, bf16 and f32: K2's ragged shape with and without a
+   256 window, the main path's decode shape (batch 4), a full-card shape
+   (32 x 2048 tokens) and hd 64 at group 2; K4 ms beside K2's over the
+   same pages dequantized, and the byte bound.
 4. The main path at Llama-3.1-8B width (random weights from a seed)
    through the port's own server on SHM: prefill 4 prompts streaming
    every layer's pages, find the prefix on a fresh connection, restore
@@ -32,6 +37,17 @@ Phases, in order; any failure exits non-zero before the result line:
    K3 is held to its plain version per layer on one speculative and one
    chunk step; every finished request is teacher-forced through one
    dense prefill, and a planted page-table fault shows that check bites.
+   6b. int8 at Llama-3.1-8B width, on phase 4's bf16 model: a 2048-token
+   prompt's KV put int8 on SHM (16896-byte pages, no staging copy) and
+   taken back raw, then one decode step whose attention is K4 over those
+   pages in all 32 layers (its launches counted), held to K4's plain
+   version and beside K2 over the bf16 pages; quantize_params of the 8B
+   tree, each int8 leaf kind held to float32 at full width, prefill and
+   batch-4 decode with it against bf16; an engine on
+   the int8 tree with quantized_store=True serving 4 cold requests and 4
+   that regenerate them through int8 prefix hits, every request
+   teacher-forced (delta measured over int8-restored pages) and a planted
+   page-table fault caught.
 7. Exact parity at float32, Llama-3.1-8B widths, 4 layers: speculative,
    chunked + multi-step + preempting through the store, and a
    store-backed second round give the tokens of a plain store-less
@@ -46,8 +62,8 @@ Phases, in order; any failure exits non-zero before the result line:
    once per layer. Then, at 2 layers, the loss and every leaf's grad with
    the kernels against the same Function on its plain leaves (f32 and
    bf16).
-10. A JSON line of per-kernel numbers, the card line, and as the last
-    line {"ok": true, "device": {...}}.
+10. A JSON line of per-kernel numbers (six kernels), the card line, and
+    as the last line {"ok": true, "device": {...}}.
 """
 
 import collections
@@ -338,6 +354,107 @@ def phase_decode(torch, pd, plain, gen):
             f"{ms:.4f} bound_ms {bms:.5f} ({by}: K/V bytes read / "
             f"3.35 TB/s)")
         check(rel <= tol, f"paged decode disagrees: {rel} > {tol}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: paged decode over int8 pages
+# ---------------------------------------------------------------------------
+
+MAIN_DECODE_LENS = (2080, 1568, 1056, 544)  # phase 4's lens after decoding
+# (label, dtype, seq_lens, window, hd, group); 8 kv heads.
+DECODE_Q_CASES = (
+    ("ragged", "bfloat16", DECODE_SEQ_LENS, 0, 128, 4),
+    ("ragged", "bfloat16", DECODE_SEQ_LENS, 256, 128, 4),
+    ("ragged", "float32", DECODE_SEQ_LENS, 0, 128, 4),
+    ("ragged", "float32", DECODE_SEQ_LENS, 256, 128, 4),
+    ("main path", "bfloat16", MAIN_DECODE_LENS, 0, 128, 4),
+    ("full card", "bfloat16", (2048,) * 32, 0, 128, 4),
+    ("hd 64 group 2", "bfloat16", DECODE_SEQ_LENS, 0, 64, 2),
+    ("hd 64 group 2", "float32", DECODE_SEQ_LENS, 256, 64, 2),
+)
+
+
+def decode_q_bound(seq_lens, window, B, H, KV, D, esize):
+    """K4's least time: int8 K and V of each live token with their f32
+    scales, KV * (2 D + 2 * 4) bytes, plus q and the output; f32 FMAs."""
+    toks = sum(min(s, window) if window else s for s in seq_lens)
+    nbytes = toks * KV * (2 * D + 2 * 4) + 2 * B * H * D * esize
+    return bound_ms(4.0 * toks * H * D, nbytes, PEAK_F32)
+
+
+def decode_q_readings(torch, kernel, plain, gen):
+    """Run the int8 paged decode kernel and its plain version on every
+    DECODE_Q_CASES shape over a shuffled pool of quantized pages (rows
+    of varied scale, as real KV has), the table padded with -1 and
+    out-of-range ids; yield (case, args, relative error, max abs
+    error), args being (q, k_q, k_s, v_q, v_s, table, seq_lens)."""
+    from infinistore_tpu_torch.ops import kv_quant
+
+    KV, P = 8, 16
+    for case in DECODE_Q_CASES:
+        _, dt, lens, win, D, G = case
+        need = [-(-s // P) for s in lens]
+        n_pages = sum(need) + 64
+        perm = torch.randperm(n_pages, generator=torch.Generator()
+                              .manual_seed(SEED)).int()
+        table = padded_table(torch, need, max(need) + 2, n_pages,
+                             perm).cuda()
+
+        def pages():
+            x = torch.randn((n_pages, P, KV, D), generator=gen,
+                            device="cuda")
+            x *= torch.exp(0.5 * torch.randn((n_pages, P, KV, 1),
+                                             generator=gen, device="cuda"))
+            return kv_quant.quantize_kv_pages(x)
+
+        q = torch.randn((len(lens), KV * G, D), generator=gen,
+                        device="cuda").to(getattr(torch, dt))
+        args = (q, *pages(), *pages(), table,
+                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        out = kernel(*args, window=win)
+        torch.cuda.synchronize()
+        ref = plain(*args, window=win)
+        yield case, args, rel_err(out, ref), abs_err(out, ref)
+
+
+def phase_decode_q(torch, pq, pd, gen):
+    """K4 against its plain version; beside it K2 over the same pages
+    dequantized to q's dtype. Returns the main-path shape's row."""
+    from infinistore_tpu_torch.ops import kv_quant
+
+    say("== phase 3b: int8 paged decode kernel (K4) vs plain ==")
+    rows = {}
+    for case, args, rel, err in decode_q_readings(
+            torch, pq.paged_flash_decode_quantized,
+            pq.paged_decode_quantized_plain, gen):
+        label, dt, lens, win, D, G = case
+        q, kq, ks, vq, vs, table, sl = args
+        tol = TOL_REL[dt]
+        ms = cuda_ms(torch, lambda: pq.paged_flash_decode_quantized(
+            *args, window=win), 50)
+        plain_ms = cuda_ms(torch, lambda: pq.paged_decode_quantized_plain(
+            *args, window=win), 5, warmup=1)
+        kd = kv_quant.dequantize_kv_pages(kq, ks, q.dtype)
+        vd = kv_quant.dequantize_kv_pages(vq, vs, q.dtype)
+        k2_ms = cuda_ms(torch, lambda: pd.paged_flash_decode(
+            q, kd, vd, table, sl, window=win), 50)
+        B, H = q.shape[0], q.shape[1]
+        bms, by = decode_q_bound(lens, win, B, H, kq.shape[2], D,
+                                 q.element_size())
+        k2_bms, _ = decode_bound(torch, lens, win, B, H, kq.shape[2], D,
+                                 q.element_size())
+        say(f"decode_q {label} {dt} B={B} H={H} hd={D} window={win}: rel "
+            f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
+            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bms:.5f} ({by}); "
+            f"K2 over the dequantized pages {k2_ms:.4f} ms (bound "
+            f"{k2_bms:.5f})")
+        check(rel <= tol, f"int8 paged decode disagrees ({label}, {dt}): "
+              f"{rel} > {tol}")
+        rows.setdefault(label, dict(err=err, ms=ms, plain_ms=plain_ms,
+                                    bound_ms=bms, bound_by=by, k2_ms=k2_ms,
+                                    k2_bound_ms=k2_bms))
+        del args, q, kq, ks, vq, vs, kd, vd
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -977,10 +1094,12 @@ def shifted_row_engine(serving, *a, **kw):
     return Faulty(*a, **kw)
 
 
-def start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens):
+def start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens,
+                min_alloc_kb=None):
     """A store server whose pool holds ``n_tokens`` tokens of KV at
     ``cfg``'s geometry and dtype (growing if it must), after checking
-    /dev/shm."""
+    /dev/shm. Blocks are allocated in units of ``min_alloc_kb`` KB
+    (default: one page of ``cfg``'s dtype)."""
     token_bytes = 2 * cfg.n_layers * cfg.kv_page_bytes() // cfg.page_size
     pool_bytes = n_tokens * token_bytes
     shm_free = shutil.disk_usage("/dev/shm").free
@@ -990,7 +1109,7 @@ def start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens):
     check(shm_free > 1.5 * pool_bytes, "not enough /dev/shm for the pool")
     srv = InfiniStoreServer(ServerConfig(
         service_port=0, prealloc_size=pool_bytes / 2**30,
-        minimal_allocate_size=cfg.kv_page_bytes() // 1024,
+        minimal_allocate_size=min_alloc_kb or cfg.kv_page_bytes() // 1024,
         auto_increase=True, extend_size=1,
     ))
     srv.start()
@@ -1184,6 +1303,418 @@ def phase_serving(torch, np, params, report):
         conn.close()
         srv.stop()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: int8 at Llama-3.1-8B width
+# ---------------------------------------------------------------------------
+
+INT8_PROMPT = 2048
+INT8_ROUND = (2048, 1536, 1024, 512)
+INT8_NEW = 32
+INT8_DECODE_STEPS = 8
+# Rows of activations each int8 leaf is checked on (int8_leaf_errors).
+LEAF_ROWS = 64
+
+
+def int8_wire_and_k4(torch, params, cfg, store, prompt, report):
+    """Prefill ``prompt``, put every layer's KV int8 on SHM and take it
+    back raw; then one decode step whose attention is K4 over those int8
+    pages in all layers (counted), K2 over the bf16 pages and K4's plain
+    version beside it. Returns the K4 launches of that step."""
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.ops import kv_quant
+    from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
+
+    L, P = cfg.n_layers, cfg.page_size
+    n = prompt.shape[1]
+    n_pages = n // P
+    shape = cfg.kv_page_shape()
+    block = kv_quant.packed_page_bytes(shape)
+    sid = f"int8_{uuid.uuid4()}"
+    with torch.no_grad():
+        logits, kvs = llama.prefill(params, cfg, prompt)
+    pages = [llama.kv_to_pages(cfg, k, v) for k, v in kvs]
+    del kvs
+    tcuda.reset_copy_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for li, (kp, vp) in enumerate(pages):
+        store.put_kv_pages_quantized(llama.page_keys(sid, li, "k", n_pages),
+                                     kp[0])
+        store.put_kv_pages_quantized(llama.page_keys(sid, li, "v", n_pages),
+                                     vp[0])
+    t_off = time.perf_counter() - t0
+    put = dict(tcuda.copy_counters)
+    wire = 2 * L * n_pages * block
+    check(put["staging_copies"] == 0, f"int8 SHM put staged: {put}")
+    check(block == 16896 and put["d2h_bytes"] == wire,
+          f"int8 pages: {block} B a page, {put['d2h_bytes']} B written "
+          f"(want 16896 and {wire})")
+    tcuda.reset_copy_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q8 = [tuple(store.get_kv_pages_quantized_raw(
+        llama.page_keys(sid, li, kind, n_pages), shape)
+        for kind in ("k", "v")) for li in range(L)]
+    torch.cuda.synchronize()
+    t_rs = time.perf_counter() - t0
+    check(tcuda.copy_counters["h2d_bytes"] == wire,
+          f"int8 restore moved {tcuda.copy_counters['h2d_bytes']} B")
+    for li in (0, L - 1):
+        want = kv_quant.quantize_kv_pages(pages[li][0][0])
+        check(all(torch.equal(a, b) for a, b in zip(q8[li][0], want)),
+              f"layer {li}: int8 pages differ after the store round trip")
+    bf16 = 2 * L * n_pages * cfg.kv_page_bytes()
+    say(f"int8 wire: {n} tokens x {L} layers, {block} B a page ("
+        f"{block / cfg.kv_page_bytes():.3f} of bf16's "
+        f"{cfg.kv_page_bytes()}); offload {wire / 2**20:.0f} MiB in "
+        f"{t_off * 1e3:.2f} ms, {wire / t_off / 1e9:.2f} GB/s ("
+        f"{n / t_off:.0f} tok/s; bf16 {bf16 / 2**20:.0f} MiB); restore raw "
+        f"in {t_rs * 1e3:.2f} ms, {wire / t_rs / 1e9:.2f} GB/s ("
+        f"{n / t_rs:.0f} tok/s); staging copies 0")
+    report["wire"] = dict(page_bytes=block, bf16_page_bytes=cfg.kv_page_bytes(),
+                          offload_ms=t_off * 1e3,
+                          offload_GBps=wire / t_off / 1e9,
+                          restore_ms=t_rs * 1e3,
+                          restore_GBps=wire / t_rs / 1e9)
+
+    # One decode step over the pages, at shuffled pool ids: attention is
+    # K4 over the int8 pages, with K2 over the bf16 pages and K4's plain
+    # version run beside it on each layer's own q.
+    n_pool = n_pages + 8
+    perm = torch.randperm(n_pool, generator=torch.Generator().manual_seed(
+        SEED + 61)).int()
+    table_cpu = padded_table(torch, [n_pages + 1], n_pages + 3, n_pool, perm)
+    table = table_cpu.cuda()
+    ids = table_cpu[0, :n_pages].long().cuda()
+    new_page = int(table_cpu[0, n_pages])
+    pool = (L, n_pool, *shape)
+    k_pool = torch.zeros(pool, dtype=cfg.torch_dtype, device="cuda")
+    v_pool = torch.zeros_like(k_pool)
+    kq_pool = torch.zeros(pool, dtype=torch.int8, device="cuda")
+    vq_pool = torch.zeros_like(kq_pool)
+    ks_pool = torch.zeros(pool[:-1], dtype=torch.float32, device="cuda")
+    vs_pool = torch.zeros_like(ks_pool)
+    for li, ((kp, vp), ((kq, ks), (vq, vs))) in enumerate(zip(pages, q8)):
+        k_pool[li, ids], v_pool[li, ids] = kp[0], vp[0]
+        kq_pool[li, ids], ks_pool[li, ids] = kq, ks
+        vq_pool[li, ids], vs_pool[li, ids] = vq, vs
+    del pages, q8
+    rel4, quant = [], []
+
+    def attend(q, kp, vp, pt, sl, window=0):
+        li = len(rel4)
+        # The step's own token went into kp/vp: quantize its page too.
+        kq_pool[li, new_page], ks_pool[li, new_page] = [
+            t[0] for t in kv_quant.quantize_kv_pages(kp[new_page][None])]
+        vq_pool[li, new_page], vs_pool[li, new_page] = [
+            t[0] for t in kv_quant.quantize_kv_pages(vp[new_page][None])]
+        q8_args = (q, kq_pool[li], ks_pool[li], vq_pool[li], vs_pool[li],
+                   pt, sl)
+        out = pq.decode_attention_quantized(*q8_args, window=window)
+        ref = pq.paged_decode_quantized_plain(*q8_args, window=window)
+        bf16_out = pd.paged_flash_decode(q, kp, vp, pt, sl, window=window)
+        rel4.append(rel_err(out, ref))
+        quant.append(rel_err(out, bf16_out))
+        return out
+
+    token = torch.argmax(logits[0, -1:], dim=-1).to(torch.int32)
+    lens = torch.tensor([n], dtype=torch.int32, device="cuda")
+    saved = llama.decode_attention
+    llama.decode_attention = attend
+    pq.reset_launches()
+    try:
+        step_logits, _, _ = llama.decode_step(params, cfg, token, lens,
+                                              k_pool, v_pool, table)
+        torch.cuda.synchronize()
+    finally:
+        llama.decode_attention = saved
+    launches = pq.launches
+    worst = max(rel4)
+    say(f"int8 decode step over the restored pages: K4 launched {launches} "
+        f"times (= {L} layers); K4 vs plain worst rel err {worst:.3e} "
+        f"(layer {rel4.index(worst)}, tol {TOL_REL['bfloat16']:g}); K4 "
+        f"over int8 vs K2 over bf16 (the quantizer's error) mean "
+        f"{statistics.mean(quant):.3e} max {max(quant):.3e}")
+    check(launches == L and len(rel4) == L, f"K4 launches {launches}")
+    check(worst <= TOL_REL["bfloat16"], "K4 vs plain on the restored pages")
+    check(bool(torch.isfinite(step_logits).all()), "int8 step logits")
+    report["k4_step"] = dict(launches=launches, worst_rel=worst,
+                             quant_rel_mean=statistics.mean(quant),
+                             quant_rel_max=max(quant))
+    return launches
+
+
+def int8_leaf_errors(torch, llama, qparams, gen):
+    """Each int8 leaf kind at full width against float32 on the int8
+    values times their scales: layer 0's seven matmul leaves and lm_head
+    through llama._matmul on LEAF_ROWS random bf16 rows, the embedding
+    through llama._embed. Returns {leaf: per-row relative L2 error}."""
+    errs = {}
+    layer = qparams["layers"][0]
+    for name, w in [(k, layer[k]) for k in llama._QUANT_LEAVES] + [
+            ("lm_head", qparams["lm_head"])]:
+        h = torch.randn((LEAF_ROWS, w["int8"].shape[0]), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        ref = h.float() @ (w["int8"].float() * w["scale"].float())
+        errs[name] = rel_err(llama._matmul(h, w), ref)
+    e = qparams["embed"]
+    toks = torch.randint(0, e["int8"].shape[0], (1, LEAF_ROWS),
+                         generator=gen, device="cuda")
+    ref = e["int8"][toks[0]].float() * e["scale"][toks[0]].float()[:, None]
+    errs["embed"] = rel_err(llama._embed(qparams, toks)[0], ref)
+    return errs
+
+
+def logit_agreement(got, ref):
+    """(argmax agreement, global relative L2) of two logits tensors."""
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    return agree, ((got - ref).norm() / ref.norm()).item()
+
+
+def int8_weights(torch, params, cfg, prompt, gen, report):
+    """quantize_params of the 8B tree; each int8 leaf kind held to float32
+    (the check); prefill with the int8 tree against the bf16 tree (the
+    quantizer's effect, reported) and decode at batch 4 with both trees.
+    Returns the int8 tree."""
+    from infinistore_tpu_torch.models import llama
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams = llama.quantize_params(params, cfg)
+    torch.cuda.synchronize()
+    t_q = time.perf_counter() - t0
+    q_bytes, d_bytes = llama.param_bytes(qparams), llama.param_bytes(params)
+    leaf_errs = int8_leaf_errors(torch, llama, qparams, gen)
+    prefill_ms = {}
+    with torch.no_grad():
+        for name, p in (("bf16", params), ("int8", qparams)):
+            llama.prefill(p, cfg, prompt)  # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, kvs = llama.prefill(p, cfg, prompt)
+            torch.cuda.synchronize()
+            prefill_ms[name] = (time.perf_counter() - t0) * 1e3
+            if name == "bf16":
+                dense, dense_kvs = lg, kvs
+        gap = ((lg - dense).abs().max() / dense.abs().max()).item()
+        agree, rel = logit_agreement(lg, dense)
+        del lg, kvs
+    # Decode at batch 4: four rows over the prompt's pages, each writing
+    # its new tokens into pages of its own; bf16 and int8 in turns.
+    P = cfg.page_size
+    n_pages = prompt.shape[1] // P
+    rows = 4
+    own = -(-INT8_DECODE_STEPS // P)
+    n_pool = n_pages + rows * own + 1
+    k_pool = torch.zeros((cfg.n_layers, n_pool, *cfg.kv_page_shape()),
+                         dtype=cfg.torch_dtype, device="cuda")
+    v_pool = torch.zeros_like(k_pool)
+    for li, (k, v) in enumerate(dense_kvs):
+        kp, vp = llama.kv_to_pages(cfg, k, v)
+        k_pool[li, 1:n_pages + 1], v_pool[li, 1:n_pages + 1] = kp[0], vp[0]
+    del dense_kvs, kp, vp
+    table = torch.tensor(
+        [list(range(1, n_pages + 1))
+         + list(range(n_pages + 1 + r * own, n_pages + 1 + (r + 1) * own))
+         for r in range(rows)], dtype=torch.int32, device="cuda")
+    first = torch.argmax(dense[0, -1]).repeat(rows).to(torch.int32)
+    del dense
+    trees = {"bf16": params, "int8": qparams}
+    step_ms = {"bf16": [], "int8": []}
+    with torch.no_grad():
+        for name in ("bf16", "int8", "int8", "bf16"):
+            p = trees[name]
+            tok = first
+            lens = torch.full((rows,), prompt.shape[1], dtype=torch.int32,
+                              device="cuda")
+            llama.decode_step(p, cfg, tok, lens, k_pool, v_pool, table)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(INT8_DECODE_STEPS):
+                lg, _, _ = llama.decode_step(p, cfg, tok, lens, k_pool,
+                                             v_pool, table)
+                tok = torch.argmax(lg, dim=-1).to(torch.int32)
+                lens = lens + 1
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0)
+                                 / INT8_DECODE_STEPS * 1e3)
+    decode_ms = {k: statistics.mean(v) for k, v in step_ms.items()}
+    del k_pool, v_pool
+    say(f"int8 weights: quantize_params in {t_q:.2f} s, {q_bytes / 1e9:.3f}"
+        f" GB ({q_bytes / d_bytes:.3f} of bf16's {d_bytes / 1e9:.3f} GB); "
+        f"prefill {prompt.shape[1]} tokens {prefill_ms['int8']:.2f} ms "
+        f"(bf16 {prefill_ms['bf16']:.2f}); decode batch 4 ms/step int8 "
+        f"{step_ms['int8']} bf16 {step_ms['bf16']} (in turns)")
+    worst = max(leaf_errs, key=leaf_errs.get)
+    say(f"int8 leaves vs float32 (int8 x scale) at full width: worst rel "
+        f"err {leaf_errs[worst]:.3e} ({worst}; tol "
+        f"{TOL_REL['bfloat16']:g}); int8 prefill vs the bf16 tree (the "
+        f"quantizer's effect over {cfg.n_layers} layers): argmax "
+        f"agreement {agree:.4f}, rel L2 {rel:.3e}, largest gap {gap:.4f} of "
+        f"the largest |logit|")
+    check(leaf_errs[worst] <= TOL_REL["bfloat16"],
+          f"int8 leaf {worst} disagrees with float32: {leaf_errs}")
+    report["weights"] = dict(quantize_s=t_q, bytes=q_bytes,
+                             bf16_bytes=d_bytes, prefill_ms=prefill_ms,
+                             decode_ms_per_step=decode_ms,
+                             leaf_rel=leaf_errs, bf16_agree=agree,
+                             bf16_rel=rel, bf16_max_gap=gap)
+    return qparams
+
+
+def int8_serving(torch, np, qparams, cfg, store, report):
+    """An engine on the int8 tree with quantized_store=True: 4 cold
+    requests, then 4 that regenerate them through int8 prefix hits; every
+    finished request teacher-forced through one dense prefill, delta
+    measured in the run, and the planted page-table fault."""
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.ops import kv_quant
+
+    L, P = cfg.n_layers, cfg.page_size
+    rng = np.random.default_rng(SEED + 62)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in INT8_ROUND]
+    proposer = ContinuationProposer()
+    eng = serving.ServingEngine(
+        qparams, cfg, serving.ServingConfig(
+            max_slots=8, spec_k=4, max_pages_per_seq=160,
+            total_pages=8 * 160 + 1, quantized_store=True),
+        store=store, proposer=proposer)
+    check(eng._ns.endswith("/q8"), f"int8 engine namespace {eng._ns}")
+    tcuda.reset_copy_counters()
+    out1 = run_leg(torch, eng, "int8_cold", [
+        serving.Request(f"q_{i}", p, max_new_tokens=INT8_NEW)
+        for i, p in enumerate(prompts)], report)
+    for i, p in enumerate(prompts):
+        proposer.add(p, out1[f"q_{i}"])
+    out2 = run_leg(torch, eng, "int8_regen", [
+        serving.Request(f"qr_{i}", p, max_new_tokens=INT8_NEW)
+        for i, p in enumerate(prompts)], report)
+    torch.cuda.synchronize()
+    counters = dict(tcuda.copy_counters)
+    block = kv_quant.packed_page_bytes(cfg.kv_page_shape())
+    offloaded = eng.stats["offloaded_pages"] * 2 * L
+    say(f"int8 serving: {eng.stats['prefix_hit_pages']} hit pages, "
+        f"{eng.stats['restored_pages']} restored, "
+        f"{eng.stats['offloaded_pages']} offloaded ({offloaded * block / 2**20:.1f}"
+        f" MiB on the int8 wire, {offloaded * cfg.kv_page_bytes() / 2**20:.1f}"
+        f" MiB as bf16: {block / cfg.kv_page_bytes():.3f}); copies "
+        f"{counters}")
+    check(eng.stats["prefix_hit_pages"] > 0 and eng.stats["restored_pages"]
+          > 0, "the int8 engine never restored a prefix")
+    check(counters["staging_copies"] == 0, "int8 serving staged copies")
+    check(counters["d2h_bytes"] % block == 0 and counters["h2d_bytes"]
+          % block == 0 and 0 < counters["d2h_bytes"] <= offloaded * block,
+          f"int8 serving moved other than whole {block}-byte pages")
+    report["int8_serving"] = dict(
+        hit_pages=eng.stats["prefix_hit_pages"],
+        restored_pages=eng.stats["restored_pages"],
+        offloaded_pages=eng.stats["offloaded_pages"],
+        offloaded_MiB=offloaded * block / 2**20,
+        offloaded_bf16_MiB=offloaded * cfg.kv_page_bytes() / 2**20,
+        d2h_bytes=counters["d2h_bytes"], h2d_bytes=counters["h2d_bytes"])
+
+    # delta: the logit gap between a dense prefill and prefill_with_prefix
+    # over int8-restored pages of the same tokens (the int8 wire's noise
+    # and the kernels' together).
+    seq = prompts[0] + out1["q_0"]
+    toks = torch.tensor([seq], dtype=torch.int32, device="cuda")
+    n_pre = INT8_ROUND[0]
+    sid = f"int8_noise_{uuid.uuid4()}"
+    with torch.no_grad():
+        dense, kvs = llama.prefill(qparams, cfg, toks)
+        for li, (k, v) in enumerate(kvs):
+            kp, vp = llama.kv_to_pages(cfg, k[:, :n_pre], v[:, :n_pre])
+            store.put_kv_pages_quantized(
+                llama.page_keys(sid, li, "k", n_pre // P), kp[0])
+            store.put_kv_pages_quantized(
+                llama.page_keys(sid, li, "v", n_pre // P), vp[0])
+        del kvs, kp, vp
+        kr, vr = llama.restore_prefix_pages(
+            store, cfg, lambda li, kind: llama.page_keys(sid, li, kind,
+                                                         n_pre // P),
+            n_pre // P, getter=store.get_kv_pages_quantized)
+        prefix = [llama.pages_to_kv(cfg, kr[li][None], vr[li][None], n_pre)
+                  for li in range(L)]
+        tail, _ = llama.prefill_with_prefix(qparams, cfg, toks[:, n_pre:],
+                                            prefix)
+    noise = (tail[0] - dense[0, n_pre:]).abs().max().item()
+    delta = DELTA_FACTOR * noise
+    del dense, tail, prefix, kr, vr
+    finished = [(p, out1[f"q_{i}"]) for i, p in enumerate(prompts)]
+    finished += [(p, out2[f"qr_{i}"]) for i, p in enumerate(prompts)]
+    worst, exact = teacher_forced_gaps(torch, llama, qparams, cfg, finished)
+    say(f"int8 teacher-forced check of {len(finished)} requests: largest "
+        f"gap {worst:.4f}, exact argmax share {exact:.4f}; delta "
+        f"{delta:.4f} = {DELTA_FACTOR:g} x {noise:.4f} (dense prefill vs "
+        f"prefill_with_prefix over {n_pre} int8-restored tokens)")
+    check(worst <= delta, f"int8 teacher-forced gap {worst} > {delta}")
+    faulty = shifted_row_engine(
+        serving, qparams, cfg, serving.ServingConfig(
+            max_slots=2, max_pages_per_seq=40, total_pages=81))
+    fp = prompts[-1]
+    fout = faulty.run([serving.Request("fault", fp, max_new_tokens=16)])
+    fgap, fexact = teacher_forced_gaps(torch, llama, qparams, cfg,
+                                       [(fp, fout["fault"])])
+    say(f"int8 planted fault (page-table row shifted by one page): gap "
+        f"{fgap:.4f} ({fgap / delta:.1f} x delta), exact argmax share "
+        f"{fexact:.4f}")
+    check(fgap > delta, "the int8 teacher-forced check missed a shifted "
+          "page-table row")
+    report["int8_teacher_forced"] = dict(
+        requests=len(finished), worst_gap=worst, exact_share=exact,
+        delta=delta, noise=noise, fault_gap=fgap)
+    del eng, faulty
+
+
+def phase_int8(torch, np, params, report):
+    """The int8 slice at Llama-3.1-8B width, on the bf16 model already
+    loaded: the wire and K4 on real KV, int8 weights, and serving with
+    both. Returns K4's launches on the decode step over int8 pages."""
+    from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                       InfinityConnection, ServerConfig,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch.models import llama
+
+    say("== phase 6b: int8 pages, K4 and int8 weights at Llama-3.1-8B "
+        "width ==")
+    cfg = llama.LLAMA31_8B
+    rng = np.random.default_rng(SEED + 60)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, INT8_PROMPT)),
+                             dtype=torch.int32, device="cuda")
+    # Room (counted in bf16 pages) for the wire check, the delta prefix
+    # and both serving rounds. A 16896-byte int8 page takes 20 KB in the
+    # store's smallest allocation unit (4 KB, a power of two).
+    n_tokens = 2 * INT8_PROMPT + 2 * sum(INT8_ROUND) + 8 * INT8_NEW
+    srv = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens,
+                      min_alloc_kb=4)
+    conn = InfinityConnection(ClientConfig(
+        host_addr="127.0.0.1", service_port=srv.service_port,
+        connection_type=TYPE_SHM))
+    conn.connect()
+    check(conn.shm_connected, "SHM path not active")
+    store = tcuda.CudaKVStore(conn, "cuda")
+    try:
+        launches = int8_wire_and_k4(torch, params, cfg, store, prompt,
+                                    report)
+        qparams = int8_weights(torch, params, cfg, prompt, torch.Generator(
+            device="cuda").manual_seed(SEED + 63), report)
+        int8_serving(torch, np, qparams, cfg, store, report)
+        del qparams
+    finally:
+        store.close()
+        conn.close()
+        srv.stop()
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1603,6 +2134,7 @@ def main():
     from infinistore_tpu_torch.ops import _kernels
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
     from infinistore_tpu_torch.ops.paged_attention import (
         multi_token_paged_attention, paged_decode_attention,
@@ -1627,6 +2159,7 @@ def main():
         k1 = timed("flash", phase_flash, torch, fa, prefill_attention, gen)
         timed("decode", phase_decode, torch, pd, paged_decode_attention,
               gen)
+        k4 = timed("decode int8", phase_decode_q, torch, pq, pd, gen)
         t0 = time.perf_counter()
         params = llama.init_params(
             torch.Generator(device="cuda").manual_seed(SEED),
@@ -1644,6 +2177,9 @@ def main():
                    multi_token_paged_attention, gen)
         serve_report = {}
         timed("serving", phase_serving, torch, np, params, serve_report)
+        int8_report = {}
+        k4_launches = timed("int8", phase_int8, torch, np, params,
+                            int8_report)
         del params
         torch.cuda.empty_cache()
         timed("f32 parity", phase_f32, torch, np, serve_report)
@@ -1678,6 +2214,14 @@ def main():
          "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
     ]
+    k4 = k4["main path"]
+    kernels.append({
+        "name": "paged_decode_q", "route": "cuda",
+        "source": "infinistore_tpu_torch/csrc/paged_decode_q.cu",
+        "replaces": "infinistore_tpu/ops/pallas_paged_attention.py:69",
+        "launches": k4_launches, "max_abs_err": k4["err"], "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": None})
     train_launches = train_report["train"]["launches"]
     for name, key, src, line in (
             ("flash_bwd_dq", "dq", "flash_bwd_dq.cu", 403),
@@ -1697,6 +2241,7 @@ def main():
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))
     say("serving: " + json.dumps(serve_report))
+    say("int8: " + json.dumps(int8_report))
     say("training: " + json.dumps(train_report))
     say("backward at the training shape: " + json.dumps(
         {dt: {"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}

@@ -26,11 +26,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "paged_decode.cuh"
 
 namespace {
 
-using istpu::from_float;
 using istpu::kNegInf;
 using istpu::round_to;
 using istpu::to_float;
@@ -48,9 +47,6 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     int H, int KV, int N, int P, int max_pages, int window,
                     float scale) {
     constexpr int EPL = HD / 32;  // head dims held by one lane
-    __shared__ float sm_m[WARPS][G];
-    __shared__ float sm_l[WARPS][G];
-    __shared__ float sm_acc[WARPS][G][HD];
 
     const int kvh = blockIdx.x;
     const int b = blockIdx.y;
@@ -143,33 +139,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         }
     }
 
-    // Merge the warps' partial softmax states.
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-#pragma unroll
-        for (int e = 0; e < EPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
-        if (lane == 0) {
-            sm_m[warp][g] = m[g];
-            sm_l[warp][g] = l[g];
-        }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * HD; i += THREADS) {
-        const int g = i / HD;
-        const int d = i % HD;
-        float mx = kNegInf;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
-        float lsum = 0.0f, a = 0.0f;
-#pragma unroll
-        for (int w = 0; w < WARPS; ++w) {
-            const float f = expf(sm_m[w][g] - mx);
-            lsum = fmaf(sm_l[w][g], f, lsum);
-            a = fmaf(sm_acc[w][g][d], f, a);
-        }
-        out[((size_t)b * H + kvh * G + g) * HD + d] =
-            from_float<T>(lsum > 0.0f ? a / lsum : 0.0f);
-    }
+    istpu::merge_warps_store<T, WARPS, G, HD>(
+        m, l, acc, out + ((size_t)b * H + kvh * G) * HD);
 }
 
 template <typename T, int HD, int G>

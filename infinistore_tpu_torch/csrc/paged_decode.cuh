@@ -1,0 +1,53 @@
+// Shared by the paged decode kernels (paged_decode.cu, K2, and
+// paged_decode_q.cu, K4): the merge of the warps' partial online-softmax
+// states at the end of a CTA's page walk.
+#pragma once
+
+#include "common.cuh"
+
+namespace istpu {
+
+// Merge the partial states of a CTA's WARPS warps and write its G output
+// rows. Each lane holds, for row g, the warp's running max m[g], sum l[g]
+// and acc[g][e] for dims lane * (HD / 32) + e. Row g goes to
+// out + g * HD, normalised by the merged sum (0 for a row that saw no
+// token).
+template <typename T, int WARPS, int G, int HD>
+__device__ __forceinline__ void merge_warps_store(const float (&m)[G],
+                                                  const float (&l)[G],
+                                                  const float (&acc)[G][HD / 32],
+                                                  T* __restrict__ out) {
+    constexpr int EPL = HD / 32;
+    __shared__ float sm_m[WARPS][G];
+    __shared__ float sm_l[WARPS][G];
+    __shared__ float sm_acc[WARPS][G][HD];
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
+        if (lane == 0) {
+            sm_m[warp][g] = m[g];
+            sm_l[warp][g] = l[g];
+        }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < G * HD; i += WARPS * 32) {
+        const int g = i / HD;
+        const int d = i % HD;
+        float mx = kNegInf;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
+        float lsum = 0.0f, a = 0.0f;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+            const float f = expf(sm_m[w][g] - mx);
+            lsum = fmaf(sm_l[w][g], f, lsum);
+            a = fmaf(sm_acc[w][g][d], f, a);
+        }
+        out[(size_t)g * HD + d] = from_float<T>(lsum > 0.0f ? a / lsum : 0.0f);
+    }
+}
+
+}  // namespace istpu

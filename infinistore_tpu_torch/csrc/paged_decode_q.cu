@@ -1,0 +1,262 @@
+// Paged flash-decode attention over INT8 pages (one query token per
+// sequence over its KV pages, GQA, optional sliding window) for Hopper,
+// sm_90a.
+//
+// Replaces: infinistore_tpu/ops/pallas_paged_attention.py::_kernel_q with
+// its fold _attend and page map _make_page_idx (reached through
+// paged_flash_decode_quantized / decode_attention_quantized).
+//
+// Pages are int8 [N, P, KV, D] with one f32 scale per (token, kv head)
+// [N, P, KV] (ops/kv_quant.py). The fold is float32 throughout, as in the
+// TPU kernel (its _attend gets f32 q and dequantized f32 K/V): q in f32,
+// logits (q . k_int8) * k_scale * hd^-0.5, f32 online softmax, and P . V
+// with P NOT rounded to q's type (K2 rounds P to bf16 on bf16 inputs; K4
+// must not, or it would compute another function). The output is cast to
+// q's type.
+//
+// What bounds it on an H100: bytes. Each live token costs KV * (2 * D + 2
+// * 4) bytes (int8 K and V plus their scales), 0.53x K2's bf16 bytes, for
+// 2 * group FLOPs per K/V element: far below the ~295 FLOP/byte balance
+// point, so the least time is those bytes over 3.35 TB/s.
+//
+// Design: K2's (csrc/paged_decode.cu), with int8 loads. One CTA owns one
+// (sequence, kv head) and reads its own page ids from the table, clamps
+// each into the pool, and walks only the pages that hold live tokens (up
+// to (seq_len - 1) / page, and none wholly below the window floor
+// max(seq_len - window, 0)). Each of the 8 warps folds every 8th page,
+// 4 tokens a step with their loads issued together; a lane holds D / 32
+// dims, so at D = 128 its 4 int8 values of one token are one 32-bit load
+// (converted to float without I2F, see load_i8).
+// The token's scale is one f32 that every lane of the warp reads (one
+// broadcast load) and multiplies in after the warp-reduced dot product
+// (K) or into P (V). The warps' partial states merge through shared
+// memory at the end. One CTA per (sequence, kv head) fills few SMs at
+// small batch: split-K over pages, with K2's, is the first redesign.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "paged_decode.cuh"
+
+namespace {
+
+using istpu::kNegInf;
+using istpu::to_float;
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int CHUNK = 4;  // tokens folded per step of a warp
+
+// A lane's N consecutive int8 values as floats, in one load. The
+// conversion avoids I2F, a quarter-rate instruction on sm_90: each byte,
+// biased by 128 (xor 0x80), is placed by one byte permute in the low
+// mantissa bits of 2^23, and one add of -(2^23 + 128) gives the value
+// exactly.
+__device__ __forceinline__ float i8_biased_to_float(uint32_t w, uint32_t sel) {
+    return __uint_as_float(__byte_perm(w, 0x4B000000u, sel)) - 8388736.0f;
+}
+
+template <int N>
+__device__ __forceinline__ void load_i8(const int8_t* p, float (&out)[N]);
+template <>
+__device__ __forceinline__ void load_i8<4>(const int8_t* p, float (&out)[4]) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
+    out[0] = i8_biased_to_float(w, 0x7650);
+    out[1] = i8_biased_to_float(w, 0x7651);
+    out[2] = i8_biased_to_float(w, 0x7652);
+    out[3] = i8_biased_to_float(w, 0x7653);
+}
+template <>
+__device__ __forceinline__ void load_i8<2>(const int8_t* p, float (&out)[2]) {
+    const uint32_t w = *reinterpret_cast<const uint16_t*>(p) ^ 0x8080u;
+    out[0] = i8_biased_to_float(w, 0x7650);
+    out[1] = i8_biased_to_float(w, 0x7651);
+}
+template <>
+__device__ __forceinline__ void load_i8<1>(const int8_t* p, float (&out)[1]) {
+    out[0] = *p;
+}
+
+template <typename T, int HD, int G>
+__global__ void __launch_bounds__(THREADS)
+paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
+                      const float* __restrict__ ks,
+                      const int8_t* __restrict__ vq,
+                      const float* __restrict__ vs,
+                      const int* __restrict__ page_table,
+                      const int* __restrict__ seq_lens, T* __restrict__ out,
+                      int H, int KV, int N, int P, int max_pages, int window,
+                      float scale) {
+    constexpr int EPL = HD / 32;  // head dims held by one lane
+
+    const int kvh = blockIdx.x;
+    const int b = blockIdx.y;
+    const int warp = threadIdx.x / 32;
+    const int lane = threadIdx.x % 32;
+    const int d0 = lane * EPL;
+
+    float qr[G][EPL];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+        const T* qrow = q + ((size_t)b * H + kvh * G + g) * HD + d0;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) qr[g][e] = to_float(qrow[e]);
+    }
+
+    float m[G], l[G], acc[G][EPL];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+        m[g] = kNegInf;
+        l[g] = 0.0f;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) acc[g][e] = 0.0f;
+    }
+
+    const int seq_len = seq_lens[b];
+    const int low = window > 0 ? max(seq_len - window, 0) : 0;
+    const int last_page = seq_len > 0 ? min((seq_len - 1) / P, max_pages - 1) : -1;
+    const size_t tok_stride = (size_t)KV * HD;
+
+    for (int j = low / P + warp; j <= last_page; j += WARPS) {
+        const int pid = min(max(page_table[(size_t)b * max_pages + j], 0), N - 1);
+        const size_t tok0 = (size_t)pid * P;  // the page's first token row
+        const size_t page_off = (tok0 * KV + kvh) * HD + d0;
+        const size_t scale_off = tok0 * KV + kvh;
+        const int start = j * P;
+        const int t_begin = max(low - start, 0);
+        const int t_end = min(P, seq_len - start);
+        for (int t0 = t_begin; t0 < t_end; t0 += CHUNK) {
+            // Issue the chunk's loads together, then fold the chunk with
+            // one rescale per row.
+            float kv[CHUNK][EPL], vv[CHUNK][EPL], ksc[CHUNK], vsc[CHUNK];
+#pragma unroll
+            for (int c = 0; c < CHUNK; ++c) {
+                const int t = t0 + c;
+                if (t < t_end) {
+                    load_i8<EPL>(kq + page_off + (size_t)t * tok_stride, kv[c]);
+                    load_i8<EPL>(vq + page_off + (size_t)t * tok_stride, vv[c]);
+                    ksc[c] = ks[scale_off + (size_t)t * KV];
+                    vsc[c] = vs[scale_off + (size_t)t * KV];
+                } else {
+#pragma unroll
+                    for (int e = 0; e < EPL; ++e) kv[c][e] = vv[c][e] = 0.0f;
+                    ksc[c] = vsc[c] = 0.0f;
+                }
+            }
+#pragma unroll
+            for (int g = 0; g < G; ++g) {
+                float s[CHUNK];
+#pragma unroll
+                for (int c = 0; c < CHUNK; ++c) {
+                    float x = 0.0f;
+#pragma unroll
+                    for (int e = 0; e < EPL; ++e) x = fmaf(qr[g][e], kv[c][e], x);
+                    s[c] = x;
+                }
+#pragma unroll
+                for (int w = 16; w > 0; w >>= 1) {
+#pragma unroll
+                    for (int c = 0; c < CHUNK; ++c) {
+                        s[c] += __shfl_xor_sync(0xffffffffu, s[c], w);
+                    }
+                }
+                float mc = kNegInf;
+#pragma unroll
+                for (int c = 0; c < CHUNK; ++c) {
+                    s[c] *= ksc[c] * scale;
+                    if (t0 + c < t_end) mc = fmaxf(mc, s[c]);
+                }
+                const float m_new = fmaxf(m[g], mc);
+                const float alpha = expf(m[g] - m_new);
+                l[g] *= alpha;
+#pragma unroll
+                for (int e = 0; e < EPL; ++e) acc[g][e] *= alpha;
+#pragma unroll
+                for (int c = 0; c < CHUNK; ++c) {
+                    const float p = t0 + c < t_end ? expf(s[c] - m_new) : 0.0f;
+                    l[g] += p;
+                    const float pv = p * vsc[c];  // f32: not rounded to T
+#pragma unroll
+                    for (int e = 0; e < EPL; ++e) {
+                        acc[g][e] = fmaf(pv, vv[c][e], acc[g][e]);
+                    }
+                }
+                m[g] = m_new;
+            }
+        }
+    }
+
+    istpu::merge_warps_store<T, WARPS, G, HD>(
+        m, l, acc, out + ((size_t)b * H + kvh * G) * HD);
+}
+
+struct Args {
+    const void* q;
+    const int8_t* kq;
+    const float* ks;
+    const int8_t* vq;
+    const float* vs;
+    const int* pt;
+    const int* sl;
+    void* out;
+    int B, H, KV, N, P, max_pages, window;
+    cudaStream_t stream;
+};
+
+template <typename T, int HD, int G>
+int launch(const Args& a) {
+    const dim3 grid(a.KV, a.B);
+    paged_decode_q_kernel<T, HD, G><<<grid, THREADS, 0, a.stream>>>(
+        static_cast<const T*>(a.q), a.kq, a.ks, a.vq, a.vs, a.pt, a.sl,
+        static_cast<T*>(a.out), a.H, a.KV, a.N, a.P, a.max_pages, a.window,
+        (float)(1.0 / sqrt((double)HD)));
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int dispatch_g(int G, const Args& a) {
+    switch (G) {
+        case 1: return launch<T, HD, 1>(a);
+        case 2: return launch<T, HD, 2>(a);
+        case 4: return launch<T, HD, 4>(a);
+        case 8: return launch<T, HD, 8>(a);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+template <typename T>
+int dispatch_hd(int D, int G, const Args& a) {
+    switch (D) {
+        case 32: return dispatch_g<T, 32>(G, a);
+        case 64: return dispatch_g<T, 64>(G, a);
+        case 128: return dispatch_g<T, 128>(G, a);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+}  // namespace
+
+// q [B, H, D] (bf16 if is_bf16, else f32); k_q / v_q int8 [N, P, KV, D],
+// 4-byte aligned; k_s / v_s f32 [N, P, KV]; page_table int32
+// [B, max_pages]; seq_lens int32 [B] (tokens including the current one);
+// out [B, H, D] in q's type. All contiguous. Returns cudaGetLastError().
+extern "C" int istpu_paged_decode_q(const void* q, const void* k_q,
+                                    const void* k_s, const void* v_q,
+                                    const void* v_s, const void* page_table,
+                                    const void* seq_lens, void* out,
+                                    int is_bf16, int B, int H, int KV, int D,
+                                    int N, int P, int max_pages, int window,
+                                    void* stream) {
+    const Args a{q,
+                 static_cast<const int8_t*>(k_q),
+                 static_cast<const float*>(k_s),
+                 static_cast<const int8_t*>(v_q),
+                 static_cast<const float*>(v_s),
+                 static_cast<const int*>(page_table),
+                 static_cast<const int*>(seq_lens),
+                 out, B, H, KV, N, P, max_pages, window,
+                 static_cast<cudaStream_t>(stream)};
+    const int G = H / KV;
+    if (is_bf16) return dispatch_hd<__nv_bfloat16>(D, G, a);
+    return dispatch_hd<float>(D, G, a);
+}

@@ -17,6 +17,9 @@ memory and the pool blocks, with no host staging.
   they appear) and unregistered on ``close``.
 - **STREAM** (remote server): bytes go through a pinned staging buffer
   and ``write_cache`` / ``read_cache``.
+- **int8 pages** (``put_kv_pages_quantized`` / ``get_kv_pages_quantized``):
+  quantized and packed on the device (``ops/kv_quant.py``), then the same
+  copies as raw pages, on both paths.
 - **LayerStreamer**: per-layer offload overlapped with compute — the
   layer's device->host copy runs on a side stream behind an event, and
   an upload thread waits on that event.
@@ -33,6 +36,7 @@ import torch
 from ._device import resolve_device
 from ._native import FAKE_TOKEN, OK
 from .lib import InfinityConnection
+from .ops import kv_quant
 
 # Offload/restore copy accounting. ``staging_copies`` counts extra
 # host->host copies and must stay 0 on SHM puts.
@@ -322,6 +326,48 @@ class CudaKVStore:
     def get_kv_pages_host(self, keys, page_shape, dtype):
         """Fetch pages into a new CPU tensor (own bytes)."""
         return self.get_kv_pages(keys, page_shape, dtype, device="cpu")
+
+    # -- quantized paged KV (int8 + per-token-per-head scales) ----------
+
+    def put_kv_pages_quantized(self, keys, pages, sync=False):
+        """Store pages [n_pages, page, n_kv, hd] int8-quantized (about
+        half the bytes of bf16; see ``ops/kv_quant.py``). Quantizing and
+        packing run on the pages' device; on SHM the packed rows are
+        copied straight into the pool, as :meth:`put_kv_pages` copies
+        raw pages. Read back with :meth:`get_kv_pages_quantized`."""
+        n = pages.shape[0]
+        if n != len(keys):
+            raise ValueError("len(keys) must equal pages.shape[0]")
+        block = kv_quant.packed_page_bytes(tuple(pages.shape[1:]))
+        packed = kv_quant.pack_pages(*kv_quant.quantize_kv_pages(pages))
+        blocks = self.conn.allocate(keys, block)
+        try:
+            self._write_pages(packed.reshape(-1), blocks, block)
+        except BaseException:
+            _abort_uncommitted(self.conn, blocks)
+            raise
+        if sync:
+            self.conn.sync()
+        return blocks
+
+    def get_kv_pages_quantized_raw(self, keys, page_shape, device=None):
+        """Fetch int8-quantized pages without dequantizing: (int8
+        [len(keys), *page_shape], f32 scales [len(keys), page, n_kv]) on
+        ``device`` (default: the store's), the form the int8 decode
+        kernel reads."""
+        device = self.device if device is None else resolve_device(device)
+        block = kv_quant.packed_page_bytes(page_shape)
+        packed = torch.empty((len(keys), block), dtype=torch.uint8,
+                             device=device)
+        if len(keys):
+            self._read_into(packed.reshape(-1), keys, block)
+        return kv_quant.unpack_pages(packed, page_shape)
+
+    def get_kv_pages_quantized(self, keys, page_shape, dtype, device=None):
+        """Fetch int8-quantized pages and dequantize them on the device;
+        returns [len(keys), *page_shape] in ``dtype``."""
+        q, scales = self.get_kv_pages_quantized_raw(keys, page_shape, device)
+        return kv_quant.dequantize_kv_pages(q, scales, dtype)
 
     def prefetch(self, keys):
         """Advisory promotion kick for pages about to be read. Returns

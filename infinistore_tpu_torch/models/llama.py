@@ -15,7 +15,15 @@ recompute backward (kernels K5 and K6 on the card), and the optimizer is
 ``torch.optim.AdamW`` with optax's ``adamw`` defaults (:func:`adamw`).
 ``decode_step`` and ``verify_step`` run without grad.
 
-Not in this module yet: int8 weights (``quantize_params``).
+Int8 weight-only quantization (``quantize_params``,
+``init_params_quantized``): every 2-D matmul weight becomes an
+``{"int8", "scale"}`` leaf (per output column; per row for the
+embedding), which ``_matmul`` and ``_embed`` dequantize at use. Each
+call builds the weight in the compute dtype first (``int8.to(dtype)``):
+the semantics of the JAX package, whose XLA fuses that convert into the
+matmul's operand fetch; a GEMM that dequantizes its tiles is not written
+yet. Training over int8 leaves is not supported (:func:`trainable`
+raises), as in the JAX package.
 """
 
 import functools
@@ -85,40 +93,107 @@ LLAMA31_8B = LlamaConfig(
 )
 
 
+def _layer_shapes(cfg):
+    """The 2-D weights of one layer and their shapes, in draw order."""
+    d, q, kv = (cfg.d_model, cfg.n_heads * cfg.head_dim,
+                cfg.n_kv_heads * cfg.head_dim)
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+            "w_gate": (d, cfg.d_ff), "w_up": (d, cfg.d_ff),
+            "w_down": (cfg.d_ff, d)}
+
+
+def _random_tree(cfg, device, weight):
+    """A parameter dict of ``cfg``'s leaves: norms at one, each 2-D
+    weight from ``weight(shape, per_row)`` (per_row for the embedding,
+    which is consumed by gather), drawn embed, lm_head, then each layer's
+    in ``_layer_shapes`` order."""
+    def ones():
+        return torch.ones(cfg.d_model, dtype=cfg.torch_dtype, device=device)
+
+    embed = weight((cfg.vocab_size, cfg.d_model), True)
+    lm_head = weight((cfg.d_model, cfg.vocab_size), False)
+    layers = [{**{name: weight(shape, False)
+                  for name, shape in _layer_shapes(cfg).items()},
+               "ln1": ones(), "ln2": ones()} for _ in range(cfg.n_layers)]
+    return {"embed": embed, "layers": layers, "final_ln": ones(),
+            "lm_head": lm_head}
+
+
 def init_params(generator, cfg: LlamaConfig, device="cuda"):
     """Random parameters (normal * d_model**-0.5, norms at one) drawn
     from ``generator``, which must live on ``device``. Same leaf names
     and shapes as the JAX package's ``init_params``; the numbers differ
     (another generator)."""
     device = resolve_device(device)
-    dt = cfg.torch_dtype
     scale = cfg.d_model ** -0.5
 
-    def dense(shape):
+    def dense(shape, _per_row):
         w = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (w * scale).to(dt)
+        return (w * scale).to(cfg.torch_dtype)
 
-    def ones():
-        return torch.ones(cfg.d_model, dtype=dt, device=device)
+    return _random_tree(cfg, device, dense)
 
-    embed = dense((cfg.vocab_size, cfg.d_model))
-    lm_head = dense((cfg.d_model, cfg.vocab_size))
-    layers = []
-    for _ in range(cfg.n_layers):
-        layers.append({
-            "ln1": ones(),
-            "wq": dense((cfg.d_model, cfg.n_heads * cfg.head_dim)),
-            "wk": dense((cfg.d_model, cfg.n_kv_heads * cfg.head_dim)),
-            "wv": dense((cfg.d_model, cfg.n_kv_heads * cfg.head_dim)),
-            "wo": dense((cfg.n_heads * cfg.head_dim, cfg.d_model)),
-            "ln2": ones(),
-            "w_gate": dense((cfg.d_model, cfg.d_ff)),
-            "w_up": dense((cfg.d_model, cfg.d_ff)),
-            "w_down": dense((cfg.d_ff, cfg.d_model)),
-        })
-    return {"embed": embed, "layers": layers, "final_ln": ones(),
-            "lm_head": lm_head}
+
+# 2-D matmul weights eligible for int8 weight-only quantization; norms
+# and biases (1-D, negligible bytes) stay in the compute dtype.
+_QUANT_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quantize_leaf(w, dtype, axis=0):
+    """Symmetric absmax int8: {"int8": int8 [in, out], "scale": dtype}.
+
+    axis=0: per-OUTPUT-column scales [out], the matmul form, where
+    (x @ int8) * scale is exact with respect to the quantized weights.
+    axis=1: per-ROW scales [in], the gather form of the embedding
+    table, where each token's row is its own quantization unit.
+    All-zero groups get scale 0 (their values are 0 anyway)."""
+    wf = w.float()
+    scale = wf.abs().amax(dim=axis) / 127.0
+    denom = torch.where(scale > 0, scale, torch.ones_like(scale))
+    denom = denom[None, :] if axis == 0 else denom[:, None]
+    q = torch.round(wf / denom).clamp_(-127, 127)
+    return {"int8": q.to(torch.int8), "scale": scale.to(dtype)}
+
+
+def quantize_params(params, cfg: LlamaConfig):
+    """Weight-only int8 quantization of a bf16/f32 parameter dict: every
+    2-D matmul weight (attention, MLP, embed, lm_head) becomes an
+    {"int8", "scale"} leaf; norms and biases stay. The embedding, which
+    is consumed by gather, gets per-row scales."""
+    dt = cfg.torch_dtype
+    layers = [{name: _quantize_leaf(w, dt) if name in _QUANT_LEAVES else w
+               for name, w in layer.items()} for layer in params["layers"]]
+    return {
+        "embed": _quantize_leaf(params["embed"], dt, axis=1),
+        "layers": layers,
+        "final_ln": params["final_ln"],
+        "lm_head": _quantize_leaf(params["lm_head"], dt),
+    }
+
+
+def init_params_quantized(generator, cfg: LlamaConfig, device="cuda"):
+    """Random int8-quantized parameters drawn from ``generator`` (on
+    ``device``) without ever building the dense tree: weights draw
+    uniform int8 in [-127, 127] (std 127 / sqrt(3)), so the scale
+    sqrt(3) * d_model**-0.5 / 127 matches init_params' normal(0,
+    d_model**-0.5) std. Same leaves as quantize_params' output."""
+    device = resolve_device(device)
+    col_scale = (3.0 ** 0.5) * cfg.d_model ** -0.5 / 127.0
+
+    def qdense(shape, per_row):
+        q = torch.randint(-127, 128, shape, generator=generator,
+                          device=device, dtype=torch.int8)
+        return {"int8": q, "scale": torch.full(
+            (shape[0 if per_row else 1],), col_scale, dtype=cfg.torch_dtype,
+            device=device)}
+
+    return _random_tree(cfg, device, qdense)
+
+
+def param_bytes(params):
+    """Total bytes of every tensor leaf (int8 trees count int8)."""
+    return sum(t.numel() * t.element_size() for t in param_leaves(params))
 
 
 def _leaf_from_numpy(a, device):
@@ -130,11 +205,13 @@ def _leaf_from_numpy(a, device):
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_jax(tree, device="cpu"):
+def params_from_jax(tree, device="cuda"):
     """The JAX package's parameter tree, as numpy arrays (bf16 leaves as
     their uint16 bits, or arrays whose dtype is named bfloat16), turned
-    into this module's dict on ``device`` — so both packages compute the
-    same function on the same weights."""
+    into this module's dict on ``device`` (the card unless
+    ``device="cpu"``) — so both packages compute the same function on the
+    same weights. Quantized trees carry their {"int8", "scale"} leaves
+    across unchanged."""
     device = resolve_device(device)
 
     def conv(x):
@@ -193,9 +270,19 @@ def rope(x, positions, theta, scaling=()):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
+def _matmul(h, w):
+    """h @ W, where W is a dense tensor or an int8 weight-only leaf
+    {"int8": [in, out] int8, "scale": [out]}: then (h @ int8) * scale in
+    h's dtype, equal to h @ (int8 * scale) because the scale is per
+    output column."""
+    if isinstance(w, dict):
+        return (h @ w["int8"].to(h.dtype)) * w["scale"].to(h.dtype)
+    return h @ w
+
+
 def _proj(h, layer, w, b_, shape=None):
-    """h @ W with an optional bias leaf (bq/bk/bv/bo)."""
-    out = h @ layer[w]
+    """_matmul with an optional bias leaf (bq/bk/bv/bo)."""
+    out = _matmul(h, layer[w])
     bias = layer.get(b_)
     if bias is not None:
         out = out + bias
@@ -227,12 +314,21 @@ def _act(cfg, x):
 
 def _mlp(layer, x, cfg):
     h = rms_norm(x, layer["ln2"], cfg.norm_eps, cfg.norm_plus_one)
-    return (_act(cfg, h @ layer["w_gate"]) * (h @ layer["w_up"])) \
-        @ layer["w_down"]
+    gated = _act(cfg, _matmul(h, layer["w_gate"])) * _matmul(h, layer["w_up"])
+    return _matmul(gated, layer["w_down"])
 
 
 def _embed(params, tokens, cfg=None):
-    out = params["embed"][tokens.long()]
+    """Token embedding gather; an int8 embedding gathers its int8 rows
+    and their per-row scales (the scale leaf carries the compute
+    dtype)."""
+    e = params["embed"]
+    if isinstance(e, dict):
+        idx = tokens.long()
+        row_scale = e["scale"][idx]
+        out = e["int8"][idx].to(row_scale.dtype) * row_scale[..., None]
+    else:
+        out = e[tokens.long()]
     if cfg is not None and cfg.embed_scale != 1.0:
         out = out * torch.tensor(cfg.embed_scale, dtype=out.dtype)
     return out
@@ -240,7 +336,7 @@ def _embed(params, tokens, cfg=None):
 
 def _logits(params, x):
     """Final projection to vocab, float32 output."""
-    return (x @ params["lm_head"]).float()
+    return _matmul(x, params["lm_head"]).float()
 
 
 def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
@@ -433,8 +529,13 @@ def param_leaves(params):
 
 def trainable(params):
     """Make every leaf require grad (in place) and return the leaves, the
-    list an optimizer takes."""
+    list an optimizer takes. Int8 leaves (``quantize_params``) cannot be
+    trained: train the dense tree and quantize it afterwards."""
     leaves = param_leaves(params)
+    if any(not t.is_floating_point() for t in leaves):
+        raise TypeError(
+            "training over int8 weight leaves is not supported: train the "
+            "dense parameters and quantize_params them afterwards")
     for t in leaves:
         t.requires_grad_(True)
     return leaves

@@ -48,6 +48,10 @@ _DECLS = {
     # B, H, KV, D, N, P, max_pages, window, stream
     "istpu_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _I, _I, _P],
+    # q, k_q, k_s, v_q, v_s, page_table, seq_lens, out, is_bf16,
+    # B, H, KV, D, N, P, max_pages, window, stream
+    "istpu_paged_decode_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _P],
     # q, k_pages, v_pages, page_table, seq_lens, out, is_bf16,
     # B, m, H, KV, D, N, P, max_pages, window, stream
     "istpu_paged_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -1,0 +1,140 @@
+"""Paged flash-decode attention over int8 pages: the CUDA kernel
+``csrc/paged_decode_q.cu`` (K4), its plain version and its dispatcher.
+
+Counterpart of ``infinistore_tpu/ops/pallas_paged_attention.py``
+(``paged_flash_decode_quantized`` / ``decode_attention_quantized``).
+Pages stay int8 with one f32 scale per (token, kv head)
+(``ops/kv_quant.py``); the kernel dequantizes right after each load and
+folds in float32 throughout (q, the dequantized pages, the softmax and
+P.V), as the TPU kernel does.
+
+- :func:`paged_decode_quantized_plain` is the kernel's own function in
+  plain PyTorch, its oracle on the card.
+- :func:`decode_attention_quantized`: a CUDA tensor launches the kernel
+  or raises (no fallback); a CPU tensor takes the JAX package's off-TPU
+  route (gather the table's pages, dequantize them to q's dtype, then
+  the plain paged decode over an identity table). At float32 the two
+  plain routes agree; at bf16 they differ by bf16 rounding, as the JAX
+  package's kernel and fallback do.
+"""
+
+import torch
+
+from . import _kernels
+from .kv_quant import dequantize_kv_pages
+from .paged_attention import paged_decode_attention
+
+# Launches of the kernel (incremented only where it is launched).
+launches = 0
+
+_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
+_HEAD_DIMS = (32, 64, 128)
+_GROUPS = (1, 2, 4, 8)
+
+
+def reset_launches():
+    global launches
+    launches = 0
+
+
+def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
+                                 seq_lens, window=0):
+    """Launch the CUDA int8 paged decode kernel.
+
+    q: [batch, n_heads, hd] bf16 or float32; k_q/v_q: int8 [n_pages,
+    page, n_kv, hd]; k_s/v_s: float32 [n_pages, page, n_kv];
+    page_table: int32 [batch, max_pages] (padded arbitrarily: ids are
+    clamped into the pool); seq_lens: int32 [batch], tokens per sequence
+    including the current one. All on one CUDA device and contiguous.
+    Returns [batch, n_heads, hd] in q's dtype."""
+    global launches
+    dev = q.device
+    named = (("q", q), ("k_q", k_q), ("k_s", k_s), ("v_q", v_q),
+             ("v_s", v_s), ("page_table", page_table),
+             ("seq_lens", seq_lens))
+    for name, t in named:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q dtype {q.dtype} (need bf16 or f32)")
+    if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
+        raise TypeError("k_q and v_q must be int8")
+    if k_s.dtype != torch.float32 or v_s.dtype != torch.float32:
+        raise TypeError("k_s and v_s must be float32")
+    if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
+        raise TypeError("page_table and seq_lens must be int32")
+    batch, n_heads, hd = q.shape
+    n_pages, page, n_kv, hd_k = k_q.shape
+    if v_q.shape != k_q.shape or hd_k != hd:
+        raise ValueError("page shapes do not agree with q")
+    if k_s.shape != k_q.shape[:3] or v_s.shape != k_q.shape[:3]:
+        raise ValueError("scales must be [n_pages, page, n_kv]")
+    if k_q.data_ptr() % 4 or v_q.data_ptr() % 4:
+        raise ValueError("int8 pages must start on a 4-byte boundary")
+    if page_table.dim() != 2 or page_table.shape[0] != batch:
+        raise ValueError("page_table must be [batch, max_pages]")
+    if seq_lens.shape != (batch,):
+        raise ValueError("seq_lens must be [batch]")
+    if n_heads % n_kv or n_heads // n_kv not in _GROUPS:
+        raise ValueError(f"GQA group {n_heads}/{n_kv} not in {_GROUPS}")
+    if hd not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
+    out = torch.empty_like(q)
+    if batch == 0:
+        return out
+    lib = _kernels.lib()
+    err = lib.istpu_paged_decode_q(
+        q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+        v_s.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), _DTYPES[q.dtype], batch, n_heads, n_kv, hd, n_pages,
+        page, page_table.shape[1], int(window), _kernels.stream_handle(dev),
+    )
+    _kernels.check(err, "paged_decode_q")
+    launches += 1
+    return out
+
+
+def _gather_dequantized(k_q, k_s, v_q, v_s, page_table, dtype):
+    """The table's pages (ids clamped into the pool), dequantized to
+    ``dtype`` in table order: (k, v) [batch * max_pages, page, n_kv, hd]
+    and the identity table over them."""
+    sel = page_table.long().clamp(0, k_q.shape[0] - 1).reshape(-1)
+    kg = dequantize_kv_pages(k_q[sel], k_s[sel], dtype)
+    vg = dequantize_kv_pages(v_q[sel], v_s[sel], dtype)
+    ident = torch.arange(sel.numel(), dtype=torch.int32,
+                         device=page_table.device).reshape(page_table.shape)
+    return kg, vg, ident
+
+
+def paged_decode_quantized_plain(q, k_q, k_s, v_q, v_s, page_table,
+                                 seq_lens, window=0):
+    """The kernel's function in plain PyTorch: q in float32, the pages
+    dequantized to float32, float32 softmax and P.V (P is not rounded to
+    q's dtype), the output cast to q's dtype."""
+    kg, vg, ident = _gather_dequantized(k_q, k_s, v_q, v_s, page_table,
+                                        torch.float32)
+    out = paged_decode_attention(q.float(), kg, vg, ident, seq_lens,
+                                 window=window)
+    return out.to(q.dtype)
+
+
+def decode_attention_quantized(q, k_q, k_s, v_q, v_s, page_table, seq_lens,
+                               window=0):
+    """Decode attention over int8 pages: the CUDA kernel for CUDA
+    tensors; for CPU tensors the JAX package's off-TPU route (gather
+    first, so the footprint stays at the referenced pages, then
+    dequantize to q's dtype and run the plain paged decode); anything
+    else raises."""
+    if q.device.type == "cuda":
+        return paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s,
+                                            page_table, seq_lens,
+                                            window=window)
+    if q.device.type == "cpu":
+        kg, vg, ident = _gather_dequantized(k_q, k_s, v_q, v_s, page_table,
+                                            q.dtype)
+        return paged_decode_attention(q, kg, vg, ident, seq_lens,
+                                      window=window)
+    raise ValueError(
+        f"decode_attention_quantized: unsupported device {q.device}")

@@ -23,6 +23,14 @@ uncached tail, decode all slots in lockstep, offload finished pages.
 - **Speculative decoding** (``spec_k``), **chunked prefill**
   (``prefill_chunk``) and **multi-step bursts** (``host_steps``), with
   seeded per-request sampling on the host (numpy), as in the JAX engine.
+- **Quantized wire (opt-in)**: ``ServingConfig(quantized_store=True)``
+  moves pages to and from the store int8-packed (``ops/kv_quant.py``,
+  quantized and packed on the device): about half the offload/restore
+  bytes and store capacity, at ~0.4% KV error. Restored pages are
+  dequantized into the engine's bf16/f32 pool, as in the JAX engine, and
+  decode stays on the bf16/f32 kernel. The key namespace ends in ``q8``
+  instead of the dtype, as the JAX engine's does: int8 and raw pages
+  never cross-hit, and the two packages' engines share int8 pages.
 
 Where it differs from the JAX engine, and why:
 
@@ -37,7 +45,6 @@ Where it differs from the JAX engine, and why:
 - A multi-step burst is a Python loop of ``decode_step`` with the tokens
   kept on the device and one device-to-host copy per burst (the JAX
   engine fuses it with ``lax.scan``).
-- ``quantized_store`` (int8 pages on the wire) is not ported yet.
 """
 
 import hashlib
@@ -103,8 +110,11 @@ class ServingConfig:
     #                              store-key namespace; engines with
     #                              different weights sharing one store
     #                              MUST use different model_ids
-    quantized_store: bool = False  # int8 pages on the store wire (not
-    #                                ported yet: True raises)
+    quantized_store: bool = False  # int8 pages on the store wire: about
+    #                                half the restore/offload bytes and
+    #                                store capacity at ~0.4% KV error
+    #                                (ops/kv_quant.py); keys are
+    #                                namespaced apart from raw pages
     spec_k: int = 0              # speculative decoding: propose up to k
     #                              tokens per step and verify them in ONE
     #                              multi-token pass (0 = off). Greedy
@@ -288,11 +298,6 @@ class ServingEngine:
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.sc = sconfig or ServingConfig()
-        if self.sc.quantized_store:
-            raise NotImplementedError(
-                "quantized_store (int8 pages on the store wire) is not "
-                "ported yet: it comes with the int8 slice (ops/kv_quant.py "
-                "and the quantized store methods)")
         for leaf in llama.param_leaves(params):
             if leaf.device != self.device:
                 raise ValueError(
@@ -341,11 +346,15 @@ class ServingEngine:
         model_id = self.sc.model_id
         if store is not None and model_id == "default":
             model_id = f"wf{self._weights_fingerprint()}"
+        wire = "q8" if self.sc.quantized_store else cfg.dtype
         self._ns = (
             f"{model_id}/p{cfg.page_size}/l{cfg.n_layers}"
-            f"/kv{cfg.n_kv_heads}x{cfg.head_dim}/{cfg.dtype}"
+            f"/kv{cfg.n_kv_heads}x{cfg.head_dim}/{wire}"
         )
-        if store is not None:
+        if store is not None and self.sc.quantized_store:
+            self._get_pages = store.get_kv_pages_quantized
+            self._put_pages = store.put_kv_pages_quantized
+        elif store is not None:
             self._get_pages = store.get_kv_pages
             self._put_pages = store.put_kv_pages
 

@@ -38,6 +38,7 @@ def test_port_imports_and_runs_with_jax_blocked():
         from infinistore_tpu_torch.example import demo_prefill, serve
         from infinistore_tpu_torch.models import llama
         from infinistore_tpu_torch import serving, serving_http
+        from infinistore_tpu_torch.ops import kv_quant, paged_flash_decode_q
         cfg = llama.LlamaConfig(vocab_size=64, d_model=32, n_layers=1,
                                 n_heads=2, n_kv_heads=1, d_ff=64,
                                 page_size=4, dtype="float32")
@@ -57,6 +58,15 @@ def test_port_imports_and_runs_with_jax_blocked():
             max_slots=2, total_pages=8, spec_k=2), device="cpu")
         out = eng.run([serving.Request("r", [1, 2, 3, 1, 2], 4)])
         assert len(out["r"]) == 4
+        qp = llama.quantize_params(p, cfg)
+        lq, _ = llama.prefill(qp, cfg, tok)
+        assert torch.isfinite(lq).all()
+        kq, ks = kv_quant.quantize_kv_pages(
+            torch.randn(4, *cfg.kv_page_shape()))
+        att = paged_flash_decode_q.decode_attention_quantized(
+            torch.randn(1, cfg.n_heads, cfg.head_dim), kq, ks, kq, ks,
+            table, torch.tensor([5], dtype=torch.int32))
+        assert torch.isfinite(att).all()
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ISOLATED_OK")
@@ -82,6 +92,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     paths = list(_sources())
     for mod in ("serving.py", "serving_http.py", "example/serve.py",
                 "ops/paged_flash_verify.py", "ops/flash_attention.py",
+                "ops/kv_quant.py", "ops/paged_flash_decode_q.py",
                 "models/llama.py"):
         assert os.path.join(PKG, mod) in paths, mod
     for path in paths:
@@ -114,8 +125,29 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         demo_prefill.run("127.0.0.1", 1)
     with pytest.raises(RuntimeError, match="CUDA"):
-        llama.params_from_jax({"embed": [[0.0]]}, device="cuda")
+        llama.params_from_jax({"embed": [[0.0]]})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_params_quantized(torch.Generator(), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serving.ServingEngine({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run("127.0.0.1", 1)
+
+
+def test_int8_kernel_wrapper_refuses_cpu_tensors():
+    """No fallback: K4's wrapper takes CUDA tensors only, and its
+    dispatcher refuses devices that are neither CPU nor CUDA."""
+    from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
+
+    i8 = torch.zeros(4, 8, 2, 32, dtype=torch.int8)
+    sc = torch.ones(4, 8, 2)
+    table = torch.zeros(1, 2, dtype=torch.int32)
+    lens = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        pq.paged_flash_decode_quantized(torch.zeros(1, 2, 32), i8, sc, i8,
+                                        sc, table, lens)
+    launches = pq.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        pq.decode_attention_quantized(torch.empty(1, 2, 32, device="meta"),
+                                      i8, sc, i8, sc, table, lens)
+    assert pq.launches == launches

@@ -20,6 +20,7 @@ from infinistore_tpu.models import llama as jl
 from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
                                    InfinityConnection, ServerConfig,
                                    TYPE_SHM)
+from infinistore_tpu_torch import cuda as tcuda
 from infinistore_tpu_torch import serving as ts
 from infinistore_tpu_torch.cuda import CudaKVStore
 from infinistore_tpu_torch.models import llama as tl
@@ -272,15 +273,134 @@ def test_store_failure_degrades_to_storeless(models, fail_on):
 
 
 def test_quantized_store_and_misplaced_params_raise(models):
+    """An int8-wire engine builds (the quantized store is ported; its
+    behaviour is checked in the tests below), and parameters that lie off
+    the engine's device are refused, with or without the int8 wire."""
     _, _, tcfg, tparams = models["full"]
-    with pytest.raises(NotImplementedError, match="int8"):
-        ts.ServingEngine(tparams, tcfg,
-                         ts.ServingConfig(quantized_store=True),
-                         device="cpu")
+    eng = ts.ServingEngine(tparams, tcfg,
+                           ts.ServingConfig(quantized_store=True),
+                           device="cpu")
+    assert eng._ns.endswith("/q8")
     meta = {k: v for k, v in tparams.items()}
     meta["lm_head"] = tparams["lm_head"].to("meta")
-    with pytest.raises(ValueError, match="params lie on"):
-        ts.ServingEngine(meta, tcfg, device="cpu")
+    for quantized in (False, True):
+        with pytest.raises(ValueError, match="params lie on"):
+            ts.ServingEngine(meta, tcfg,
+                             ts.ServingConfig(quantized_store=quantized),
+                             device="cpu")
+
+
+# ---- int8 pages on the wire, int8 weights --------------------------------
+
+
+def test_quantized_store_namespace_matches_jax(models):
+    _, jparams, tcfg, tparams = models["full"]
+    for quantized in (False, True):
+        sc = dict(model_id="ckpt-q", quantized_store=quantized)
+        j_eng = js.ServingEngine(jparams, JCFG, js.ServingConfig(**sc))
+        t_eng = ts.ServingEngine(tparams, tcfg, ts.ServingConfig(**sc),
+                                 device="cpu")
+        assert t_eng._ns == j_eng._ns
+        assert t_eng._ns.endswith("/q8" if quantized else "/float32")
+
+
+def test_multiturn_prefix_hit_through_int8_pages(models, store):
+    """quantized_store=True: turn 2 hits turn 1's int8 pages and restores
+    them through dequantization; int8 and raw pages never cross-hit."""
+    _, _, tcfg, tparams = models["full"]
+    rng = np.random.default_rng(9)
+    turn1 = _prompt(rng, 16)
+    qsc = ts.ServingConfig(quantized_store=True)
+    tcuda.reset_copy_counters()
+    eng1 = ts.ServingEngine(tparams, tcfg, qsc, store=store, device="cpu")
+    out1 = eng1.run([ts.Request("t1", turn1, max_new_tokens=8)])
+    assert eng1.stats["offloaded_pages"] > 0
+    assert tcuda.copy_counters["staging_copies"] == 0
+    convo = turn1 + out1["t1"]
+    turn2 = convo[: (len(convo) // 8) * 8] + _prompt(rng, 5)
+    eng2 = ts.ServingEngine(tparams, tcfg, qsc, store=store, device="cpu")
+    out2 = eng2.run([ts.Request("t2", turn2, max_new_tokens=6)])
+    assert eng2.stats["prefix_hit_pages"] > 0
+    assert eng2.stats["restored_pages"] > 0
+    # The restored pages are turn 1's KV through the int8 wire: within the
+    # quantizer's error of a cold prefill's, so the streams agree here.
+    cold = ts.ServingEngine(tparams, tcfg, device="cpu")
+    assert out2["t2"] == cold.run([ts.Request("x", turn2,
+                                              max_new_tokens=6)])["x"]
+
+    raw = ts.ServingEngine(tparams, tcfg, store=store, device="cpu")
+    raw.run([ts.Request("r", turn2, max_new_tokens=2)])
+    assert raw.stats["prefix_hit_pages"] == 0
+    fresh = _prompt(rng, 24)
+    raw2 = ts.ServingEngine(tparams, tcfg, store=store, device="cpu")
+    raw2.run([ts.Request("r2", fresh, max_new_tokens=2)])
+    assert raw2.stats["offloaded_pages"] > 0
+    q8 = ts.ServingEngine(tparams, tcfg, qsc, store=store, device="cpu")
+    q8.run([ts.Request("q", fresh, max_new_tokens=2)])
+    assert q8.stats["prefix_hit_pages"] == 0
+
+
+def test_jax_and_port_engines_share_int8_pages(models, port_server):
+    """A JAX engine's int8 pages, written through the port's store from
+    the bytes the JAX package packs, are hits for the port's engine."""
+    from infinistore_tpu.ops import kv_quant as jq
+
+    jcfg, jparams, tcfg, tparams = models["full"]
+    sc = dict(model_id="shared-q8", quantized_store=True)
+    j_eng = js.ServingEngine(jparams, jcfg, js.ServingConfig(**sc))
+    prompt = _prompt(np.random.default_rng(12), 17)
+    conn = InfinityConnection(ClientConfig(
+        host_addr="127.0.0.1", service_port=port_server.service_port,
+        connection_type=TYPE_SHM))
+    conn.connect()
+    st = CudaKVStore(conn, device="cpu")
+    try:
+        _, kvs = jl.prefill(jparams, jcfg, jax.numpy.asarray([prompt]))
+        digests = js.content_page_digests(prompt, 8, 2, j_eng._ns)
+        for li, (k, v) in enumerate(kvs):
+            for kind, x in (("k", k), ("v", v)):
+                pages, _ = jl.kv_to_pages(jcfg, x[:, :16], x[:, :16])
+                packed = jq.pack_pages_host(*jq.quantize_kv_pages(pages[0]))
+                st.put_kv_pages(js.content_page_keys(
+                    [], 0, 0, li, kind, digests=digests),
+                    torch.from_numpy(packed), sync=True)
+        t_eng = ts.ServingEngine(tparams, tcfg, ts.ServingConfig(**sc),
+                                 store=st, device="cpu")
+        assert t_eng._ns == j_eng._ns
+        out = t_eng.run([ts.Request("t", prompt, max_new_tokens=4)])
+        assert t_eng.stats["prefix_hit_pages"] == 2
+        assert len(out["t"]) == 4
+    finally:
+        st.close()
+        conn.close()
+
+
+ENGINE_Q_CASES = {
+    "plain": dict(max_slots=2, total_pages=32),
+    "spec": dict(max_slots=2, spec_k=3),
+    "chunked": dict(max_slots=2, prefill_chunk=8, host_steps=4),
+}
+
+
+@pytest.mark.parametrize("case", list(ENGINE_Q_CASES))
+def test_engine_on_quantized_weights_matches_jax(models, mix, case):
+    """Store-less at f32, the port's engine on quantize_params weights
+    emits the JAX engine's tokens on the same quantized tree."""
+    jcfg, jparams, tcfg, tparams = models["full"]
+    j_q = jl.quantize_params(jparams, jcfg)
+    t_q = tl.quantize_params(tparams, tcfg)
+    prompts, _ = mix
+    sc = ENGINE_Q_CASES[case]
+
+    def requests(mod):
+        return [mod.Request(f"r{i}", p, max_new_tokens=10)
+                for i, p in enumerate(prompts)]
+
+    want = js.ServingEngine(j_q, jcfg, js.ServingConfig(**sc)).run(
+        requests(js))
+    t_eng = ts.ServingEngine(t_q, tcfg, ts.ServingConfig(**sc),
+                             device="cpu")
+    assert t_eng.run(requests(ts)) == want
 
 
 # ---- the HTTP front end --------------------------------------------------

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Plant faults in the port's CUDA kernels; show chip_smoke.py catches them.
 
-    python3 tools/torch_kernel_faults.py
+    python3 tools/torch_kernel_faults.py [WORD]
+
+With WORD, only the faults whose name contains it are planted (for
+example ``decode_q:`` for K4's), beside the unchanged sources.
 
 Needs one NVIDIA GPU and nvcc. For the unchanged kernel sources and for
 each fault in FAULTS, copies infinistore_tpu_torch/csrc into a temporary
 directory, applies the fault (one exact text substitution), builds the
 copy with the flags of ops/_kernels.py, loads it in place of the port's
-kernels and runs chip_smoke.py's phase 2, 3 and 5 cases against the
-plain versions, and phase 8's backward cases (K1's lse, K5, K6). Prints
+kernels and runs chip_smoke.py's phase 2, 3, 3b (K4) and 5 cases against
+the plain versions, and phase 8's backward cases (K1's lse, K5, K6). Prints
 each case's relative error beside its tolerance, then the card line and
 a JSON summary as the last line. Exits non-zero
 if the unchanged sources fail a case or a faulty build passes them all.
@@ -67,12 +70,24 @@ FAULTS = (
     ("verify: window floor a page high", "paged_verify.cu",
      "const int low = window > 0 ? limit - window : 0;",
      "const int low = window > 0 ? limit - window + P : 0;"),
+    ("decode_q: V scaled by K's scales", "paged_decode_q.cu",
+     "vsc[c] = vs[scale_off + (size_t)t * KV];",
+     "vsc[c] = ks[scale_off + (size_t)t * KV];"),
+    ("decode_q: one scale per page (token 0's)", "paged_decode_q.cu",
+     "ksc[c] = ks[scale_off + (size_t)t * KV];\n"
+     "                    vsc[c] = vs[scale_off + (size_t)t * KV];",
+     "ksc[c] = ks[scale_off];\n"
+     "                    vsc[c] = vs[scale_off];"),
+    ("decode_q: P rounded to bf16 before P.V", "paged_decode_q.cu",
+     "const float pv = p * vsc[c];",
+     "const float pv = __bfloat162float(__float2bfloat16(p)) * vsc[c];"),
 )
 
 
-def build_variants(kernels, native, work):
-    """Build the unchanged sources and every fault; {name: library}."""
-    variants = [("none", None, None, None), *FAULTS]
+def build_variants(kernels, native, work, faults):
+    """Build the unchanged sources and each of ``faults``;
+    {name: library}."""
+    variants = [("none", None, None, None), *faults]
     compiles, links, libs = [], [], {}
     for i, (name, fname, old, new) in enumerate(variants):
         src = os.path.join(work, f"v{i}")
@@ -110,6 +125,7 @@ def main():
     from infinistore_tpu_torch.ops import _kernels
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
     from infinistore_tpu_torch.ops.paged_attention import (
         multi_token_paged_attention, paged_decode_attention,
@@ -118,7 +134,9 @@ def main():
     disable_tf32()
     summary, ok = {}, True
     with tempfile.TemporaryDirectory() as work:
-        libs = build_variants(_kernels, _native, work)
+        word = sys.argv[1] if len(sys.argv) > 1 else ""
+        libs = build_variants(_kernels, _native, work,
+                              [f for f in FAULTS if word in f[0]])
         for name, path in libs.items():
             _kernels._lib = _kernels.load(path)
             gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
@@ -132,6 +150,12 @@ def main():
                     gen):
                 readings["decode " + " ".join(map(str, case))] = (rel,
                                                                   case[0])
+            for case, _, rel, _ in chip_smoke.decode_q_readings(
+                    torch, pq.paged_flash_decode_quantized,
+                    pq.paged_decode_quantized_plain, gen):
+                label = "decode_q " + " ".join(
+                    str(c) for c in case if not isinstance(c, tuple))
+                readings[label] = (rel, case[1])
             for case, _, rel, _ in chip_smoke.verify_readings(
                     torch, pv.paged_flash_verify,
                     multi_token_paged_attention, gen):
