@@ -9,7 +9,11 @@ Phases, in order; any failure exits non-zero before the result line:
    and the CUDA kernels built from this checkout's sources into
    infinistore_tpu_torch/_build/ (side by side), with their build times.
 2. Flash prefill kernel (csrc/flash_prefill.cu) against its plain
-   PyTorch version on the card, at the main path's shapes.
+   PyTorch version on the card: the main path's shapes and the edges of
+   its tiles (ragged, batch 2, MHA, hd 64 and 32, not causal, 17 queries
+   over 2065 keys, a 256 window, f32), each with the tiles its schedule
+   visits and, where one exists, one SDPA call's time as a yardstick;
+   the host time of one call.
 3. Paged decode kernel (csrc/paged_decode.cu) against its plain version:
    ragged lengths, a shuffled pool, a table padded with out-of-range ids.
    3b. The int8 paged decode kernel (csrc/paged_decode_q.cu, K4) against
@@ -89,10 +93,11 @@ HBM_BPS = 3.35e12
 # Kernel against plain version: the largest relative L2 error over the
 # output rows (one head of one query token), ||out - ref|| / ||ref|| per
 # row, so a fault in any one sequence, head or query position shows at
-# that row's own scale. On an H100 the sound kernels read at most 4.9e-3
-# (bf16) and 8.3e-7 (f32); kernels with a planted fault (a kv tile, a
-# page or the tokens past 2048 skipped, a window floor one tile or page
-# high) read 0.31 and more (tools/torch_kernel_faults.py).
+# that row's own scale. On an H100 the sound kernels read at most 6.9e-3
+# (bf16, at hd 32) and 8.3e-7 (f32); kernels with a planted fault (a kv
+# tile, a page or the tokens past 2048 skipped, a window floor one tile
+# or page high, the diagonal tile unmasked, a ring stage released early)
+# read 0.31 and more (tools/torch_kernel_faults.py).
 TOL_REL = {"bfloat16": 1.5e-2, "float32": 1e-5}
 
 PROMPTS = (2048, 1536, 1024, 512)
@@ -215,66 +220,139 @@ def causal_pairs(s_q, s_kv, window):
     return total
 
 
-# (dtype, batch, s_q, s_kv, window); 32 heads, 8 kv heads, hd 128.
+FlashCase = collections.namedtuple(
+    "FlashCase", "dtype batch s_q s_kv window causal n_heads n_kv hd")
+
+
+def _fc(dtype, s_q, s_kv, window=0, batch=1, causal=True, n_heads=32,
+        n_kv=8, hd=128):
+    return FlashCase(dtype, batch, s_q, s_kv, window, causal, n_heads, n_kv,
+                     hd)
+
+
 FLASH_CASES = (
-    ("bfloat16", 1, 2048, 2048, 0),   # the main path's longest prompt
-    ("bfloat16", 1, 256, 2304, 0),    # the prefix-hit shape
-    ("bfloat16", 1, 300, 1000, 512),  # rectangular with a window
-    ("float32", 1, 192, 320, 0),
+    _fc("bfloat16", 2048, 2048),         # the main path's longest prompt
+    _fc("bfloat16", 256, 2304),          # the prefix-hit shape
+    _fc("bfloat16", 300, 1000, 512),     # rectangular with a window
+    _fc("bfloat16", 1000, 1000),         # ragged
+    _fc("bfloat16", 1024, 1024, batch=2),
+    _fc("bfloat16", 512, 512, n_heads=16, n_kv=16),  # MHA (group 1)
+    _fc("bfloat16", 1000, 1000, hd=64),
+    _fc("bfloat16", 700, 700, hd=32),
+    _fc("bfloat16", 1000, 1000, causal=False),
+    _fc("bfloat16", 17, 2065),           # a short suffix over a long prefix
+    _fc("bfloat16", 2048, 2048, 256),    # sliding window
+    _fc("float32", 192, 320),
 )
 
 
 def flash_readings(torch, kernel, plain, gen):
     """Run the flash kernel and its plain version on every FLASH_CASES
     shape; yield (case, (q, k, v), relative error, max abs error)."""
-    H, KV, D = 32, 8, 128
-    for case in FLASH_CASES:
-        dt, B, sq, skv, win = case
+    for c in FLASH_CASES:
 
         def rn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(
-                getattr(torch, dt))
+                getattr(torch, c.dtype))
 
-        q, k, v = rn(B, sq, H, D), rn(B, skv, KV, D), rn(B, skv, KV, D)
-        out = kernel(q, k, v, causal=True, window=win)
+        q = rn(c.batch, c.s_q, c.n_heads, c.hd)
+        k, v = (rn(c.batch, c.s_kv, c.n_kv, c.hd) for _ in range(2))
+        out = kernel(q, k, v, causal=c.causal, window=c.window)
         torch.cuda.synchronize()
-        ref = plain(q, k, v, causal=True, window=win)
-        yield case, (q, k, v), rel_err(out, ref), abs_err(out, ref)
+        ref = plain(q, k, v, causal=c.causal, window=c.window)
+        yield c, (q, k, v), rel_err(out, ref), abs_err(out, ref)
+
+
+def sdpa_ms(torch, case, q, k, v):
+    """Yardstick only, never called by the port: one PyTorch SDPA call on
+    the same inputs, where one exists (no window; a cached prefix through
+    the lower-right causal bias, kv heads repeated outside the timed
+    call), else None."""
+    if case.dtype != "bfloat16" or case.window:
+        return None
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if case.causal and case.s_q == case.s_kv:
+        return cuda_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True), 20)
+    group = case.n_heads // case.n_kv
+    kt, vt = (x.repeat_interleave(group, dim=1) for x in (kt, vt))
+    mask = None
+    if case.causal:
+        from torch.nn.attention.bias import causal_lower_right
+        mask = causal_lower_right(case.s_q, case.s_kv)
+    try:
+        return cuda_ms(torch, lambda: sdpa(qt, kt, vt, attn_mask=mask), 20)
+    except RuntimeError as e:  # no SDPA backend for this shape: none
+        say(f"  SDPA yardstick not available here: {e}")
+        return None
+
+
+def k1_tiles(fa, case, sm_count):
+    """K1's schedule at the case's shape: CTAs, consumers per CTA, and
+    the (consumer, kv tile) visits and how many of them are interior,
+    summed over batch and heads."""
+    cons = fa.k1_consumers(case.batch, case.s_q, case.n_heads, sm_count)
+    walk = fa.k1_schedule(case.s_q, case.s_kv, case.causal, case.window,
+                          cons)
+    visits = sum(len(t) for _, t in walk) * cons
+    interior = sum(sum(flags) for _, t in walk for _, flags in t)
+    heads = case.batch * case.n_heads
+    return len(walk) * heads, cons, visits * heads, interior * heads
 
 
 def phase_flash(torch, fa, plain, gen):
     say("== phase 2: flash prefill kernel vs plain ==")
-    H, D = 32, 128
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    for (dt, B, sq, skv, win), (q, k, v), rel, err in flash_readings(
+    for c, (q, k, v), rel, err in flash_readings(
             torch, fa.flash_prefill_attention, plain, gen):
-        tol = TOL_REL[dt]
-        ms = cuda_ms(torch, lambda: fa.flash_prefill_attention(
-            q, k, v, causal=True, window=win), 20)
-        plain_ms = cuda_ms(torch, lambda: plain(q, k, v, causal=True,
-                                                window=win), 5, warmup=1)
-        flops = 4.0 * B * H * D * causal_pairs(sq, skv, win)
+        tol = TOL_REL[c.dtype]
+
+        def kernel():
+            return fa.flash_prefill_attention(q, k, v, causal=c.causal,
+                                              window=c.window)
+
+        ms = cuda_ms(torch, kernel, 20)
+        plain_ms = cuda_ms(torch, lambda: plain(
+            q, k, v, causal=c.causal, window=c.window), 5, warmup=1)
+        pairs = (causal_pairs(c.s_q, c.s_kv, c.window) if c.causal
+                 else c.s_q * c.s_kv)
+        flops = 4.0 * c.batch * c.n_heads * c.hd * pairs
         nbytes = (q.numel() * 2 + k.numel() * 2) * q.element_size()
         bms, by = bound_ms(flops, nbytes,
-                           PEAK_BF16 if dt == "bfloat16" else PEAK_F32)
-        lib_ms = None
-        if sq == skv and dt == "bfloat16":
-            # Yardstick only: one PyTorch call for the square causal case
-            # (its causal mask is top-left aligned, so it cannot do the
-            # rectangular one). The port never calls it.
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib_ms = cuda_ms(torch, lambda: torch.nn.functional
-                             .scaled_dot_product_attention(
-                                 qt, kt, vt, is_causal=True,
-                                 enable_gqa=True), 20)
-        say(f"flash {dt} B={B} Sq={sq} Skv={skv} window={win}: "
-            f"rel err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} "
-            f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
-            f"{bms:.4f} ({by}) library_ms "
-            f"{lib_ms if lib_ms is None else round(lib_ms, 4)}")
-        check(rel <= tol, f"flash prefill disagrees: {rel} > {tol}")
+                           PEAK_BF16 if c.dtype == "bfloat16" else PEAK_F32)
+        lib_ms = sdpa_ms(torch, c, q, k, v)
+        tiles = ""
+        if c.dtype == "bfloat16":
+            ctas, cons, visits, interior = k1_tiles(fa, c, sms)
+            tiles = (f"; {ctas} CTAs of {cons} consumer(s), {visits} "
+                     f"consumer tile visits, {interior} interior")
+        say(f"flash {c.dtype} B={c.batch} Sq={c.s_q} Skv={c.s_kv} "
+            f"window={c.window} causal={c.causal} H={c.n_heads} "
+            f"KV={c.n_kv} hd={c.hd}: rel err {rel:.3e} (tol {tol:g}) "
+            f"max|err| {err:.3e} kernel_ms {ms:.4f} plain_ms "
+            f"{plain_ms:.4f} bound_ms {bms:.4f} ({by}) library_ms "
+            f"{'none' if lib_ms is None else round(lib_ms, 4)}{tiles}")
+        check(rel <= tol, f"flash prefill disagrees ({c}): {rel} > {tol}")
         rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                          bound_by=by, library_ms=lib_ms))
+    # Host time of one K1 call (checks, four tensor maps, the launch) at
+    # a shape whose kernel is shorter than it, so launches do not queue.
+    c = FLASH_CASES[9]
+    q = torch.randn(c.batch, c.s_q, c.n_heads, c.hd, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn(c.batch, c.s_kv, c.n_kv, c.hd, device="cuda",
+                    dtype=torch.bfloat16)
+    fa.flash_prefill_attention(q, k, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fa.flash_prefill_attention(q, k, k)
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    say(f"flash host time per call (Sq={c.s_q} Skv={c.s_kv}): "
+        f"{host_us:.1f} us")
     return rows[0]  # the main path's 2048-token prompt shape
 
 

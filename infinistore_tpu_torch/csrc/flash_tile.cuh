@@ -1,5 +1,5 @@
-// Tile code shared by the flash prefill (flash_prefill.cu), paged verify
-// (paged_verify.cu) and flash backward (flash_bwd_dq.cu,
+// Tile code shared by the f32 flash prefill (flash_prefill.cu), paged
+// verify (paged_verify.cu) and flash backward (flash_bwd_dq.cu,
 // flash_bwd_dkv.cu) kernels. A CTA of 4 warps owns 64 rows, 16 per warp,
 // staged in shared memory with the 64-row tiles it is folding. bf16 runs
 // the tile products on the tensor cores (wmma 16x16x16, f32
@@ -7,7 +7,9 @@
 // TF32). Softmax arithmetic is f32 in registers, two lanes per row, with
 // -1e30 as the masked logit. The dense kernels (K1, K5, K6) share one
 // live-tile range, one interior rule and one mask, so the forward and
-// the backward can never disagree on which (query, key) pairs count.
+// the backward can never disagree on which (query, key) pairs count; the
+// bf16 flash prefill kernel (its own TMA and wgmma tiles) takes the range
+// and the interior rule at its tile sizes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -256,19 +258,23 @@ __device__ __forceinline__ bool keeps(int pos_q, int pos_k, int Sq, int Skv,
     return ok;
 }
 
+// The range and the interior rule take the tile (TQ query rows by TK
+// keys) as template arguments, by default the 64 x 64 tiles above.
+
 // The live kv tiles [begin, end) of the q tile at q_start: none past the
 // last row's diagonal, none wholly below the first row's window floor.
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void kv_tiles(int q_start, int Sq, int Skv,
                                          int causal, int window, int& begin,
                                          int& end) {
     const int offset = Skv - Sq;
-    const int q_last = min(q_start + BQ, Sq) - 1;
-    end = (Skv + BK - 1) / BK;
+    const int q_last = min(q_start + TQ, Sq) - 1;
+    end = (Skv + TK - 1) / TK;
     begin = 0;
     if (causal) {
-        end = min(end, (q_last + offset) / BK + 1);
+        end = min(end, (q_last + offset) / TK + 1);
         if (window > 0) {
-            begin = max(q_start + offset - window + 1, 0) / BK;
+            begin = max(q_start + offset - window + 1, 0) / TK;
         }
     }
 }
@@ -278,32 +284,34 @@ __device__ __forceinline__ void kv_tiles(int q_start, int Sq, int Skv,
 // tile's first key, none past the last one whose first row still has the
 // tile's last key inside its window (the JAX package's _q_idx and the
 // dk/dv kernel's `live`).
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ void q_tiles(int k_start, int Sq, int Skv,
                                         int causal, int window, int& begin,
                                         int& end) {
     const int offset = Skv - Sq;
-    end = (Sq + BQ - 1) / BQ;
+    end = (Sq + TQ - 1) / TQ;
     begin = 0;
     if (causal) {
-        begin = max(k_start - offset, 0) / BQ;
+        begin = max(k_start - offset, 0) / TQ;
         if (window > 0) {
-            const int last = k_start + BK - 1 - offset + window - 1;
-            end = last < 0 ? 0 : min(end, last / BQ + 1);
+            const int last = k_start + TK - 1 - offset + window - 1;
+            end = last < 0 ? 0 : min(end, last / TQ + 1);
         }
     }
 }
 
 // True when every (query, key) pair of the tile is kept: no mask needed.
+template <int TQ = BQ, int TK = BK>
 __device__ __forceinline__ bool interior_tile(int q_start, int k_start,
                                               int Sq, int Skv, int causal,
                                               int window) {
-    bool interior = (k_start + BK <= Skv) && (q_start + BQ <= Sq);
+    bool interior = (k_start + TK <= Skv) && (q_start + TQ <= Sq);
     if (causal) {
         const int offset = Skv - Sq;
-        interior = interior && (k_start + BK - 1 <= q_start + offset);
+        interior = interior && (k_start + TK - 1 <= q_start + offset);
         if (window > 0) {
             interior = interior &&
-                       (k_start > q_start + BQ - 1 + offset - window);
+                       (k_start > q_start + TQ - 1 + offset - window);
         }
     }
     return interior;

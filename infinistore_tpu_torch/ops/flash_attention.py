@@ -8,6 +8,8 @@ Counterpart of ``infinistore_tpu/ops/pallas_flash_attention.py``:
 ``flash_prefill_attention`` / ``_forward_impl`` (K1), ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel`` behind ``_flash_backward`` (K5, K6),
 ``_flash_with_vjp`` (:class:`FlashAttention`) and ``flash_prefill``.
+:func:`k1_schedule` is K1's tile walk in Python (its order, live kv tiles
+and interior tiles), for the tests and ``chip_smoke.py``.
 
 :func:`flash_prefill` with no gradient to track takes the forward-only
 route: K1 for CUDA tensors, ``paged_attention.prefill_attention`` for CPU
@@ -150,6 +152,70 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal=True, window=0):
     _kernels.check(err, "flash_bwd_dkv")
     dkv_launches += 1
     return dk, dv
+
+
+# ---------------------------------------------------------------------------
+# K1's tile schedule, in Python (csrc/flash_prefill.cu, flash_tile.cuh)
+# ---------------------------------------------------------------------------
+
+# K1's bf16 tiles (flash_prefill.cu's kRows and kBK): 64 query rows per
+# consumer warpgroup, one or two consumers per CTA, 128 keys per kv tile.
+# The f32 variant, K5 and K6 keep flash_tile.cuh's 64 x 64 tiles.
+K1_ROWS = 64
+K1_BK = 128
+
+
+def k1_consumers(batch, s_q, n_heads, sm_count):
+    """Consumer warpgroups per CTA of K1's bf16 kernel: two (128-row q
+    tiles) unless that launches fewer CTAs than the card has SMs."""
+    ctas = -(-s_q // (2 * K1_ROWS)) * batch * n_heads
+    return 1 if ctas < sm_count else 2
+
+
+def kv_tile_range(q_start, s_q, s_kv, causal, window, bq, bk):
+    """flash_tile.cuh's kv_tiles<bq, bk>: the live kv tiles [begin, end)
+    of the q tile at q_start (s_kv >= s_q when causal)."""
+    offset = s_kv - s_q
+    end = -(-s_kv // bk)
+    begin = 0
+    if causal:
+        end = min(end, (min(q_start + bq, s_q) - 1 + offset) // bk + 1)
+        if window > 0:
+            begin = max(q_start + offset - window + 1, 0) // bk
+    return begin, end
+
+
+def interior_tile(q_start, k_start, s_q, s_kv, causal, window, bq, bk):
+    """flash_tile.cuh's interior_tile<bq, bk>: every (query, key) pair of
+    the tile is kept, so no mask is built."""
+    interior = k_start + bk <= s_kv and q_start + bq <= s_q
+    if causal:
+        offset = s_kv - s_q
+        interior = interior and k_start + bk - 1 <= q_start + offset
+        if window > 0:
+            interior = interior and (k_start
+                                     > q_start + bq - 1 + offset - window)
+    return interior
+
+
+def k1_schedule(s_q, s_kv, causal=True, window=0, consumers=2):
+    """The tiles K1's bf16 kernel visits for one (batch, head), in launch
+    order (heaviest q tile first): a list of (q_start, [(k_start,
+    interior of each consumer's 64 rows), ...]) over the live kv tiles."""
+    bq = consumers * K1_ROWS
+    n_qt = -(-s_q // bq)
+    order = []
+    for rank in range(n_qt):
+        q_start = (n_qt - 1 - rank) * bq
+        begin, end = kv_tile_range(q_start, s_q, s_kv, causal, window, bq,
+                                   K1_BK)
+        order.append((q_start, [
+            (kt * K1_BK, tuple(
+                interior_tile(q_start + c * K1_ROWS, kt * K1_BK, s_q, s_kv,
+                              causal, window, K1_ROWS, K1_BK)
+                for c in range(consumers)))
+            for kt in range(begin, end)]))
+    return order
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,133 @@
+"""K1's tile schedule (``ops/flash_attention.k1_schedule``, the Python
+twin of csrc/flash_prefill.cu's walk and flash_tile.cuh's geometry)
+against the JAX package's mask rules, on the CPU: every (query, key)
+pair that ``_tile_mask`` keeps lies in a visited tile, no visited tile is
+wholly masked, and a tile is interior exactly where its mask is all true
+and ``_interior_tile`` says so. At K1's bf16 tiles (one or two 64-row
+consumers over 128-key tiles) and at the 64 x 64 tiles of the f32
+variant, K3, K5 and K6; lengths one below, at and one above a tile
+multiple, windows, a cached prefix (s_kv > s_q) and no causal mask."""
+
+import os
+import re
+
+import numpy as np
+import pytest
+
+from infinistore_tpu.ops.pallas_flash_attention import (_interior_tile,
+                                                       _tile_mask)
+from infinistore_tpu_torch.ops import flash_attention as fa
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "infinistore_tpu_torch", "csrc")
+
+# (s_q, s_kv, causal, window)
+SHAPES = (
+    (127, 127, True, 0), (128, 128, True, 0), (129, 129, True, 0),
+    (255, 257, True, 0), (256, 256, True, 0), (257, 385, True, 0),
+    (1, 1, True, 0), (17, 2065, True, 0), (256, 2304, True, 0),
+    (300, 1000, True, 512), (1000, 1000, True, 0), (1000, 1000, True, 256),
+    (129, 129, True, 1), (200, 200, True, 64), (255, 383, True, 100),
+    (511, 1024, True, 128), (65, 700, True, 127), (640, 640, True, 129),
+    (1000, 1000, False, 0), (129, 63, False, 0), (63, 257, False, 0),
+)
+# (label, query rows per CTA, keys per tile, rows per consumer)
+TILES = (
+    ("k1 two consumers", 2 * fa.K1_ROWS, fa.K1_BK, fa.K1_ROWS),
+    ("k1 one consumer", fa.K1_ROWS, fa.K1_BK, fa.K1_ROWS),
+    ("64x64", 64, 64, 64),
+)
+
+
+def _full_mask(s_q, s_kv, causal, window, bq, bk):
+    """_tile_mask over the whole padded [q tiles x bq, kv tiles x bk]
+    matrix (the mask depends only on positions)."""
+    shape = (-(-s_q // bq) * bq, -(-s_kv // bk) * bk)
+    return np.asarray(_tile_mask(shape, 0, 0, s_q, s_kv, causal, window))
+
+
+def _walk(s_q, s_kv, causal, window, bq, bk, sub):
+    """The schedule at any tile: k1_schedule at K1's tiles, else the same
+    walk built from kv_tile_range and interior_tile at (bq, bk)."""
+    if bk == fa.K1_BK and sub == fa.K1_ROWS:
+        return fa.k1_schedule(s_q, s_kv, causal, window, bq // fa.K1_ROWS)
+    n_qt = -(-s_q // bq)
+    walk = []
+    for rank in range(n_qt):
+        q0 = (n_qt - 1 - rank) * bq
+        begin, end = fa.kv_tile_range(q0, s_q, s_kv, causal, window, bq, bk)
+        walk.append((q0, [(kt * bk, (fa.interior_tile(
+            q0, kt * bk, s_q, s_kv, causal, window, bq, bk),))
+            for kt in range(begin, end)]))
+    return walk
+
+
+@pytest.mark.parametrize("tiles", TILES, ids=[t[0] for t in TILES])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "-".join(map(str, s)))
+def test_schedule_matches_jax_mask(shape, tiles):
+    s_q, s_kv, causal, window = shape
+    _, bq, bk, sub = tiles
+    mask = _full_mask(s_q, s_kv, causal, window, bq, bk)
+    walk = _walk(s_q, s_kv, causal, window, bq, bk, sub)
+    n_qt = -(-s_q // bq)
+    assert sorted(q0 for q0, _ in walk) == [i * bq for i in range(n_qt)]
+    for q0, tiles_visited in walk:
+        rows = mask[q0:q0 + bq]
+        seen = np.zeros(mask.shape[1], bool)
+        for k0, interior in tiles_visited:
+            block = rows[:, k0:k0 + bk]
+            assert block.any(), f"q {q0} kv {k0}: visited but wholly masked"
+            seen[k0:k0 + bk] = True
+            for c, flag in enumerate(interior):
+                r0 = q0 + c * sub
+                part = mask[r0:r0 + sub, k0:k0 + bk]
+                jax_flag = bool(_interior_tile(r0, k0, sub, bk, s_q, s_kv,
+                                               causal, window))
+                assert flag == jax_flag == bool(part.all()), (
+                    f"q {r0} kv {k0}: interior {flag}, JAX {jax_flag}, "
+                    f"mask all true {bool(part.all())}")
+        kept_keys = rows.any(axis=0)
+        assert not (kept_keys & ~seen).any(), (
+            f"q tile {q0}: kept keys outside the visited tiles")
+
+
+@pytest.mark.parametrize("shape", [s for s in SHAPES if s[2] and not s[3]],
+                         ids=lambda s: "-".join(map(str, s)))
+def test_heaviest_q_tiles_first(shape):
+    """Causal without a window: live kv tiles never grow along the
+    launch order."""
+    s_q, s_kv, causal, window = shape
+    for consumers in (1, 2):
+        counts = [len(t) for _, t in fa.k1_schedule(s_q, s_kv, causal,
+                                                     window, consumers)]
+        assert counts == sorted(counts, reverse=True)
+
+
+@pytest.mark.parametrize("batch,s_q,n_heads,want", [
+    (1, 2048, 32, 2),   # 16 x 32 = 512 CTAs of 128 rows
+    (1, 256, 32, 1),    # the prefix-hit suffix: 2 x 32 = 64 < 132 SMs
+    (2, 1024, 32, 2),
+    (1, 17, 32, 1),
+    (1, 1000, 16, 1),   # 8 x 16 = 128 < 132
+    (1, 1056, 16, 2),   # 9 x 16 = 144
+])
+def test_consumers_by_shape(batch, s_q, n_heads, want):
+    """Two consumers (128-row q tiles) unless the grid would leave some of
+    an H100's 132 SMs idle."""
+    assert fa.k1_consumers(batch, s_q, n_heads, 132) == want
+
+
+def _constant(path, name):
+    with open(os.path.join(CSRC, path)) as f:
+        m = re.search(rf"constexpr int {name} = (\d+);", f.read())
+    assert m, f"{name} not in {path}"
+    return int(m.group(1))
+
+
+def test_tile_constants_match_csrc():
+    """The Python twin's tile sizes are the kernels' own."""
+    assert _constant("flash_prefill.cu", "kRows") == fa.K1_ROWS
+    assert _constant("flash_prefill.cu", "kBK") == fa.K1_BK
+    assert _constant("flash_tile.cuh", "BQ") == TILES[2][1]
+    assert _constant("flash_tile.cuh", "BK") == TILES[2][2]
+

@@ -14,7 +14,8 @@ kernels and runs chip_smoke.py's phase 2, 3, 3b (K4) and 5 cases against
 the plain versions, and phase 8's backward cases (K1's lse, K5, K6). Prints
 each case's relative error beside its tolerance, then the card line and
 a JSON summary as the last line. Exits non-zero
-if the unchanged sources fail a case or a faulty build passes them all.
+if the unchanged sources fail a case or a faulty build passes them all
+(a race, such as the early stage release, may read clean on a run).
 The repository's own sources and build are never touched.
 """
 
@@ -30,25 +31,59 @@ sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
+# The tail of K1's consumer loop, from S's landing to the stage's
+# release: the softmax and the P V wgmma that reads the stage's V tile.
+_FENCE_S = "            hp::fence_regs(s);\n"
+_SOFTMAX_PV = (
+    "            softmax_tile(s, pa, m, l, alpha,\n"
+    "                         interior_tile<kRows, kBK>(row0, kt * kBK, "
+    "Sq, Skv,\n"
+    "                                                   causal, window),\n"
+    "                         r_lo, kt * kBK, quad, Sq, Skv, causal, "
+    "window,\n"
+    "                         scale_log2);\n"
+    "#pragma unroll\n"
+    "            for (int i = 0; i < HD / 2; ++i) o[i] *= "
+    "alpha[(i >> 1) & 1];\n"
+    "            hp::fence_regs(o);\n"
+    "            hp::wgmma_fence();\n"
+    "            issue_pv<HD, SW>(o, pa, tile(stage) + P::TILE_BYTES);\n"
+    "            hp::wgmma_commit();\n"
+    "            hp::wgmma_wait<0>();\n"
+    "            hp::fence_regs(o);\n")
+_RELEASE = "            if (lane == 0) hp::mbar_arrive(&empty[stage]);\n"
+
 # (name, source file, original text, faulty text)
 FAULTS = (
     ("flash: skips the last kv tile", "flash_prefill.cu",
-     "for (int kt = kt_begin; kt < kt_end; ++kt) {",
-     "for (int kt = kt_begin; kt < kt_end - (kt_end - kt_begin > 1); "
-     "++kt) {"),
+     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
+     "kt_end);",
+     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
+     "kt_end);\n    kt_end -= (kt_end - kt_begin > 1);"),
     ("flash: window floor one tile high", "flash_tile.cuh",
-     "begin = max(q_start + offset - window + 1, 0) / BK;",
-     "begin = max(q_start + offset - window + 1, 0) / BK + 1;"),
+     "begin = max(q_start + offset - window + 1, 0) / TK;",
+     "begin = max(q_start + offset - window + 1, 0) / TK + 1;"),
     ("flash: lse omits log(l)", "flash_prefill.cu",
-     "lse[(size_t)bh * Sq + pos_q] = st.m + logf(st.l);",
-     "lse[(size_t)bh * Sq + pos_q] = st.m;"),
+     "(m[hi] + log2f(l[hi])) * kLn2;",
+     "m[hi] * kLn2;"),
+    ("flash: the diagonal tile treated as interior", "flash_prefill.cu",
+     "interior_tile<kRows, kBK>(row0, kt * kBK, Sq, Skv,\n"
+     "                                                   causal, window),",
+     "interior_tile<kRows, kBK>(row0, kt * kBK, Sq, Skv,\n"
+     "                                                   0, window),"),
+    # A race: the stage is released once S is computed, before the P V
+    # wgmma that reads its V tile, which the next load may overwrite.
+    ("flash: a stage released before its P V wgmma completes",
+     "flash_prefill.cu",
+     _FENCE_S + _SOFTMAX_PV + _RELEASE,
+     _FENCE_S + _RELEASE + _SOFTMAX_PV),
     ("bwd dq: skips the last live kv tile", "flash_bwd_dq.cu",
      "for (int kt = kt_begin; kt < kt_end; ++kt) {",
      "for (int kt = kt_begin; kt < kt_end - (kt_end - kt_begin > 1); "
      "++kt) {"),
     ("bwd dkv: q tiles start one late under a prefix", "flash_tile.cuh",
-     "begin = max(k_start - offset, 0) / BQ;",
-     "begin = max(k_start - offset, 0) / BQ + (offset > 0);"),
+     "begin = max(k_start - offset, 0) / TQ;",
+     "begin = max(k_start - offset, 0) / TQ + (offset > 0);"),
     ("bwd dkv: only the group's first q head", "flash_bwd_dkv.cu",
      "for (int g = 0; g < G; ++g) {",
      "for (int g = 0; g < 1; ++g) {"),

@@ -7,7 +7,12 @@ Needs nvcc (the machine with the card). Compiles each
 infinistore_tpu_torch/csrc/*.cu with the flags of ops/_kernels.py plus
 ``-Xptxas -v`` into a temporary directory, side by side, and prints one
 line per kernel variant: registers a thread, spill stores and loads in
-bytes. Exits non-zero if a source does not compile.
+bytes (and any ptxas note that it serialised a kernel's wgmma). Then,
+for each variant of the flash prefill kernel (K1), the count of HGMMA
+(wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in its
+SASS (``cuobjdump -sass`` of the built object): the bf16 variants must
+show the first two. Exits non-zero if a source does not compile or
+cuobjdump fails.
 """
 
 import glob
@@ -24,13 +29,38 @@ from infinistore_tpu_torch.ops import _kernels  # noqa: E402
 
 def pretty(mangled):
     """name<dtype, ints...> from a mangled kernel template name."""
-    m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)((?:Li\d+E)+)",
-                  mangled)
+    m = re.search(r"([a-z][a-z_0-9]*_kernel)I(13__nv_bfloat16|f)?"
+                  r"((?:Li\d+E)+)", mangled)
     if not m:
         return mangled
-    dtype = "bf16" if m.group(2).startswith("13") else "f32"
+    dtype = {None: [], "f": ["f32"]}.get(m.group(2), ["bf16"])
     ints = re.findall(r"Li(\d+)E", m.group(3))
-    return f"{m.group(1)}<{', '.join([dtype, *ints])}>"
+    return f"{m.group(1)}<{', '.join([*dtype, *ints])}>"
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
+
+
+def sass_counts(obj):
+    """{kernel: {op: count}} for the flash prefill kernels in ``obj``."""
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        cuobjdump = "cuobjdump"
+    out = subprocess.run([cuobjdump, "-sass", obj], capture_output=True,
+                         text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = pretty(m.group(1))
+            if "flash_prefill" in kernel:
+                counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+            else:
+                kernel = None
+        elif kernel:
+            for op in SASS_OPS:
+                counts[kernel][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
 
 
 def main():
@@ -56,6 +86,8 @@ def main():
                               r"loads", line)
                 if m:
                     spill = m.groups()
+                if "C7513" in line:  # ptxas serialised the wgmma pipeline
+                    print("  " + line.strip())
                 m = re.search(r"Used (\d+) registers", line)
                 if m and kernel:
                     print(f"  {kernel}: {m.group(1)} registers, spill "
@@ -64,6 +96,11 @@ def main():
                     kernel = spill = None
             if proc.returncode:
                 print(out)
+        obj = os.path.join(work, "flash_prefill.cu.o")
+        if os.path.exists(obj):
+            for kernel, counts in sass_counts(obj).items():
+                print(f"  SASS {kernel}: " + ", ".join(
+                    f"{op} {n}" for op, n in counts.items()))
     return 0 if ok else 1
 
 
