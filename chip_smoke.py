@@ -11,16 +11,21 @@ Phases, in order; any failure exits non-zero before the result line:
 2. Flash prefill kernel (csrc/flash_prefill.cu) against its plain
    PyTorch version on the card: the main path's shapes and the edges of
    its tiles (ragged, batch 2, MHA, hd 64 and 32, not causal, 17 queries
-   over 2065 keys, a 256 window, f32), each with the tiles its schedule
-   visits and, where one exists, one SDPA call's time as a yardstick;
-   the host time of one call.
+   over 2065 keys, a 256 window, f32) and the attention widths of
+   Qwen2-7B (group 7), Gemma-7B and Gemma-2B (hd 256), each with the
+   tiles its schedule visits and, where one exists, one SDPA call's time
+   as a yardstick; the host time of one call.
 3. Paged decode kernel (csrc/paged_decode.cu) against its plain version:
-   ragged lengths, a shuffled pool, a table padded with out-of-range ids.
+   ragged lengths, a shuffled pool, a table padded with out-of-range ids;
+   and at batch 4 the attention widths of Qwen2-7B and Qwen2-1.5B
+   (groups 7 and 6), Gemma-7B and Gemma-2B (hd 256) and Llama-3.1-405B
+   (group 16).
    3b. The int8 paged decode kernel (csrc/paged_decode_q.cu, K4) against
    its plain version, bf16 and f32: K2's ragged shape with and without a
    256 window, the main path's decode shape (batch 4), a full-card shape
    (32 x 2048 tokens) and hd 64 at group 2; K4 ms beside K2's over the
-   same pages dequantized, and the byte bound.
+   same pages dequantized, and the byte bound; phase 3's published
+   widths.
 4. The main path at Llama-3.1-8B width (random weights from a seed)
    through the port's own server on SHM: prefill 4 prompts streaming
    every layer's pages, find the prefix on a fresh connection, restore
@@ -30,7 +35,8 @@ Phases, in order; any failure exits non-zero before the result line:
 5. Paged verify kernel (csrc/paged_verify.cu) against its plain version:
    the speculative-verify shape (m = 5 over K2's ragged lengths, with and
    without a window, bf16 and f32), a 512-token chunk over 1536 cached
-   tokens, and a row whose new tokens run past the page table.
+   tokens, a row whose new tokens run past the page table, and the
+   speculative shape at the widths of Qwen2-7B, Gemma-7B and Gemma-2B.
 6. Serving at Llama-3.1-8B width, bf16, through the port's
    ServingEngine and its store on SHM: engine A (8 slots, speculative
    decoding) serves 8 cold requests, then 8 that regenerate or extend
@@ -59,7 +65,10 @@ Phases, in order; any failure exits non-zero before the result line:
 8. Flash backward kernels (csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu)
    and K1's row logsumexp against their plain versions, bf16 and f32:
    the training shape (2048 x 2048), a 512-token suffix over 2048 (with
-   and without a 256 window), not causal, a ragged 1000, hd 64 and 32.
+   and without a 256 window), not causal, a ragged 1000, hd 64 and 32,
+   and 2048 x 2048 at the widths of Qwen2-7B, Gemma-7B and Gemma-2B; at
+   the training shape, one SDPA backward (flash backend) timed in turns
+   with K5, K6 and the D pass, as a yardstick.
 9. Training at Llama-3.1-8B width cut to 16 layers, bf16: 4 AdamW steps
    through llama.train_step on one 2049-token batch; the loss falls,
    every leaf gets a finite grad, and each step launches K1, K5 and K6
@@ -243,6 +252,14 @@ FLASH_CASES = (
     _fc("bfloat16", 17, 2065),           # a short suffix over a long prefix
     _fc("bfloat16", 2048, 2048, 256),    # sliding window
     _fc("float32", 192, 320),
+    # Attention widths of published configs the JAX package's hf.py maps:
+    # Qwen/Qwen2-7B (28 / 4 heads: group 7), google/gemma-7b (16 / 16,
+    # hd 256) and google/gemma-2b (8 / 1, hd 256: group 8).
+    _fc("bfloat16", 2048, 2048, n_heads=28, n_kv=4),
+    _fc("bfloat16", 2048, 2048, n_heads=16, n_kv=16, hd=256),
+    _fc("float32", 2048, 2048, n_heads=16, n_kv=16, hd=256),
+    _fc("bfloat16", 2048, 2048, n_heads=8, n_kv=1, hd=256),
+    _fc("float32", 2048, 2048, n_heads=8, n_kv=1, hd=256),
 )
 
 
@@ -324,7 +341,7 @@ def phase_flash(torch, fa, plain, gen):
                            PEAK_BF16 if c.dtype == "bfloat16" else PEAK_F32)
         lib_ms = sdpa_ms(torch, c, q, k, v)
         tiles = ""
-        if c.dtype == "bfloat16":
+        if c.dtype == "bfloat16" and c.hd <= 128:
             ctas, cons, visits, interior = k1_tiles(fa, c, sms)
             tiles = (f"; {ctas} CTAs of {cons} consumer(s), {visits} "
                      f"consumer tile visits, {interior} interior")
@@ -382,73 +399,95 @@ def decode_bound(torch, seq_lens, window, B, H, KV, D, esize):
 
 
 DECODE_SEQ_LENS = (1, 15, 16, 17, 1000, 2048, 2049, 4000)
-DECODE_CASES = (("bfloat16", 0), ("bfloat16", 256), ("float32", 0),
-                ("float32", 256))  # (dtype, window)
+MAIN_DECODE_LENS = (2080, 1568, 1056, 544)  # phase 4's lens after decoding
+DecodeCase = collections.namedtuple(
+    "DecodeCase", "label dtype window seq_lens n_heads n_kv hd")
+DECODE_CASES = (
+    DecodeCase("ragged", "bfloat16", 0, DECODE_SEQ_LENS, 32, 8, 128),
+    DecodeCase("ragged", "bfloat16", 256, DECODE_SEQ_LENS, 32, 8, 128),
+    DecodeCase("ragged", "float32", 0, DECODE_SEQ_LENS, 32, 8, 128),
+    DecodeCase("ragged", "float32", 256, DECODE_SEQ_LENS, 32, 8, 128),
+    # Published attention widths (config.json of each): any GQA group
+    # (blocks of query rows) and hd 256, at the main path's batch-4 lens.
+    DecodeCase("Qwen2-7B", "bfloat16", 0, MAIN_DECODE_LENS, 28, 4, 128),
+    DecodeCase("Qwen2-1.5B", "bfloat16", 0, MAIN_DECODE_LENS, 12, 2, 128),
+    DecodeCase("Gemma-7B", "bfloat16", 0, MAIN_DECODE_LENS, 16, 16, 256),
+    DecodeCase("Gemma-7B", "float32", 0, MAIN_DECODE_LENS, 16, 16, 256),
+    DecodeCase("Gemma-2B", "bfloat16", 0, MAIN_DECODE_LENS, 8, 1, 256),
+    DecodeCase("Gemma-2B", "float32", 256, MAIN_DECODE_LENS, 8, 1, 256),
+    DecodeCase("Llama-3.1-405B", "bfloat16", 0, MAIN_DECODE_LENS, 128, 8,
+               128),
+)
 
 
 def decode_readings(torch, kernel, plain, gen):
-    """Run the paged decode kernel and its plain version on batch 8 with
-    ragged DECODE_SEQ_LENS over a shuffled pool, the table padded with -1
-    and out-of-range ids; yield (case, args, relative error, max abs
-    error) for every DECODE_CASES entry."""
-    H, KV, D, P = 32, 8, 128, 16
-    need = [-(-s // P) for s in DECODE_SEQ_LENS]
-    n_pages = sum(need) + 64
-    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
-        SEED)).int()
-    table = padded_table(torch, need, max(need) + 2, n_pages, perm).cuda()
-    sl = torch.tensor(DECODE_SEQ_LENS, dtype=torch.int32, device="cuda")
-    B = len(DECODE_SEQ_LENS)
-    pools = {}
-    for case in DECODE_CASES:
-        dt, win = case
-        if dt not in pools:
-            def rn(*shape):
-                return torch.randn(shape, generator=gen, device="cuda").to(
-                    getattr(torch, dt))
-            pools[dt] = (rn(B, H, D), rn(n_pages, P, KV, D),
-                         rn(n_pages, P, KV, D))
-        q, kp, vp = pools[dt]
-        args = (q, kp, vp, table, sl)
-        out = kernel(*args, window=win)
+    """Run the paged decode kernel and its plain version on every
+    DECODE_CASES shape over a shuffled pool, the table padded with -1 and
+    out-of-range ids; yield (case, args, relative error, max abs error)."""
+    P = 16
+    for c in DECODE_CASES:
+        need = [-(-s // P) for s in c.seq_lens]
+        n_pages = sum(need) + 64
+        perm = torch.randperm(n_pages, generator=torch.Generator()
+                              .manual_seed(SEED)).int()
+        table = padded_table(torch, need, max(need) + 2, n_pages,
+                             perm).cuda()
+
+        def rn(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                getattr(torch, c.dtype))
+
+        args = (rn(len(c.seq_lens), c.n_heads, c.hd),
+                rn(n_pages, P, c.n_kv, c.hd), rn(n_pages, P, c.n_kv, c.hd),
+                table, torch.tensor(c.seq_lens, dtype=torch.int32,
+                                    device="cuda"))
+        out = kernel(*args, window=c.window)
         torch.cuda.synchronize()
-        ref = plain(*args, window=win)
-        yield case, args, rel_err(out, ref), abs_err(out, ref)
+        ref = plain(*args, window=c.window)
+        yield c, args, rel_err(out, ref), abs_err(out, ref)
 
 
 def phase_decode(torch, pd, plain, gen):
     say("== phase 3: paged decode kernel vs plain ==")
-    H, KV, D = 32, 8, 128
-    for (dt, win), args, rel, err in decode_readings(
+    for c, args, rel, err in decode_readings(
             torch, pd.paged_flash_decode, plain, gen):
-        tol = TOL_REL[dt]
+        tol = TOL_REL[c.dtype]
         ms = cuda_ms(torch, lambda: pd.paged_flash_decode(
-            *args, window=win), 50)
-        bms, by = decode_bound(torch, DECODE_SEQ_LENS, win,
-                               len(DECODE_SEQ_LENS), H, KV, D,
+            *args, window=c.window), 50)
+        bms, by = decode_bound(torch, c.seq_lens, c.window,
+                               len(c.seq_lens), c.n_heads, c.n_kv, c.hd,
                                args[0].element_size())
-        say(f"decode {dt} B={len(DECODE_SEQ_LENS)} window={win}: rel err "
-            f"{rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
+        say(f"decode {c.label} {c.dtype} B={len(c.seq_lens)} "
+            f"H={c.n_heads} KV={c.n_kv} hd={c.hd} window={c.window}: rel "
+            f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
             f"{ms:.4f} bound_ms {bms:.5f} ({by}: K/V bytes read / "
             f"3.35 TB/s)")
-        check(rel <= tol, f"paged decode disagrees: {rel} > {tol}")
+        check(rel <= tol, f"paged decode disagrees ({c}): {rel} > {tol}")
+        del args
 
 
 # ---------------------------------------------------------------------------
 # phase 3b: paged decode over int8 pages
 # ---------------------------------------------------------------------------
 
-MAIN_DECODE_LENS = (2080, 1568, 1056, 544)  # phase 4's lens after decoding
-# (label, dtype, seq_lens, window, hd, group); 8 kv heads.
+# (label, dtype, seq_lens, window, hd, group, n_kv)
 DECODE_Q_CASES = (
-    ("ragged", "bfloat16", DECODE_SEQ_LENS, 0, 128, 4),
-    ("ragged", "bfloat16", DECODE_SEQ_LENS, 256, 128, 4),
-    ("ragged", "float32", DECODE_SEQ_LENS, 0, 128, 4),
-    ("ragged", "float32", DECODE_SEQ_LENS, 256, 128, 4),
-    ("main path", "bfloat16", MAIN_DECODE_LENS, 0, 128, 4),
-    ("full card", "bfloat16", (2048,) * 32, 0, 128, 4),
-    ("hd 64 group 2", "bfloat16", DECODE_SEQ_LENS, 0, 64, 2),
-    ("hd 64 group 2", "float32", DECODE_SEQ_LENS, 256, 64, 2),
+    ("ragged", "bfloat16", DECODE_SEQ_LENS, 0, 128, 4, 8),
+    ("ragged", "bfloat16", DECODE_SEQ_LENS, 256, 128, 4, 8),
+    ("ragged", "float32", DECODE_SEQ_LENS, 0, 128, 4, 8),
+    ("ragged", "float32", DECODE_SEQ_LENS, 256, 128, 4, 8),
+    ("main path", "bfloat16", MAIN_DECODE_LENS, 0, 128, 4, 8),
+    ("full card", "bfloat16", (2048,) * 32, 0, 128, 4, 8),
+    ("hd 64 group 2", "bfloat16", DECODE_SEQ_LENS, 0, 64, 2, 8),
+    ("hd 64 group 2", "float32", DECODE_SEQ_LENS, 256, 64, 2, 8),
+    # Published attention widths, as in DECODE_CASES.
+    ("Qwen2-7B", "bfloat16", MAIN_DECODE_LENS, 0, 128, 7, 4),
+    ("Qwen2-1.5B", "bfloat16", MAIN_DECODE_LENS, 0, 128, 6, 2),
+    ("Gemma-7B", "bfloat16", MAIN_DECODE_LENS, 0, 256, 1, 16),
+    ("Gemma-7B", "float32", MAIN_DECODE_LENS, 0, 256, 1, 16),
+    ("Gemma-2B", "bfloat16", MAIN_DECODE_LENS, 0, 256, 8, 1),
+    ("Gemma-2B", "float32", MAIN_DECODE_LENS, 256, 256, 8, 1),
+    ("Llama-3.1-405B", "bfloat16", MAIN_DECODE_LENS, 0, 128, 16, 8),
 )
 
 
@@ -468,9 +507,9 @@ def decode_q_readings(torch, kernel, plain, gen):
     error), args being (q, k_q, k_s, v_q, v_s, table, seq_lens)."""
     from infinistore_tpu_torch.ops import kv_quant
 
-    KV, P = 8, 16
+    P = 16
     for case in DECODE_Q_CASES:
-        _, dt, lens, win, D, G = case
+        _, dt, lens, win, D, G, KV = case
         need = [-(-s // P) for s in lens]
         n_pages = sum(need) + 64
         perm = torch.randperm(n_pages, generator=torch.Generator()
@@ -505,7 +544,7 @@ def phase_decode_q(torch, pq, pd, gen):
     for case, args, rel, err in decode_q_readings(
             torch, pq.paged_flash_decode_quantized,
             pq.paged_decode_quantized_plain, gen):
-        label, dt, lens, win, D, G = case
+        label, dt, lens, win, D, G, KV = case
         q, kq, ks, vq, vs, table, sl = args
         tol = TOL_REL[dt]
         ms = cuda_ms(torch, lambda: pq.paged_flash_decode_quantized(
@@ -521,7 +560,8 @@ def phase_decode_q(torch, pq, pd, gen):
                                  q.element_size())
         k2_bms, _ = decode_bound(torch, lens, win, B, H, kq.shape[2], D,
                                  q.element_size())
-        say(f"decode_q {label} {dt} B={B} H={H} hd={D} window={win}: rel "
+        say(f"decode_q {label} {dt} B={B} H={H} KV={KV} hd={D} "
+            f"window={win}: rel "
             f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
             f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bms:.5f} ({by}); "
             f"K2 over the dequantized pages {k2_ms:.4f} ms (bound "
@@ -860,14 +900,22 @@ def verify_work(seq_lens, m, width, page, window, H, KV, D, esize):
     return flops, nbytes
 
 
-# (label, dtype, seq_lens, m, window, table width or None: room for all)
+# (label, dtype, seq_lens, m, window, table width or None: room for all,
+# n_heads, n_kv, hd)
 VERIFY_CASES = (
-    ("spec", "bfloat16", DECODE_SEQ_LENS, 5, 0, None),
-    ("spec", "bfloat16", DECODE_SEQ_LENS, 5, 256, None),
-    ("spec", "float32", DECODE_SEQ_LENS, 5, 0, None),
-    ("spec", "float32", DECODE_SEQ_LENS, 5, 256, None),
-    ("chunk", "bfloat16", (0, 1536), 512, 0, None),
-    ("past the table", "bfloat16", (100, 2000), 64, 0, 128),
+    ("spec", "bfloat16", DECODE_SEQ_LENS, 5, 0, None, 32, 8, 128),
+    ("spec", "bfloat16", DECODE_SEQ_LENS, 5, 256, None, 32, 8, 128),
+    ("spec", "float32", DECODE_SEQ_LENS, 5, 0, None, 32, 8, 128),
+    ("spec", "float32", DECODE_SEQ_LENS, 5, 256, None, 32, 8, 128),
+    ("chunk", "bfloat16", (0, 1536), 512, 0, None, 32, 8, 128),
+    ("past the table", "bfloat16", (100, 2000), 64, 0, 128, 32, 8, 128),
+    # Published attention widths, as in DECODE_CASES.
+    ("spec Qwen2-7B", "bfloat16", DECODE_SEQ_LENS, 5, 0, None, 28, 4, 128),
+    ("spec Gemma-7B", "bfloat16", DECODE_SEQ_LENS, 5, 0, None, 16, 16, 256),
+    ("spec Gemma-7B", "float32", DECODE_SEQ_LENS, 5, 256, None, 16, 16,
+     256),
+    ("spec Gemma-2B", "bfloat16", DECODE_SEQ_LENS, 5, 0, None, 8, 1, 256),
+    ("spec Gemma-2B", "float32", DECODE_SEQ_LENS, 5, 0, None, 8, 1, 256),
 )
 
 
@@ -876,9 +924,9 @@ def verify_readings(torch, kernel, plain, gen):
     VERIFY_CASES shape over a shuffled pool, the table padded with -1
     and out-of-range ids; yield (case, args, relative error, max abs
     error)."""
-    H, KV, D, P = 32, 8, 128, 16
+    P = 16
     for case in VERIFY_CASES:
-        _, dt, lens, m, win, width = case
+        _, dt, lens, m, win, width, H, KV, D = case
         need = [-(-(s + m) // P) for s in lens]
         width = width or max(need) + 2
         need = [min(n, width) for n in need]
@@ -902,11 +950,11 @@ def verify_readings(torch, kernel, plain, gen):
 
 def phase_verify(torch, pv, plain, gen):
     say("== phase 5: paged verify kernel vs plain ==")
-    H, KV, D, P = 32, 8, 128, 16
+    P = 16
     rows = {}
     for case, args, rel, err in verify_readings(
             torch, pv.paged_flash_verify, plain, gen):
-        label, dt, lens, m, win, _ = case
+        label, dt, lens, m, win, _, H, KV, D = case
         tol = TOL_REL[dt]
         ms = cuda_ms(torch, lambda: pv.paged_flash_verify(
             *args, window=win), 50)
@@ -916,7 +964,8 @@ def phase_verify(torch, pv, plain, gen):
                                     KV, D, args[0].element_size())
         bms, by = bound_ms(flops, nbytes,
                            PEAK_BF16 if dt == "bfloat16" else PEAK_F32)
-        say(f"verify {label} {dt} B={len(lens)} m={m} window={win}: rel "
+        say(f"verify {label} {dt} B={len(lens)} m={m} H={H} KV={KV} hd={D} "
+            f"window={win}: rel "
             f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
             f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bms:.5f} ({by})")
         check(rel <= tol, f"paged verify disagrees ({label}): {rel} > {tol}")
@@ -1908,14 +1957,19 @@ def phase_f32(torch, np, report):
 # phase 8: flash backward
 # ---------------------------------------------------------------------------
 
-# (dtype, s_q, s_kv, causal, window, hd); batch 1, 32 heads, 8 kv heads.
+# (dtype, s_q, s_kv, causal, window, hd, n_heads, n_kv); batch 1.
 _BWD_SHAPES = (
-    (2048, 2048, True, 0, 128),    # the training shape
-    (512, 2048, True, 0, 128),     # 512 queries over a 1536 prefix
-    (512, 2048, True, 256, 128),   # ... with a window: dead kv rows
-    (1000, 1000, False, 0, 128),   # not causal, ragged
-    (1000, 1000, True, 0, 64),     # ragged, hd 64
-    (300, 700, True, 128, 32),     # ragged prefix + window, hd 32
+    (2048, 2048, True, 0, 128, 32, 8),    # the training shape
+    (512, 2048, True, 0, 128, 32, 8),     # 512 queries over a 1536 prefix
+    (512, 2048, True, 256, 128, 32, 8),   # ... with a window: dead kv rows
+    (1000, 1000, False, 0, 128, 32, 8),   # not causal, ragged
+    (1000, 1000, True, 0, 64, 32, 8),     # ragged, hd 64
+    (300, 700, True, 128, 32, 32, 8),     # ragged prefix + window, hd 32
+    # Published attention widths, as in FLASH_CASES: Qwen2-7B (group 7),
+    # Gemma-7B and Gemma-2B (hd 256).
+    (2048, 2048, True, 0, 128, 28, 4),
+    (2048, 2048, True, 0, 256, 16, 16),
+    (2048, 2048, True, 0, 256, 8, 1),
 )
 BWD_CASES = tuple((dt, *shape) for dt in ("bfloat16", "float32")
                   for shape in _BWD_SHAPES)
@@ -1933,9 +1987,8 @@ def bwd_readings(torch, fa, gen):
     BWD_CASES shape, the backward of both given the plain forward's o and
     lse; yield (case, args, {name: relative error}, {name: max abs
     error}), args being (q, k, v, do, lse, dvec, causal, window)."""
-    H, KV = 32, 8
     for case in BWD_CASES:
-        dt, sq, skv, causal, win, D = case
+        dt, sq, skv, causal, win, D, H, KV = case
 
         def rn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(
@@ -1960,15 +2013,73 @@ def bwd_readings(torch, fa, gen):
                {n: abs_err(got[n], ref[n]) for n in got})
 
 
+def bwd_tiles(fa, case, sm_count):
+    """K5's and K6's bf16 schedules at a phase-8 case, summed over the
+    heads: a short description for the phase's line."""
+    _, sq, skv, causal, win, _, n_heads, n_kv = case
+    cons = fa.k1_consumers(1, sq, n_heads, sm_count)
+    k5 = fa.k5_schedule(sq, skv, causal, win, cons)
+    live = sum(st != "dead" for _, t in k5 for _, sts in t for st in sts)
+    k6 = fa.k6_schedule(sq, skv, n_heads // n_kv, causal, win)
+    stages = [len(t) for _, t in k6]
+    return (f"; K5 {len(k5) * n_heads} CTAs of {cons} consumer(s), "
+            f"{live * n_heads} live consumer tiles; K6 {len(k6) * n_kv} "
+            f"CTAs, {sum(stages) * n_kv} stages (at most {max(stages)} in "
+            f"a CTA), {stages.count(0) * n_kv} dead kv tiles")
+
+
+def sdpa_bwd_rounds(torch, fa, args, rounds=5, iters=10):
+    """Yardstick only, never called by the port: one backward of
+    PyTorch's SDPA on the same inputs, pinned to its flash backend (kv
+    heads repeated outside the timed call, so its dk and dv are per q
+    head), timed in turns with K5, K6 and the D = rowsum(dO * O) pass
+    that FlashAttention runs before them: together those three do the
+    work of that one call. Returns ({name: [ms of each round]}, backend
+    that ran)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, v, do, lse, dvec, causal, win = args
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    kt, vt = (x.transpose(1, 2).repeat_interleave(group, dim=1).detach()
+              .requires_grad_() for x in (k, v))
+    dot = do.transpose(1, 2)
+    backend = "flash"
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out = torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)
+    except RuntimeError as e:
+        backend = f"default (flash refused: {e})"
+        out = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+    o = fa.flash_prefill_attention(q, k, v, causal=causal, window=win)
+    timed = {
+        "sdpa": lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                            retain_graph=True),
+        "dq": lambda: fa.flash_bwd_dq(*args),
+        "dkv": lambda: fa.flash_bwd_dkv(*args),
+        "dvec": lambda: (do.float() * o.float()).sum(-1).transpose(
+            1, 2).contiguous(),
+    }
+    times = {name: [] for name in timed}
+    for r in range(rounds):
+        names = list(timed) if r % 2 == 0 else list(reversed(timed))
+        for name in names:
+            times[name].append(cuda_ms(torch, timed[name], iters))
+    del out
+    return times, backend
+
+
 def phase_bwd(torch, fa, gen):
     say("== phase 8: flash backward kernels (and K1's lse) vs plain ==")
-    H = 32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
     for case, args, rel, err in bwd_readings(torch, fa, gen):
-        dt, sq, skv, causal, win, D = case
+        dt, sq, skv, causal, win, D, H, KV = case
         q, k, v, do, lse, dvec = args[:6]
         tol = TOL_BWD[dt]
-        first = (sq, skv, causal, win, D) == _BWD_SHAPES[0]
+        first = (sq, skv, causal, win, D, H, KV) == _BWD_SHAPES[0]
         iters = 10 if first else 2
         ms_dq = cuda_ms(torch, lambda: fa.flash_bwd_dq(*args), iters)
         ms_dkv = cuda_ms(torch, lambda: fa.flash_bwd_dkv(*args), iters)
@@ -1988,32 +2099,37 @@ def phase_bwd(torch, fa, gen):
                                         + 4 * k.numel()) * esize
                              + rows_bytes, peak)
         lib_ms = lse_ms = None
+        yard = ""
         if first:
             lse_ms = cuda_ms(torch, lambda: fa.flash_prefill_attention(
                 q, k, v, causal=causal, window=win, with_lse=True), iters)
         if first and dt == "bfloat16":
-            # Yardstick only, never called by the port: one backward of
-            # PyTorch's SDPA on the same inputs (its one call does the
-            # work of both K5 and K6).
-            qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                          for x in (q, k, v))
-            out = torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)
-            dot = do.transpose(1, 2)
-            lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(
-                out, (qt, kt, vt), dot, retain_graph=True), 10)
-            del out
+            times, backend = sdpa_bwd_rounds(torch, fa, args)
+            med = {n: statistics.median(t) for n, t in times.items()}
+            spread = {n: max(t) - min(t) for n, t in times.items()}
+            ms_dq, ms_dkv, lib_ms = med["dq"], med["dkv"], med["sdpa"]
+            ours = [a + b + c for a, b, c in zip(
+                times["dq"], times["dkv"], times["dvec"])]
+            yard = ("; in turns over " + str(len(times["sdpa"]))
+                    + " rounds, median (max - min): " + ", ".join(
+                        f"{n} {med[n]:.4f} ({spread[n]:.4f})"
+                        for n in times)
+                    + f"; K5 + K6 + D {statistics.median(ours):.4f} "
+                    f"({max(ours) - min(ours):.4f}) against one SDPA "
+                    f"backward ({backend} backend) {lib_ms:.4f} ms: "
+                    f"{statistics.median(ours) / lib_ms:.2f}x")
+            rows["sdpa_rounds"] = dict(times, backend=backend)
         worst = max(rel.values())
         say(f"bwd {dt} Sq={sq} Skv={skv} causal={causal} window={win} "
-            f"hd={D}: rel err lse {rel['lse']:.3e} dq {rel['dq']:.3e} dk "
-            f"{rel['dk']:.3e} dv {rel['dv']:.3e} (tol {tol:g}); dq kernel_ms "
-            f"{ms_dq:.4f} plain_ms {plain_dq:.4f} bound_ms "
-            f"{dq_bound[0]:.4f} ({dq_bound[1]}); dkv kernel_ms {ms_dkv:.4f} "
-            f"plain_ms {plain_dkv:.4f} bound_ms {dkv_bound[0]:.4f} "
-            f"({dkv_bound[1]})"
-            + (f"; K1 with lse {lse_ms:.4f} ms" if lse_ms else "")
-            + (f"; library_ms {lib_ms:.4f} (SDPA backward, dq+dk+dv)"
-               if lib_ms else ""))
+            f"hd={D} H={H} KV={KV}: rel err lse {rel['lse']:.3e} dq "
+            f"{rel['dq']:.3e} dk {rel['dk']:.3e} dv {rel['dv']:.3e} (tol "
+            f"{tol:g}); dq kernel_ms {ms_dq:.4f} plain_ms {plain_dq:.4f} "
+            f"bound_ms {dq_bound[0]:.4f} ({dq_bound[1]}); dkv kernel_ms "
+            f"{ms_dkv:.4f} plain_ms {plain_dkv:.4f} bound_ms "
+            f"{dkv_bound[0]:.4f} ({dkv_bound[1]})"
+            + (f"; K1 with lse {lse_ms:.4f} ms" if lse_ms else "") + yard
+            + (bwd_tiles(fa, case, sms) if dt == "bfloat16" and D <= 128
+               else ""))
         check(worst <= tol, f"flash backward disagrees ({case}): {rel}")
         if first:
             rows[dt] = dict(
@@ -2025,7 +2141,7 @@ def phase_bwd(torch, fa, gen):
                          bound_by=dkv_bound[1], library_ms=lib_ms),
                 k1_lse_ms=lse_ms, rel=rel)
         del args, q, k, v, do, lse, dvec
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2322,8 +2438,8 @@ def main():
     say("int8: " + json.dumps(int8_report))
     say("training: " + json.dumps(train_report))
     say("backward at the training shape: " + json.dumps(
-        {dt: {"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}
-         for dt, r in bwd.items()}))
+        {dt: ({"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}
+              if dt != "sdpa_rounds" else r) for dt, r in bwd.items()}))
     say("phase seconds: " + json.dumps(phase_s))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

@@ -10,57 +10,466 @@
 // dV += P^T dO, dK += dS^T Q): at Sq = Skv = 2048, hd = 128, 32 heads and
 // causal, ~6.9e10 FLOP against ~5e7 bytes, far above the card's ~295
 // FLOP/byte balance point, so the tensor cores are the limit (989
-// TFLOP/s bf16 dense).
+// TFLOP/s bf16 dense), and only wgmma reaches their rate.
 //
 // Design. The TPU kernel runs one grid row per q head with the q blocks
 // innermost, writes per-head [B*H, Skv, D] dk/dv and leaves the sum over
-// each GQA group to XLA. Here one CTA owns one (batch*kv head, 64-row kv
-// tile): it stages its K and V tiles once, then loops over the group's q
-// heads and, for each, over the live q tiles (flash_tile.cuh's q_tiles,
-// the mirror of K1's kv range), staging Q, dO and their lse and D rows.
-// Each of the 4 warps owns 16 kv rows and works in the transposed frame:
-// S^T = K Q^T on the tensor cores (wmma bf16, f32 accumulation), P^T =
-// exp(S^T * scale - lse) in f32 (masked pairs exactly 0), dV += P^T dO,
-// dP^T = V dO^T, dS^T = P^T (dP^T - D) scale, dK += dS^T Q. P and dS are
-// rounded to bf16 before their products, as the TPU kernel rounds them.
-// dK and dV sum the whole group in f32 fragments held in registers, so
-// the group sum needs no atomics and no f32 intermediate in device
-// memory, and each is written once per kv head, in k's dtype. A kv row no
-// query sees (past a window, or a tile with no live q tile) gets exactly
-// zero. The f32 variant keeps the structure with plain FMA loops (no
-// TF32). This is the simple version: wmma over synchronous shared-memory
-// loads; wgmma and TMA come later.
+// each GQA group to XLA. Here one CTA owns one (batch * kv head, tile of
+// kv rows) and walks the group's q heads and, for each, the live q tiles
+// (flash_tile.cuh's q_tiles, the mirror of K1's kv range), in the
+// transposed frame: S^T = K Q^T, P^T = exp(S^T * scale - lse), dV +=
+// P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - D) scale, dK += dS^T Q, with
+// P and dS rounded to bf16 before their products as the TPU kernel
+// rounds them. dK and dV sum the whole group in f32 registers, so the
+// group sum needs no atomics, is deterministic, and each is written once
+// per kv head, in k's dtype. A kv row no query sees (past a window, or in
+// a tile with no live q tile) gets exactly zero.
+//
+// The bf16 kernel (hd 32, 64, 128): one CTA owns 64 kv rows, with two
+// consumer warpgroups and one producer warpgroup. The producer loads the
+// CTA's K and V tiles once, then one (group member, live q tile) a stage
+// through a ring of shared-memory stages by TMA: its 64-row Q and dO
+// tiles (full / empty mbarriers, 128-byte swizzle, 64-byte at hd 32, out
+// of bounds zero fill). lse and D vary along the accumulators' columns,
+// so a second producer warp stages the 64 queries' values in shared
+// memory with each stage (read before the stage frees, arriving on its
+// full barrier): read from device memory by the consumers after each
+// product instead, their latency cost K6 a third of its time. The two
+// consumers take the stages in turn, each into its own dK and dV: under
+// a causal mask kv tile 0 has 32x the stages of the last, so splitting a
+// CTA's stages (and not its rows) keeps both consumers of the heavy
+// tiles busy, and two consumers on an SM hide each other's waits. Per
+// stage a consumer issues S^T = K Q^T and dP^T = V dO^T together on
+// wgmma (K-major operands, N = 64), forms P^T and dS^T on the
+// accumulator fragments in registers (masked pairs exactly 0, the mask
+// built only on boundary tiles) and packs both into bf16 register A
+// fragments, then issues dV += P^T dO and dK += dS^T Q on wgmma, reading
+// the same swizzled dO and Q tiles MN-major through the transpose bit.
+// S^T, P^T, dP^T and dS^T never pass through shared memory. A stage is
+// released once dK's product, the last to read its Q, has been waited
+// for. At the end consumer 1 hands its sums to consumer 0 through the
+// idle ring (a fixed order, so the result is the same on every run),
+// which writes dK and dV through the K and V tiles by TMA stores that
+// write no row past Skv. Kv tile 0, the heaviest under a causal mask,
+// launches first.
+//
+// The f32 variant, and bf16 at hd 256, keep flash_tile.cuh's tile loop
+// (wmma bf16, plain FMA loops for f32 so that f32 stays true f32): 4
+// warps of 16 kv rows, q tiles of 64 rows (32 for f32 at hd 256, so that
+// the tiles fit in shared memory). At hd 256 two f32 accumulators of the
+// whole head (128 registers each) would not fit beside the rest, so each
+// CTA of a pair (grid.z) recomputes S^T and dP^T over all 256 dims and
+// accumulates its own 128 columns of dK and dV.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using istpu::from_float;
 using namespace istpu::tile;
+namespace hp = istpu::hopper;
+
+// ---------------------------------------------------------------------------
+// bf16 at hd <= 128: TMA ring and warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;  // kv rows per CTA
+constexpr int kBQ = 64;    // q rows per stage
+constexpr int kNC = 2;     // consumer warpgroups, taking stages in turn
+constexpr int kSmemLimit = 232448;  // shared memory one block may use
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+struct Plan {
+    static constexpr int THREADS = (kNC + 1) * 128;
+    // Swizzle width = bytes of one row of a column block; a row of HD
+    // bf16 is BLOCKS column blocks of SW / 2 elements.
+    static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;
+    static constexpr int BLOCKS = HD * 2 / SW;
+    static constexpr int KV_BYTES = kRows * HD * 2;   // K, and again V
+    static constexpr int TILE_BYTES = kBQ * HD * 2;   // one Q or dO tile
+    static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // by TMA
+    static constexpr int ROW_BYTES = 2 * kBQ * 4;       // lse and D
+    static constexpr int FIT = (kSmemLimit - 1024 - 256 - 2 * KV_BYTES) /
+                               (STAGE_BYTES + ROW_BYTES);
+    static constexpr int STAGES = FIT < 4 ? FIT : 4;
+    // Consumer c takes the stages i with i % kNC == c, so each ring slot
+    // serves one consumer.
+    static_assert(STAGES % kNC == 0, "ring slots split among consumers");
+    // 1024 bytes of room to align the tiles, the tiles, each stage's lse
+    // and D, the barriers.
+    static constexpr size_t bytes() {
+        return 1024 + 2 * KV_BYTES +
+               (size_t)STAGES * (STAGE_BYTES + ROW_BYTES) +
+               8 * (1 + 2 * STAGES);
+    }
+};
+
+// D[64 x 64] += A B^T, issued but not waited for: A one consumer's 64
+// rows (column block 0 at `a`, blocks `a_blk` bytes apart), B a staged
+// 64-row tile, both K-major; 16 head-dim columns (32 bytes) a step.
+template <int HD, int SW>
+__device__ __forceinline__ void issue_abt(float (&d)[32],
+                                          const unsigned char* a, int a_blk,
+                                          const unsigned char* b) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+        const int blk = kk * 32 / SW, off = kk * 32 % SW;
+        hp::wgmma_ss_n64(
+            d, hp::smem_desc(a + blk * a_blk + off, 16, 8 * SW, SW),
+            hp::smem_desc(b + blk * kBQ * SW + off, 16, 8 * SW, SW), 1);
+    }
+}
+
+// D[64 x HD] += A[64 x 64] B, issued but not waited for: A bf16 register
+// fragments, B a staged 64-row tile read MN-major (transposed), 16 of
+// its rows a step.
+template <int HD, int SW>
+__device__ __forceinline__ void issue_ab(float (&d)[HD / 2],
+                                         const uint32_t (&a)[kBQ / 16][4],
+                                         const unsigned char* b) {
+#pragma unroll
+    for (int kk = 0; kk < kBQ / 16; ++kk) {
+        const uint64_t desc = hp::smem_desc(b + kk * 16 * SW, kBQ * SW,
+                                            8 * SW, SW);
+        if constexpr (HD == 128) {
+            hp::wgmma_rs_n128(d, a[kk], desc, 1);
+        } else if constexpr (HD == 64) {
+            hp::wgmma_rs_n64(d, a[kk], desc, 1);
+        } else {
+            hp::wgmma_rs_n32(d, a[kk], desc, 1);
+        }
+    }
+}
+
+// Write a consumer's accumulator (rows of its warpgroup, f32 fragments)
+// as bf16 into its 64 rows of a swizzled tile (column blocks `blk` bytes
+// apart).
+template <int HD, int SW>
+__device__ __forceinline__ void stage_out(const float (&d)[HD / 2],
+                                          unsigned char* rows, int blk,
+                                          int warp, int lane) {
+    const int quad = lane % 4;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+            const int r = warp * 16 + lane / 4 + 8 * hi;
+            const int byte = (j * 8 + 2 * quad) * 2;  // in the row
+            const int off = r * SW + byte % SW;
+            const int swz = off ^ (((off >> 7) & (SW == 128 ? 7 : 3)) << 4);
+            *reinterpret_cast<__nv_bfloat162*>(rows + byte / SW * blk +
+                                               swz) =
+                __floats2bfloat162_rn(d[4 * j + 2 * hi],
+                                      d[4 * j + 2 * hi + 1]);
+        }
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(Plan<HD>::THREADS, 1)
+flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                           __grid_constant__ const CUtensorMap kmap,
+                           __grid_constant__ const CUtensorMap vmap,
+                           __grid_constant__ const CUtensorMap domap,
+                           __grid_constant__ const CUtensorMap dkmap,
+                           __grid_constant__ const CUtensorMap dvmap,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ dvec, int Sq, int Skv,
+                           int H, int KV, int causal, int window,
+                           float scale) {
+    using P = Plan<HD>;
+    constexpr int SW = P::SW;
+
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* const sK =
+        smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+    unsigned char* const sV = sK + P::KV_BYTES;
+    // Stage s: Q at sQD + s * STAGE_BYTES, dO TILE_BYTES after it. Every
+    // tile is [BLOCKS][rows][SW bytes], 1024-byte aligned.
+    unsigned char* const sQD = sV + P::KV_BYTES;
+    // Stage s's lse (log2 units) at sLseD + 2 s kBQ, its D kBQ after.
+    float* const sLseD =
+        reinterpret_cast<float*>(sQD + P::STAGES * P::STAGE_BYTES);
+    uint64_t* const kv_full =
+        reinterpret_cast<uint64_t*>(sLseD + P::STAGES * 2 * kBQ);
+    uint64_t* const full = kv_full + 1;
+    uint64_t* const empty = full + P::STAGES;
+
+    const int b = blockIdx.x / KV;
+    const int kvh = blockIdx.x % KV;
+    const int group = H / KV;
+    // Kv tile 0 first: under a causal mask it sees the most q tiles.
+    const int k_start = blockIdx.y * kRows;
+    int qt_begin, qt_end;
+    q_tiles<kBQ, kRows>(k_start, Sq, Skv, causal, window, qt_begin, qt_end);
+    // The walk: stage i is group member i / n_qt, q tile qt_begin + i % n_qt.
+    const int n_qt = qt_end - qt_begin;
+    const int stages = group * n_qt;
+
+    if (threadIdx.x == 0) {
+        hp::mbar_init(kv_full, 1);
+        for (int s = 0; s < P::STAGES; ++s) {
+            // The TMA thread's arrival, and one from each lane of the
+            // warp that stages lse and D.
+            hp::mbar_init(&full[s], 1 + 32);
+            hp::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+        }
+        hp::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == kNC) {
+        // ---- producer ----
+        hp::regs_dealloc<24>();
+        if (threadIdx.x == kNC * 128) {
+            hp::mbar_expect_tx(kv_full, 2 * P::KV_BYTES);
+            for (int c = 0; c < P::BLOCKS; ++c) {
+                hp::tma_load_4d(sK + c * kRows * SW, &kmap, kv_full,
+                                c * SW / 2, kvh, k_start, b);
+                hp::tma_load_4d(sV + c * kRows * SW, &vmap, kv_full,
+                                c * SW / 2, kvh, k_start, b);
+            }
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int i = 0; i < stages; ++i) {
+                const int h = kvh * group + i / n_qt;
+                const int q_start = (qt_begin + i % n_qt) * kBQ;
+                hp::mbar_wait(&empty[stage], phase ^ 1);
+                hp::mbar_expect_tx(&full[stage], P::STAGE_BYTES);
+                unsigned char* const sQ = sQD + stage * P::STAGE_BYTES;
+                unsigned char* const sdO = sQ + P::TILE_BYTES;
+                for (int c = 0; c < P::BLOCKS; ++c) {
+                    hp::tma_load_4d(sQ + c * kBQ * SW, &qmap, &full[stage],
+                                    c * SW / 2, h, q_start, b);
+                    hp::tma_load_4d(sdO + c * kBQ * SW, &domap, &full[stage],
+                                    c * SW / 2, h, q_start, b);
+                }
+                if (++stage == P::STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
+            }
+        } else if (threadIdx.x / 32 == kNC * 4 + 1) {
+            // The stage's lse and D: two queries a lane, read before the
+            // stage is free.
+            const int lane = threadIdx.x % 32;
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int i = 0; i < stages; ++i) {
+                const int h = kvh * group + i / n_qt;
+                const int col = (qt_begin + i % n_qt) * kBQ + 2 * lane;
+                const size_t row0 = ((size_t)b * H + h) * Sq;
+                float l2[2], dd[2];
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const bool in = col + e < Sq;
+                    l2[e] = in ? lse[row0 + col + e] * kLog2e : 0.0f;
+                    dd[e] = in ? dvec[row0 + col + e] : 0.0f;
+                }
+                hp::mbar_wait(&empty[stage], phase ^ 1);
+                float* const r = sLseD + stage * 2 * kBQ;
+                *reinterpret_cast<float2*>(r + 2 * lane) =
+                    make_float2(l2[0], l2[1]);
+                *reinterpret_cast<float2*>(r + kBQ + 2 * lane) =
+                    make_float2(dd[0], dd[1]);
+                hp::mbar_arrive(&full[stage]);
+                if (++stage == P::STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+    } else {
+        // ---- consumer wg: stages wg, wg + kNC, ... ----
+        hp::regs_alloc<240>();
+        const int warp = (threadIdx.x / 32) % 4;
+        const int lane = threadIdx.x % 32;
+        const int quad = lane % 4;
+        const int kr_lo = k_start + warp * 16 + lane / 4;  // and kr_lo + 8
+        const float scale_log2 = scale * kLog2e;
+
+        float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.0f;
+
+        hp::mbar_wait(kv_full, 0);
+        for (int i = wg; i < stages; i += kNC) {
+            const int stage = i % P::STAGES;
+            const uint32_t phase = (i / P::STAGES) & 1;
+            const int q_start = (qt_begin + i % n_qt) * kBQ;
+            unsigned char* const sQ = sQD + stage * P::STAGE_BYTES;
+            unsigned char* const sdO = sQ + P::TILE_BYTES;
+            hp::mbar_wait(&full[stage], phase);
+            float st[32], dpt[32];
+#pragma unroll
+            for (int e = 0; e < 32; ++e) st[e] = dpt[e] = 0.0f;
+            hp::fence_regs(st);
+            hp::fence_regs(dpt);
+            hp::wgmma_fence();
+            issue_abt<HD, SW>(st, sK, kRows * SW, sQ);
+            issue_abt<HD, SW>(dpt, sV, kRows * SW, sdO);
+            hp::wgmma_commit();
+            hp::wgmma_wait<0>();
+            hp::fence_regs(st);
+            hp::fence_regs(dpt);
+
+            // P^T and dS^T in bf16 A fragments: st[4j + e] is kv row kr_lo
+            // + 8 (e / 2), query q_start + 8j + 2 quad + e % 2; query pair
+            // (i, i + 1) goes to step i / 8, register (i / 2) % 4. Each
+            // query's lse (log2 units) and D from the stage.
+            const bool interior = interior_tile<kBQ, kRows>(
+                q_start, k_start, Sq, Skv, causal, window);
+            const float* const r = sLseD + stage * 2 * kBQ;
+            uint32_t pa[kBQ / 16][4], da[kBQ / 16][4];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+                const int col = q_start + 8 * j + 2 * quad;
+                const float2 l2 = *reinterpret_cast<const float2*>(
+                    r + 8 * j + 2 * quad);
+                const float2 dd = *reinterpret_cast<const float2*>(
+                    r + kBQ + 8 * j + 2 * quad);
+#pragma unroll
+                for (int hi = 0; hi < 2; ++hi) {
+                    const int x = 4 * j + 2 * hi;
+                    float p0 = exp2f(st[x] * scale_log2 - l2.x);
+                    float p1 = exp2f(st[x + 1] * scale_log2 - l2.y);
+                    if (!interior) {
+                        const int row = kr_lo + 8 * hi;
+                        if (!keeps(col, row, Sq, Skv, causal, window)) {
+                            p0 = 0.0f;
+                        }
+                        if (!keeps(col + 1, row, Sq, Skv, causal, window)) {
+                            p1 = 0.0f;
+                        }
+                    }
+                    const __nv_bfloat162 pk = __floats2bfloat162_rn(p0, p1);
+                    const __nv_bfloat162 dk2 = __floats2bfloat162_rn(
+                        p0 * (dpt[x] - dd.x) * scale,
+                        p1 * (dpt[x + 1] - dd.y) * scale);
+                    pa[x / 8][(x / 2) % 4] =
+                        *reinterpret_cast<const uint32_t*>(&pk);
+                    da[x / 8][(x / 2) % 4] =
+                        *reinterpret_cast<const uint32_t*>(&dk2);
+                }
+            }
+
+            hp::fence_regs(dv);
+            hp::fence_regs(dk);
+            hp::wgmma_fence();
+            issue_ab<HD, SW>(dv, pa, sdO);
+            issue_ab<HD, SW>(dk, da, sQ);
+            hp::wgmma_commit();
+            hp::wgmma_wait<0>();
+            hp::fence_regs(dv);
+            hp::fence_regs(dk);
+            if (lane == 0) hp::mbar_arrive(&empty[stage]);
+        }
+
+        // The group sum of both consumers, consumer 1's through the ring,
+        // idle once both are past their last stage: same order on every
+        // run.
+        float* const red = reinterpret_cast<float*>(sQD);
+        const int t = threadIdx.x % 128;
+        hp::named_barrier(3, 256);
+        if (wg == 1) {
+#pragma unroll
+            for (int i = 0; i < HD / 2; ++i) {
+                red[i * 128 + t] = dk[i];
+                red[(HD / 2 + i) * 128 + t] = dv[i];
+            }
+        }
+        hp::named_barrier(3, 256);
+        if (wg == 1) return;
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) {
+            dk[i] += red[i * 128 + t];
+            dv[i] += red[(HD / 2 + i) * 128 + t];
+        }
+
+        // ---- epilogue (consumer 0): dK and dV through the K and V tiles
+        hp::named_barrier(1, 128);  // every warp's wgmma has read K and V
+        stage_out<HD, SW>(dk, sK, kRows * SW, warp, lane);
+        stage_out<HD, SW>(dv, sV, kRows * SW, warp, lane);
+        hp::fence_async_shared();
+        hp::named_barrier(1, 128);
+        if (threadIdx.x == 0) {
+            for (int c = 0; c < P::BLOCKS; ++c) {
+                hp::tma_store_4d(&dkmap, sK + c * kRows * SW, c * SW / 2,
+                                 kvh, k_start, b);
+                hp::tma_store_4d(&dvmap, sV + c * kRows * SW, c * SW / 2,
+                                 kvh, k_start, b);
+            }
+            hp::tma_store_commit();
+            hp::tma_store_wait_read();
+        }
+    }
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* dvec,
+                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
+                 int causal, int window, cudaStream_t stream) {
+    using P = Plan<HD>;
+    CUtensorMap qm, km, vm, dom, dkm, dvm;
+    if (!hp::tensor_map(&qm, q, B, Sq, H, HD, kBQ, P::SW) ||
+        !hp::tensor_map(&km, k, B, Skv, KV, HD, kRows, P::SW) ||
+        !hp::tensor_map(&vm, v, B, Skv, KV, HD, kRows, P::SW) ||
+        !hp::tensor_map(&dom, dout, B, Sq, H, HD, kBQ, P::SW) ||
+        !hp::tensor_map(&dkm, dk, B, Skv, KV, HD, kRows, P::SW) ||
+        !hp::tensor_map(&dvm, dv, B, Skv, KV, HD, kRows, P::SW)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    auto kern = flash_bwd_dkv_wgmma_kernel<HD>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes());
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * KV, (Skv + kRows - 1) / kRows);
+    kern<<<grid, P::THREADS, P::bytes(), stream>>>(
+        qm, km, vm, dom, dkm, dvm, lse, dvec, Sq, Skv, H, KV, causal, window,
+        (float)(1.0 / sqrt((double)HD)));
+    return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32, and bf16 at hd 256: flash_tile.cuh's tile loop
+// ---------------------------------------------------------------------------
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ dvec, T* __restrict__ dk,
-                     T* __restrict__ dv, int Sq, int Skv, int H, int KV,
-                     int causal, int window, float scale) {
+flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dvec, T* __restrict__ dk,
+                          T* __restrict__ dv, int Sq, int Skv, int H, int KV,
+                          int causal, int window, float scale) {
     using L = Layout<T, HD>;
-    constexpr int LD = L::LD, SLD = L::SLD, PLD = L::PLD;
+    constexpr int TQ = L::TK, LD = L::LD, SLD = L::SLD, PLD = L::PLD;
+    constexpr int SC = TQ / 2;  // S^T columns held by one lane
+    // dK / dV columns this CTA accumulates: all, or one half at hd 256.
+    constexpr int COLS = HD > 128 ? HD / 2 : HD;
 
     extern __shared__ __align__(128) unsigned char smem[];
     const BwdSmem<T, HD> sm(smem);
+    T* const sK = sm.own[0];
+    T* const sV = sm.own[1];
+    T* const sQ = sm.walk[0];
+    T* const sdO = sm.walk[1];
 
     const int bkv = blockIdx.y;
     const int b = bkv / KV;
     const int kvh = bkv % KV;
     const int G = H / KV;
     const int k_start = blockIdx.x * BK;
+    const int c0 = blockIdx.z * COLS;  // first dK / dV column
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int r = lane >> 1;
@@ -70,19 +479,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t kv_stride = (size_t)KV * HD;
     const T* kbase = k + ((size_t)b * Skv * KV + kvh) * HD;
     const T* vbase = v + ((size_t)b * Skv * KV + kvh) * HD;
-    load_tile<T, HD, LD>(sm.K, kbase, kv_stride, k_start, Skv);
-    load_tile<T, HD, LD>(sm.V, vbase, kv_stride, k_start, Skv);
+    load_tile<T, HD, LD>(sK, kbase, kv_stride, k_start, Skv);
+    load_tile<T, HD, LD>(sV, vbase, kv_stride, k_start, Skv);
 
     int qt_begin, qt_end;
-    q_tiles(k_start, Sq, Skv, causal, window, qt_begin, qt_end);
+    q_tiles<TQ, BK>(k_start, Sq, Skv, causal, window, qt_begin, qt_end);
 
     const int pos_k = k_start + warp * 16 + r;
     float* Sw = sm.S + warp * 16 * SLD;
     T* Pw = sm.P + warp * 16 * PLD;
-    const T* Kw = sm.K + warp * 16 * LD;
-    const T* Vw = sm.V + warp * 16 * LD;
-    RowAcc<T, HD> dk_acc;
-    RowAcc<T, HD> dv_acc;
+    const T* Kw = sK + warp * 16 * LD;
+    const T* Vw = sV + warp * 16 * LD;
+    RowAcc<T, HD, COLS> dk_acc;
+    RowAcc<T, HD, COLS> dv_acc;
 
     for (int g = 0; g < G; ++g) {
         const int h = kvh * G + g;
@@ -91,26 +500,26 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const float* lse_h = lse + ((size_t)b * H + h) * Sq;
         const float* d_h = dvec + ((size_t)b * H + h) * Sq;
         for (int qt = qt_begin; qt < qt_end; ++qt) {
-            const int q_start = qt * BQ;
+            const int q_start = qt * TQ;
             __syncthreads();  // every warp is done with the previous tile
-            load_tile<T, HD, LD>(sm.Q, qbase, q_stride, q_start, Sq);
-            load_tile<T, HD, LD>(sm.dO, dobase, q_stride, q_start, Sq);
-            if (threadIdx.x < BQ) {
+            load_tile<T, HD, LD, TQ>(sQ, qbase, q_stride, q_start, Sq);
+            load_tile<T, HD, LD, TQ>(sdO, dobase, q_stride, q_start, Sq);
+            if (threadIdx.x < TQ) {
                 const int pq = q_start + threadIdx.x;
                 sm.lse[threadIdx.x] = pq < Sq ? lse_h[pq] : 0.0f;
                 sm.D[threadIdx.x] = pq < Sq ? d_h[pq] : 0.0f;
             }
             __syncthreads();
-            const bool interior =
-                interior_tile(q_start, k_start, Sq, Skv, causal, window);
+            const bool interior = interior_tile<TQ, BK>(
+                q_start, k_start, Sq, Skv, causal, window);
 
             // P^T = exp(K Q^T * scale - lse), masked pairs exactly 0.
-            abt<T, HD>(Kw, sm.Q, Sw, lane);
+            abt<T, HD>(Kw, sQ, Sw, lane);
             __syncwarp();
-            float p[32];
+            float p[SC];
 #pragma unroll
-            for (int j = 0; j < 32; ++j) {
-                const int col = half * 32 + j;
+            for (int j = 0; j < SC; ++j) {
+                const int col = half * SC + j;
                 const bool ok = interior || keeps(q_start + col, pos_k, Sq,
                                                   Skv, causal, window);
                 p[j] = ok ? expf(Sw[r * SLD + col] * scale - sm.lse[col])
@@ -120,43 +529,43 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             __syncwarp();
 
             // dV += P^T dO
-            dv_acc.add_ab(Pw, sm.dO, lane);
+            dv_acc.add_ab(Pw, sdO + c0, lane);
             __syncwarp();
 
             // dS^T = P^T (V dO^T - D) scale, rounded to T for the product.
-            abt<T, HD>(Vw, sm.dO, Sw, lane);
+            abt<T, HD>(Vw, sdO, Sw, lane);
             __syncwarp();
 #pragma unroll
-            for (int j = 0; j < 32; ++j) {
-                const int col = half * 32 + j;
+            for (int j = 0; j < SC; ++j) {
+                const int col = half * SC + j;
                 Pw[r * PLD + col] = from_float<T>(
                     p[j] * (Sw[r * SLD + col] - sm.D[col]) * scale);
             }
             __syncwarp();
 
             // dK += dS^T Q
-            dk_acc.add_ab(Pw, sm.Q, lane);
+            dk_acc.add_ab(Pw, sQ + c0, lane);
             __syncwarp();
         }
     }
 
-    const size_t row = (((size_t)b * Skv + pos_k) * KV + kvh) * HD +
-                       half * (HD / 2);
+    const size_t row = (((size_t)b * Skv + pos_k) * KV + kvh) * HD + c0 +
+                       half * (COLS / 2);
     dk_acc.store(dk + row, pos_k < Skv, Sw, lane);
     dv_acc.store(dv + row, pos_k < Skv, Sw, lane);
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* dvec, void* dk, void* dv, int B,
-           int Sq, int Skv, int H, int KV, int causal, int window,
-           cudaStream_t stream) {
+int launch_tile(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* dvec,
+                void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
+                int causal, int window, cudaStream_t stream) {
     const size_t smem = BwdLayout<T, HD>::bytes();
-    auto kern = flash_bwd_dkv_kernel<T, HD>;
+    auto kern = flash_bwd_dkv_tile_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid((Skv + BK - 1) / BK, B * KV);
+    const dim3 grid((Skv + BK - 1) / BK, B * KV, HD > 128 ? 2 : 1);
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
@@ -165,17 +574,29 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int D, const void* q, const void* k, const void* v,
+// bf16: the wgmma kernel at hd <= 128, the tile loop at hd 256.
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
                 int causal, int window, cudaStream_t s) {
-    switch (D) {
-        case 32: return launch<T, 32>(q, k, v, dout, lse, dvec, dk, dv, B, Sq, Skv, H, KV, causal, window, s);
-        case 64: return launch<T, 64>(q, k, v, dout, lse, dvec, dk, dv, B, Sq, Skv, H, KV, causal, window, s);
-        case 128: return launch<T, 128>(q, k, v, dout, lse, dvec, dk, dv, B, Sq, Skv, H, KV, causal, window, s);
-        default: return (int)cudaErrorInvalidValue;
+    if constexpr (HD > 128) {
+        return launch_tile<__nv_bfloat16, HD>(q, k, v, dout, lse, dvec, dk,
+                                              dv, B, Sq, Skv, H, KV, causal,
+                                              window, s);
+    } else {
+        return launch_wgmma<HD>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,
+                                Skv, H, KV, causal, window, s);
     }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* dvec,
+               void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
+               int causal, int window, cudaStream_t s) {
+    return launch_tile<float, HD>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,
+                                  Skv, H, KV, causal, window, s);
 }
 
 }  // namespace
@@ -191,11 +612,21 @@ extern "C" int istpu_flash_bwd_dkv(const void* q, const void* k,
                                    int Sq, int Skv, int H, int KV, int D,
                                    int causal, int window, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_bf16) {
-        return dispatch_hd<__nv_bfloat16>(D, q, k, v, dout, lse, dvec, dk,
-                                          dv, B, Sq, Skv, H, KV, causal,
-                                          window, s);
+#define ISTPU_HD(fn)                                                        \
+    switch (D) {                                                            \
+        case 32: return fn<32>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,     \
+                               Skv, H, KV, causal, window, s);              \
+        case 64: return fn<64>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,     \
+                               Skv, H, KV, causal, window, s);              \
+        case 128: return fn<128>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,   \
+                                 Skv, H, KV, causal, window, s);            \
+        case 256: return fn<256>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,   \
+                                 Skv, H, KV, causal, window, s);            \
+        default: return (int)cudaErrorInvalidValue;                         \
     }
-    return dispatch_hd<float>(D, q, k, v, dout, lse, dvec, dk, dv, B, Sq,
-                              Skv, H, KV, causal, window, s);
+    if (is_bf16) {
+        ISTPU_HD(launch_bf16)
+    }
+    ISTPU_HD(launch_f32)
+#undef ISTPU_HD
 }

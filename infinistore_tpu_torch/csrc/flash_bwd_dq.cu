@@ -10,47 +10,377 @@
 // dQ += dS K): at Sq = Skv = 2048, hd = 128, 32 heads and causal, ~5.2e10
 // FLOP against ~5e7 bytes of q/k/v/dO/dq, far above the card's ~295
 // FLOP/byte balance point, so the tensor cores are the limit (989
-// TFLOP/s bf16 dense).
+// TFLOP/s bf16 dense), and only wgmma reaches their rate.
 //
-// Design. The TPU grid walks the kv blocks innermost with the dq sum in
-// VMEM scratch; here one CTA owns one (batch*head, 64-row q tile), holds
-// its Q and dO tiles in shared memory and loops over the live kv tiles
-// itself, with K1's live range, interior rule and mask (flash_tile.cuh).
-// Each of the 4 warps owns 16 query rows: it recomputes S on the tensor
-// cores (wmma bf16, f32 accumulation), forms P = exp(S * scale - lse) in
-// f32 (masked pairs exactly 0, so padded and fully masked rows add
-// nothing), dP = dO V^T, dS = P (dP - D) scale rounded to bf16 as the TPU
-// kernel rounds it (ds.astype(k.dtype)), and accumulates dQ += dS K in
-// f32 fragments that stay in registers across tiles; dq is written once,
-// in q's dtype. The q tiles are taken longest-first so the heavy CTAs of
-// the causal triangle start in the first wave. The f32 variant keeps the
-// structure with plain FMA loops (no TF32). This is the simple version:
-// wmma over synchronous shared-memory loads; wgmma and TMA come later.
+// Design of the bf16 kernel (hd 32, 64, 128). The TPU grid walks the kv
+// blocks innermost with the dq sum in VMEM scratch; Hopper blocks run in
+// no order, so one CTA owns one (batch * head, q tile of NC * 64 rows)
+// and loops over the live kv tiles itself, with K1's live range,
+// interior rule and mask (flash_tile.cuh) at 64-key tiles. It is the
+// flash prefill kernel's skeleton (flash_prefill.cu) with one more
+// product: one producer warpgroup loads Q and dO once and the kv head's
+// 64-row K and V tiles through a ring of shared-memory stages by TMA
+// (full / empty mbarriers, 128-byte swizzle, 64-byte at hd 32, out of
+// bounds zero fill); NC consumer warpgroups of 64 q rows each run S =
+// Q K^T and dP = dO V^T on wgmma (both operands K-major in shared memory,
+// issued together), form P = exp2(S * scale * log2 e - lse * log2 e) and
+// dS = P (dP - D) scale on the accumulator fragments in registers (masked
+// pairs exactly 0, the mask built only on boundary tiles), round dS to
+// bf16 as the TPU kernel rounds it (ds.astype(k.dtype)) straight into
+// the register A fragments of dQ += dS K, which reads K MN-major through
+// the transpose bit, as K1 reads V. S, dP, dS and dQ never pass through
+// shared memory; a stage is released once the dQ product that reads its
+// K has been waited for. A consumer whose own rows see none of a tile
+// skips its products. dQ goes out once, in q's dtype, through the
+// consumer's part of the Q tile by a TMA store, which writes no row past
+// Sq. Heavy q tiles (the most live kv tiles under a causal mask) launch
+// first; short sequences take one consumer per CTA so that the grid
+// fills the card. Tiles of 64 keys, not K1's 128: dQ (64 registers at hd
+// 128), S and dP (32 each) and dS (16) then fit a consumer's 240.
+//
+// The f32 variant, and bf16 at hd 256, keep flash_tile.cuh's tile loop
+// (wmma bf16, plain FMA loops for f32 so that f32 stays true f32): 4
+// warps of 16 q rows, dQ in registers across kv tiles of 64 rows (32 for
+// f32 at hd 256, so that the tiles fit in shared memory).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
 #include "flash_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using istpu::from_float;
 using namespace istpu::tile;
+namespace hp = istpu::hopper;
+
+// ---------------------------------------------------------------------------
+// bf16 at hd <= 128: TMA ring and warp-specialised wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kRows = 64;  // q rows per consumer warpgroup
+constexpr int kBK = 64;    // kv rows per tile
+constexpr int kSmemLimit = 232448;  // shared memory one block may use
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD, int NC>
+struct Plan {
+    static constexpr int BQ = NC * kRows;  // q rows per CTA
+    static constexpr int THREADS = (NC + 1) * 128;
+    // Swizzle width = bytes of one row of a column block; a row of HD
+    // bf16 is BLOCKS column blocks of SW / 2 elements.
+    static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;
+    static constexpr int BLOCKS = HD * 2 / SW;
+    static constexpr int Q_BYTES = BQ * HD * 2;      // Q, and again dO
+    static constexpr int TILE_BYTES = kBK * HD * 2;  // one K or V tile
+    static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
+    static constexpr int FIT = (kSmemLimit - 1024 - 256 - 2 * Q_BYTES) /
+                               STAGE_BYTES;
+    static constexpr int STAGES = FIT < 4 ? FIT : 4;
+    // 1024 bytes of room to align the tiles, the tiles, the barriers.
+    static constexpr size_t bytes() {
+        return 1024 + 2 * Q_BYTES + (size_t)STAGES * STAGE_BYTES +
+               8 * (1 + 2 * STAGES);
+    }
+};
+
+// D[64 x 64] += A B^T, issued but not waited for: A one consumer's 64
+// rows (column block 0 at `a`, blocks `a_blk` bytes apart), B a staged
+// 64-row tile, both K-major; 16 head-dim columns (32 bytes) a step.
+template <int HD, int SW>
+__device__ __forceinline__ void issue_abt(float (&d)[32],
+                                          const unsigned char* a, int a_blk,
+                                          const unsigned char* b) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+        const int blk = kk * 32 / SW, off = kk * 32 % SW;
+        hp::wgmma_ss_n64(
+            d, hp::smem_desc(a + blk * a_blk + off, 16, 8 * SW, SW),
+            hp::smem_desc(b + blk * kBK * SW + off, 16, 8 * SW, SW), 1);
+    }
+}
+
+// D[64 x HD] += A[64 x 64] B, issued but not waited for: A bf16 register
+// fragments, B a staged 64-row tile read MN-major (transposed), 16 of
+// its rows a step.
+template <int HD, int SW>
+__device__ __forceinline__ void issue_ab(float (&d)[HD / 2],
+                                         const uint32_t (&a)[kBK / 16][4],
+                                         const unsigned char* b) {
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t desc = hp::smem_desc(b + kk * 16 * SW, kBK * SW,
+                                            8 * SW, SW);
+        if constexpr (HD == 128) {
+            hp::wgmma_rs_n128(d, a[kk], desc, 1);
+        } else if constexpr (HD == 64) {
+            hp::wgmma_rs_n64(d, a[kk], desc, 1);
+        } else {
+            hp::wgmma_rs_n32(d, a[kk], desc, 1);
+        }
+    }
+}
+
+template <int HD, int NC>
+__global__ void __launch_bounds__(Plan<HD, NC>::THREADS, 1)
+flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
+                          __grid_constant__ const CUtensorMap kmap,
+                          __grid_constant__ const CUtensorMap vmap,
+                          __grid_constant__ const CUtensorMap domap,
+                          __grid_constant__ const CUtensorMap dqmap,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dvec, int Sq, int Skv,
+                          int H, int KV, int causal, int window,
+                          float scale) {
+    using P = Plan<HD, NC>;
+    constexpr int SW = P::SW;
+
+    extern __shared__ unsigned char smem_raw[];
+    unsigned char* const sQ =
+        smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+    unsigned char* const sdO = sQ + P::Q_BYTES;
+    // Stage s: K at sKV + s * STAGE_BYTES, V TILE_BYTES after it. Every
+    // tile is [BLOCKS][rows][SW bytes], 1024-byte aligned.
+    unsigned char* const sKV = sdO + P::Q_BYTES;
+    uint64_t* const q_full =
+        reinterpret_cast<uint64_t*>(sKV + P::STAGES * P::STAGE_BYTES);
+    uint64_t* const full = q_full + 1;
+    uint64_t* const empty = full + P::STAGES;
+
+    const int bh = blockIdx.x;
+    const int b = bh / H;
+    const int h = bh % H;
+    const int kvh = h / (H / KV);
+    // Heaviest first: rank 0 is the last q tile, which has the most live
+    // kv tiles under a causal mask.
+    const int q_start = (gridDim.y - 1 - blockIdx.y) * P::BQ;
+    int kt_begin, kt_end;
+    kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
+
+    if (threadIdx.x == 0) {
+        hp::mbar_init(q_full, 1);
+        for (int s = 0; s < P::STAGES; ++s) {
+            hp::mbar_init(&full[s], 1);
+            hp::mbar_init(&empty[s], NC * 4);  // one arrival per warp
+        }
+        hp::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = threadIdx.x / 128;
+    if (wg == NC) {
+        // ---- producer ----
+        if constexpr (NC == 2) hp::regs_dealloc<24>();
+        if (threadIdx.x == NC * 128) {
+            hp::mbar_expect_tx(q_full, 2 * P::Q_BYTES);
+            for (int c = 0; c < P::BLOCKS; ++c) {
+                hp::tma_load_4d(sQ + c * P::BQ * SW, &qmap, q_full,
+                                c * SW / 2, h, q_start, b);
+                hp::tma_load_4d(sdO + c * P::BQ * SW, &domap, q_full,
+                                c * SW / 2, h, q_start, b);
+            }
+            int stage = 0;
+            uint32_t phase = 0;
+            for (int kt = kt_begin; kt < kt_end; ++kt) {
+                hp::mbar_wait(&empty[stage], phase ^ 1);
+                hp::mbar_expect_tx(&full[stage], P::STAGE_BYTES);
+                unsigned char* const sK = sKV + stage * P::STAGE_BYTES;
+                unsigned char* const sV = sK + P::TILE_BYTES;
+                for (int c = 0; c < P::BLOCKS; ++c) {
+                    hp::tma_load_4d(sK + c * kBK * SW, &kmap, &full[stage],
+                                    c * SW / 2, kvh, kt * kBK, b);
+                    hp::tma_load_4d(sV + c * kBK * SW, &vmap, &full[stage],
+                                    c * SW / 2, kvh, kt * kBK, b);
+                }
+                if (++stage == P::STAGES) {
+                    stage = 0;
+                    phase ^= 1;
+                }
+            }
+        }
+    } else {
+        // ---- consumer wg: query rows [row0, row0 + 64) ----
+        if constexpr (NC == 2) hp::regs_alloc<240>();
+        const int warp = (threadIdx.x / 32) % 4;
+        const int lane = threadIdx.x % 32;
+        const int quad = lane % 4;
+        const int row0 = q_start + wg * kRows;
+        const int r_lo = row0 + warp * 16 + lane / 4;  // and r_lo + 8
+        // This consumer's rows of Q and dO in column block c: + c * BQ * SW.
+        unsigned char* const qc = sQ + wg * kRows * SW;
+        unsigned char* const dc = sdO + wg * kRows * SW;
+        const float scale_log2 = scale * kLog2e;
+
+        // The kv tiles this consumer's own rows see (none past Sq).
+        int own_begin = 0, own_end = 0;
+        if (row0 < Sq) {
+            kv_tiles<kRows, kBK>(row0, Sq, Skv, causal, window, own_begin,
+                                 own_end);
+        }
+        // Its two rows' lse (in log2 units) and D.
+        float lse2[2], dd[2];
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+            const int row = r_lo + 8 * hi;
+            lse2[hi] = row < Sq ? lse[(size_t)bh * Sq + row] * kLog2e : 0.0f;
+            dd[hi] = row < Sq ? dvec[(size_t)bh * Sq + row] : 0.0f;
+        }
+
+        float dq[HD / 2];
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
+
+        const auto tile = [&](int st) { return sKV + st * P::STAGE_BYTES; };
+        int stage = 0;
+        uint32_t phase = 0;
+        hp::mbar_wait(q_full, 0);
+        for (int kt = kt_begin; kt < kt_end; ++kt) {
+            hp::mbar_wait(&full[stage], phase);
+            if (kt >= own_begin && kt < own_end) {
+                const int k_start = kt * kBK;
+                float s[32], dp[32];
+#pragma unroll
+                for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+                hp::fence_regs(s);
+                hp::fence_regs(dp);
+                hp::wgmma_fence();
+                issue_abt<HD, SW>(s, qc, P::BQ * SW, tile(stage));
+                issue_abt<HD, SW>(dp, dc, P::BQ * SW,
+                                  tile(stage) + P::TILE_BYTES);
+                hp::wgmma_commit();
+                hp::wgmma_wait<0>();
+                hp::fence_regs(s);
+                hp::fence_regs(dp);
+
+                // dS = P (dP - D) scale in bf16 A fragments: s[4j + e] is
+                // row r_lo + 8 (e / 2), key k_start + 8j + 2 quad + e % 2;
+                // key pair (i, i + 1) goes to step i / 8, register
+                // (i / 2) % 4.
+                const bool interior = interior_tile<kRows, kBK>(
+                    row0, k_start, Sq, Skv, causal, window);
+                uint32_t da[kBK / 16][4];
+#pragma unroll
+                for (int i = 0; i < 32; i += 2) {
+                    const int hi = (i >> 1) & 1;
+                    const int key = k_start + (i >> 2) * 8 + 2 * quad;
+                    float p0 = exp2f(s[i] * scale_log2 - lse2[hi]);
+                    float p1 = exp2f(s[i + 1] * scale_log2 - lse2[hi]);
+                    if (!interior) {
+                        const int row = r_lo + 8 * hi;
+                        if (!keeps(row, key, Sq, Skv, causal, window)) {
+                            p0 = 0.0f;
+                        }
+                        if (!keeps(row, key + 1, Sq, Skv, causal, window)) {
+                            p1 = 0.0f;
+                        }
+                    }
+                    const __nv_bfloat162 pk = __floats2bfloat162_rn(
+                        p0 * (dp[i] - dd[hi]) * scale,
+                        p1 * (dp[i + 1] - dd[hi]) * scale);
+                    da[i / 8][(i / 2) % 4] =
+                        *reinterpret_cast<const uint32_t*>(&pk);
+                }
+
+                hp::fence_regs(dq);
+                hp::wgmma_fence();
+                issue_ab<HD, SW>(dq, da, tile(stage));
+                hp::wgmma_commit();
+                hp::wgmma_wait<0>();
+                hp::fence_regs(dq);
+            }
+            if (lane == 0) hp::mbar_arrive(&empty[stage]);
+            if (++stage == P::STAGES) {
+                stage = 0;
+                phase ^= 1;
+            }
+        }
+
+        // ---- epilogue: dQ through this consumer's Q rows ----
+        hp::named_barrier(1 + wg, 128);  // every warp's wgmma has read Q
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+            for (int hi = 0; hi < 2; ++hi) {
+                const int r = warp * 16 + lane / 4 + 8 * hi;
+                const int byte = (j * 8 + 2 * quad) * 2;  // in the row
+                const int off = r * SW + byte % SW;
+                const int swz =
+                    off ^ (((off >> 7) & (SW == 128 ? 7 : 3)) << 4);
+                *reinterpret_cast<__nv_bfloat162*>(
+                    qc + byte / SW * P::BQ * SW + swz) =
+                    __floats2bfloat162_rn(dq[4 * j + 2 * hi],
+                                          dq[4 * j + 2 * hi + 1]);
+            }
+        }
+        hp::fence_async_shared();
+        hp::named_barrier(1 + wg, 128);
+        if (threadIdx.x % 128 == 0) {
+            for (int c = 0; c < P::BLOCKS; ++c) {
+                hp::tma_store_4d(&dqmap, qc + c * P::BQ * SW, c * SW / 2, h,
+                                 row0, b);
+            }
+            hp::tma_store_commit();
+            hp::tma_store_wait_read();
+        }
+    }
+}
+
+template <int HD, int NC>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* dvec,
+                 void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
+                 int window, cudaStream_t stream) {
+    using P = Plan<HD, NC>;
+    CUtensorMap qm, km, vm, dom, dqm;
+    if (!hp::tensor_map(&qm, q, B, Sq, H, HD, P::BQ, P::SW) ||
+        !hp::tensor_map(&km, k, B, Skv, KV, HD, kBK, P::SW) ||
+        !hp::tensor_map(&vm, v, B, Skv, KV, HD, kBK, P::SW) ||
+        !hp::tensor_map(&dom, dout, B, Sq, H, HD, P::BQ, P::SW) ||
+        !hp::tensor_map(&dqm, dq, B, Sq, H, HD, kRows, P::SW)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    auto kern = flash_bwd_dq_wgmma_kernel<HD, NC>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes());
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * H, (Sq + P::BQ - 1) / P::BQ);
+    kern<<<grid, P::THREADS, P::bytes(), stream>>>(
+        qm, km, vm, dom, dqm, lse, dvec, Sq, Skv, H, KV, causal, window,
+        (float)(1.0 / sqrt((double)HD)));
+    return (int)cudaGetLastError();
+}
+
+// Consumers per CTA: two (128-row q tiles) unless that leaves SMs idle.
+int consumers(int B, int Sq, int H) {
+    return hp::consumers_for((long)((Sq + 2 * kRows - 1) / (2 * kRows)) * B *
+                             H);
+}
+
+// ---------------------------------------------------------------------------
+// f32, and bf16 at hd 256: flash_tile.cuh's tile loop
+// ---------------------------------------------------------------------------
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ dvec, T* __restrict__ dq,
-                    int Sq, int Skv, int H, int KV, int causal, int window,
-                    float scale) {
+flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const T* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ dvec, T* __restrict__ dq,
+                         int Sq, int Skv, int H, int KV, int causal,
+                         int window, float scale) {
     using L = Layout<T, HD>;
-    constexpr int LD = L::LD, SLD = L::SLD, PLD = L::PLD;
+    constexpr int TK = L::TK, LD = L::LD, SLD = L::SLD, PLD = L::PLD;
+    constexpr int SC = TK / 2;  // S columns held by one lane
 
     extern __shared__ __align__(128) unsigned char smem[];
     const BwdSmem<T, HD> sm(smem);
+    T* const sQ = sm.own[0];
+    T* const sdO = sm.own[1];
+    T* const sK = sm.walk[0];
+    T* const sV = sm.walk[1];
 
     const int bh = blockIdx.y;
     const int b = bh / H;
@@ -69,37 +399,37 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* kbase = k + ((size_t)b * Skv * KV + kvh) * HD;
     const T* vbase = v + ((size_t)b * Skv * KV + kvh) * HD;
 
-    load_tile<T, HD, LD>(sm.Q, qbase, q_stride, q_start, Sq);
-    load_tile<T, HD, LD>(sm.dO, dobase, q_stride, q_start, Sq);
+    load_tile<T, HD, LD>(sQ, qbase, q_stride, q_start, Sq);
+    load_tile<T, HD, LD>(sdO, dobase, q_stride, q_start, Sq);
 
     int kt_begin, kt_end;
-    kv_tiles(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
+    kv_tiles<BQ, TK>(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
 
     const int pos_q = q_start + warp * 16 + r;
     const float row_lse = pos_q < Sq ? lse[(size_t)bh * Sq + pos_q] : 0.0f;
     const float row_d = pos_q < Sq ? dvec[(size_t)bh * Sq + pos_q] : 0.0f;
     float* Sw = sm.S + warp * 16 * SLD;
     T* Pw = sm.P + warp * 16 * PLD;
-    const T* Qw = sm.Q + warp * 16 * LD;
-    const T* dOw = sm.dO + warp * 16 * LD;
+    const T* Qw = sQ + warp * 16 * LD;
+    const T* dOw = sdO + warp * 16 * LD;
     RowAcc<T, HD> acc;
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k_start = kt * BK;
+        const int k_start = kt * TK;
         __syncthreads();  // every warp is done with the previous tile
-        load_tile<T, HD, LD>(sm.K, kbase, kv_stride, k_start, Skv);
-        load_tile<T, HD, LD>(sm.V, vbase, kv_stride, k_start, Skv);
+        load_tile<T, HD, LD, TK>(sK, kbase, kv_stride, k_start, Skv);
+        load_tile<T, HD, LD, TK>(sV, vbase, kv_stride, k_start, Skv);
         __syncthreads();
-        const bool interior =
-            interior_tile(q_start, k_start, Sq, Skv, causal, window);
+        const bool interior = interior_tile<BQ, TK>(q_start, k_start, Sq,
+                                                    Skv, causal, window);
 
         // P = exp(Q K^T * scale - lse), masked pairs exactly 0.
-        abt<T, HD>(Qw, sm.K, Sw, lane);
+        abt<T, HD>(Qw, sK, Sw, lane);
         __syncwarp();
-        float p[32];
+        float p[SC];
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-            const int col = half * 32 + j;
+        for (int j = 0; j < SC; ++j) {
+            const int col = half * SC + j;
             const bool ok = interior || keeps(pos_q, k_start + col, Sq, Skv,
                                               causal, window);
             p[j] = ok ? expf(Sw[r * SLD + col] * scale - row_lse) : 0.0f;
@@ -107,18 +437,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncwarp();
 
         // dS = P (dO V^T - D) scale, rounded to T for the product.
-        abt<T, HD>(dOw, sm.V, Sw, lane);
+        abt<T, HD>(dOw, sV, Sw, lane);
         __syncwarp();
 #pragma unroll
-        for (int j = 0; j < 32; ++j) {
-            const int col = half * 32 + j;
+        for (int j = 0; j < SC; ++j) {
+            const int col = half * SC + j;
             Pw[r * PLD + col] =
                 from_float<T>(p[j] * (Sw[r * SLD + col] - row_d) * scale);
         }
         __syncwarp();
 
         // dQ += dS K
-        acc.add_ab(Pw, sm.K, lane);
+        acc.add_ab(Pw, sK, lane);
         __syncwarp();
     }
 
@@ -127,12 +457,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* dvec, void* dq, int B, int Sq,
-           int Skv, int H, int KV, int causal, int window,
-           cudaStream_t stream) {
+int launch_tile(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* dvec,
+                void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
+                int window, cudaStream_t stream) {
     const size_t smem = BwdLayout<T, HD>::bytes();
-    auto kern = flash_bwd_dq_kernel<T, HD>;
+    auto kern = flash_bwd_dq_tile_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -145,17 +475,32 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch_hd(int D, const void* q, const void* k, const void* v,
+// bf16: the wgmma kernel at hd <= 128, the tile loop at hd 256.
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
                 void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
                 int window, cudaStream_t s) {
-    switch (D) {
-        case 32: return launch<T, 32>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H, KV, causal, window, s);
-        case 64: return launch<T, 64>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H, KV, causal, window, s);
-        case 128: return launch<T, 128>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H, KV, causal, window, s);
-        default: return (int)cudaErrorInvalidValue;
+    if constexpr (HD > 128) {
+        return launch_tile<__nv_bfloat16, HD>(q, k, v, dout, lse, dvec, dq,
+                                              B, Sq, Skv, H, KV, causal,
+                                              window, s);
+    } else if (consumers(B, Sq, H) == 1) {
+        return launch_wgmma<HD, 1>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
+                                   H, KV, causal, window, s);
+    } else {
+        return launch_wgmma<HD, 2>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
+                                   H, KV, causal, window, s);
     }
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v,
+               const void* dout, const float* lse, const float* dvec,
+               void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
+               int window, cudaStream_t s) {
+    return launch_tile<float, HD>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
+                                  H, KV, causal, window, s);
 }
 
 }  // namespace
@@ -171,10 +516,21 @@ extern "C" int istpu_flash_bwd_dq(const void* q, const void* k,
                                   int Skv, int H, int KV, int D, int causal,
                                   int window, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (is_bf16) {
-        return dispatch_hd<__nv_bfloat16>(D, q, k, v, dout, lse, dvec, dq, B,
-                                          Sq, Skv, H, KV, causal, window, s);
+#define ISTPU_HD(fn)                                                        \
+    switch (D) {                                                            \
+        case 32: return fn<32>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H, \
+                               KV, causal, window, s);                      \
+        case 64: return fn<64>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H, \
+                               KV, causal, window, s);                      \
+        case 128: return fn<128>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,  \
+                                 H, KV, causal, window, s);                 \
+        case 256: return fn<256>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,  \
+                                 H, KV, causal, window, s);                 \
+        default: return (int)cudaErrorInvalidValue;                         \
     }
-    return dispatch_hd<float>(D, q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H,
-                              KV, causal, window, s);
+    if (is_bf16) {
+        ISTPU_HD(launch_bf16)
+    }
+    ISTPU_HD(launch_f32)
+#undef ISTPU_HD
 }

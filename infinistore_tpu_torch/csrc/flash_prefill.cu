@@ -46,7 +46,10 @@
 // makes ptxas serialise the wgmma (note C7513), and ran slower.
 //
 // The f32 variant is the 64 x 64 tile fold of flash_tile.cuh with plain
-// FMA loops, so f32 stays true f32 (no TF32).
+// FMA loops, so f32 stays true f32 (no TF32); at hd 256 its kv tiles are
+// 32 rows, so that they fit in shared memory. bf16 at hd 256 takes the
+// same tile fold on wmma: the consumer plan above cannot hold O (128
+// registers a thread) beside S and P in 240.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -347,114 +350,18 @@ flash_prefill_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (fn == nullptr) {
-        void* p = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-            fn = reinterpret_cast<EncodeTiled>(p);
-        }
-    }
-    return fn;
-}
-
-// A map over bf16 [B, S, N, D] (contiguous) whose box is `rows` rows of
-// one head, SW bytes of columns, swizzled SW bytes wide.
-bool tensor_map(CUtensorMap* map, const void* base, int B, int S, int N,
-                int D, int rows, int sw) {
-    const EncodeTiled encode = encode_tiled();
-    if (encode == nullptr) return false;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S,
-                                (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
-                                   (cuuint64_t)S * N * D * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)sw / 2, 1, (cuuint32_t)rows, 1};
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(base), dims, strides, box, unit,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                            : CU_TENSOR_MAP_SWIZZLE_64B,
-                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <int HD, int NC>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int Sq, int Skv, int H, int KV,
-                 int causal, int window, cudaStream_t stream) {
-    using P = Plan<HD, NC>;
-    CUtensorMap qm, km, vm, om;
-    if (!tensor_map(&qm, q, B, Sq, H, HD, P::BQ, P::SW) ||
-        !tensor_map(&km, k, B, Skv, KV, HD, kBK, P::SW) ||
-        !tensor_map(&vm, v, B, Skv, KV, HD, kBK, P::SW) ||
-        !tensor_map(&om, o, B, Sq, H, HD, kRows, P::SW)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    auto kern = flash_prefill_wgmma_kernel<HD, NC>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes());
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid(B * H, (Sq + P::BQ - 1) / P::BQ);
-    const double log2e = 1.4426950408889634;
-    kern<<<grid, P::THREADS, P::bytes(), stream>>>(
-        qm, km, vm, om, lse, Sq, Skv, H, KV, causal, window,
-        (float)(log2e / sqrt((double)HD)));
-    return (int)cudaGetLastError();
-}
-
-// Consumers per CTA: two (128-row q tiles) unless that leaves SMs idle.
-int consumers(int B, int Sq, int H) {
-    int dev = 0, sms = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess) {
-        sms = 0;
-    }
-    const long ctas = (long)((Sq + 2 * kRows - 1) / (2 * kRows)) * B * H;
-    return ctas < sms ? 1 : 2;
-}
-
-template <int HD>
-int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Sq, int Skv, int H, int KV,
-                int causal, int window, cudaStream_t s) {
-    if (consumers(B, Sq, H) == 1) {
-        return launch_wgmma<HD, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                                   causal, window, s);
-    }
-    return launch_wgmma<HD, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV, causal,
-                               window, s);
-}
-
 // ---------------------------------------------------------------------------
-// f32: the 64 x 64 tile fold with FMA loops
+// f32, and bf16 at hd 256: flash_tile.cuh's tile fold
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_prefill_f32_kernel(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         float* __restrict__ lse, int Sq, int Skv, int H,
-                         int KV, int causal, int window, float scale) {
-    using T = float;
-    constexpr int LD = Layout<T, HD>::LD;
+flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, T* __restrict__ o,
+                          float* __restrict__ lse, int Sq, int Skv, int H,
+                          int KV, int causal, int window, float scale) {
+    using L = Layout<T, HD>;
+    constexpr int TK = L::TK, LD = L::LD;
     constexpr int OC = HD / 2;  // output columns held by one lane
 
     extern __shared__ __align__(128) unsigned char smem[];
@@ -477,22 +384,25 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
     load_tile<T, HD, LD>(sm.Q, qbase, q_stride, q_start, Sq);
 
     int kt_begin, kt_end;
-    kv_tiles(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
+    kv_tiles<BQ, TK>(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
 
     const int half = lane & 1;
     const int pos_q = q_start + warp * 16 + (lane >> 1);
     RowState<HD> st;
-    QFrag qf[HD / 16];  // unused for f32
+
+    __syncthreads();
+    QRegs<T, HD> qf;
+    qf.load(sm.Q, warp);
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k_start = kt * BK;
+        const int k_start = kt * TK;
         __syncthreads();  // every warp is done with the previous tile
-        load_tile<T, HD, LD>(sm.K, kbase, kv_stride, k_start, Skv);
-        load_tile<T, HD, LD>(sm.V, vbase, kv_stride, k_start, Skv);
+        load_tile<T, HD, LD, TK>(sm.K, kbase, kv_stride, k_start, Skv);
+        load_tile<T, HD, LD, TK>(sm.V, vbase, kv_stride, k_start, Skv);
         __syncthreads();
 
-        const bool interior =
-            interior_tile(q_start, k_start, Sq, Skv, causal, window);
+        const bool interior = interior_tile<BQ, TK>(q_start, k_start, Sq,
+                                                    Skv, causal, window);
         fold_tile<T, HD>(qf, sm, warp, lane, scale, interior,
                          [&](int col) {
                              return keeps(pos_q, k_start + col, Sq, Skv,
@@ -504,28 +414,86 @@ flash_prefill_f32_kernel(const float* __restrict__ q,
     if (pos_q < Sq) {
         T* orow = o + (((size_t)b * Sq + pos_q) * H + h) * HD + half * OC;
 #pragma unroll
-        for (int c = 0; c < OC; ++c) orow[c] = st.acc[c] / st.l;
+        for (int c = 0; c < OC; ++c) {
+            orow[c] = istpu::from_float<T>(st.acc[c] / st.l);
+        }
         if (lse != nullptr && half == 0) {
             lse[(size_t)bh * Sq + pos_q] = st.m + logf(st.l);
         }
     }
 }
 
-template <int HD>
-int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Sq, int Skv, int H, int KV, int causal,
-               int window, cudaStream_t stream) {
-    const size_t smem = Layout<float, HD>::bytes();
-    auto kern = flash_prefill_f32_kernel<HD>;
+template <typename T, int HD>
+int launch_tile(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Skv, int H, int KV,
+                int causal, int window, cudaStream_t stream) {
+    const size_t smem = Layout<T, HD>::bytes();
+    auto kern = flash_prefill_tile_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((Sq + BQ - 1) / BQ, B * H);
     kern<<<grid, THREADS, smem, stream>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv,
-        H, KV, causal, window, (float)(1.0 / sqrt((double)HD)));
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KV,
+        causal, window, (float)(1.0 / sqrt((double)HD)));
     return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               float* lse, int B, int Sq, int Skv, int H, int KV, int causal,
+               int window, cudaStream_t s) {
+    return launch_tile<float, HD>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                  causal, window, s);
+}
+
+template <int HD, int NC>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Skv, int H, int KV,
+                 int causal, int window, cudaStream_t stream) {
+    using P = Plan<HD, NC>;
+    CUtensorMap qm, km, vm, om;
+    if (!hp::tensor_map(&qm, q, B, Sq, H, HD, P::BQ, P::SW) ||
+        !hp::tensor_map(&km, k, B, Skv, KV, HD, kBK, P::SW) ||
+        !hp::tensor_map(&vm, v, B, Skv, KV, HD, kBK, P::SW) ||
+        !hp::tensor_map(&om, o, B, Sq, H, HD, kRows, P::SW)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    auto kern = flash_prefill_wgmma_kernel<HD, NC>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes());
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(B * H, (Sq + P::BQ - 1) / P::BQ);
+    const double log2e = 1.4426950408889634;
+    kern<<<grid, P::THREADS, P::bytes(), stream>>>(
+        qm, km, vm, om, lse, Sq, Skv, H, KV, causal, window,
+        (float)(log2e / sqrt((double)HD)));
+    return (int)cudaGetLastError();
+}
+
+// Consumers per CTA: two (128-row q tiles) unless that leaves SMs idle.
+int consumers(int B, int Sq, int H) {
+    return hp::consumers_for((long)((Sq + 2 * kRows - 1) / (2 * kRows)) * B *
+                             H);
+}
+
+// bf16: the wgmma kernel at hd <= 128; at hd 256 (O alone would take 128
+// of a consumer's 240 registers) flash_tile.cuh's tile fold.
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int Sq, int Skv, int H, int KV,
+                int causal, int window, cudaStream_t s) {
+    if constexpr (HD > 128) {
+        return launch_tile<__nv_bfloat16, HD>(q, k, v, o, lse, B, Sq, Skv,
+                                              H, KV, causal, window, s);
+    } else if (consumers(B, Sq, H) == 1) {
+        return launch_wgmma<HD, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                   causal, window, s);
+    } else {
+        return launch_wgmma<HD, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV,
+                                   causal, window, s);
+    }
 }
 
 }  // namespace
@@ -548,6 +516,8 @@ extern "C" int istpu_flash_prefill(const void* q, const void* k,
         case 64: return fn<64>(q, k, v, out, lse, B, Sq, Skv, H, KV,        \
                                causal, window, s);                          \
         case 128: return fn<128>(q, k, v, out, lse, B, Sq, Skv, H, KV,      \
+                                 causal, window, s);                        \
+        case 256: return fn<256>(q, k, v, out, lse, B, Sq, Skv, H, KV,      \
                                  causal, window, s);                        \
         default: return (int)cudaErrorInvalidValue;                         \
     }

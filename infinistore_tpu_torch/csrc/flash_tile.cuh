@@ -1,15 +1,17 @@
-// Tile code shared by the f32 flash prefill (flash_prefill.cu), paged
-// verify (paged_verify.cu) and flash backward (flash_bwd_dq.cu,
-// flash_bwd_dkv.cu) kernels. A CTA of 4 warps owns 64 rows, 16 per warp,
-// staged in shared memory with the 64-row tiles it is folding. bf16 runs
+// Tile code shared by the tile-loop flash prefill (flash_prefill.cu: f32,
+// and bf16 at hd 256), paged verify (paged_verify.cu) and flash backward
+// (flash_bwd_dq.cu, flash_bwd_dkv.cu: f32, and bf16 at hd 256) kernels.
+// A CTA of 4 warps owns 64 rows, 16 per warp, staged in shared memory
+// with the tiles of TK rows it is folding (TK = 64, or 32 for f32 at hd
+// 256, so that the tiles fit in the 227 KB one block may use). bf16 runs
 // the tile products on the tensor cores (wmma 16x16x16, f32
 // accumulation); f32 runs plain FMA loops, so f32 stays true f32 (no
 // TF32). Softmax arithmetic is f32 in registers, two lanes per row, with
 // -1e30 as the masked logit. The dense kernels (K1, K5, K6) share one
 // live-tile range, one interior rule and one mask, so the forward and
 // the backward can never disagree on which (query, key) pairs count; the
-// bf16 flash prefill kernel (its own TMA and wgmma tiles) takes the range
-// and the interior rule at its tile sizes.
+// bf16 wgmma kernels (their own TMA tiles) take the ranges and the
+// interior rule at their tile sizes.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -32,15 +34,22 @@ using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
 
 template <typename T, int HD>
 struct Layout {
+    // Rows of the tiles a CTA walks over (keys; q rows in K6).
+    static constexpr int TK = (sizeof(T) == 4 && HD > 128) ? 32 : BK;
     // Row strides (elements) of the shared tiles, padded against bank
     // conflicts while keeping every wmma pointer 32-byte aligned.
     static constexpr int LD = HD + (sizeof(T) == 2 ? 8 : 4);
-    static constexpr int SLD = (HD > BK ? HD : BK) + 4;  // f32 scratch
-    static constexpr int PLD = BK + (sizeof(T) == 2 ? 8 : 4);
-    static constexpr size_t kTile = sizeof(T) * BQ * LD;
+    // f32 scratch: bf16 also unpacks [16 x HD] products there, f32 only
+    // S [16 x TK].
+    static constexpr int SLD = (sizeof(T) == 2 && HD > TK ? HD : TK) + 4;
+    static constexpr int PLD = TK + (sizeof(T) == 2 ? 8 : 4);
+    static constexpr size_t kTile = sizeof(T) * BQ * LD;       // 64 rows
+    static constexpr size_t kWalkTile = sizeof(T) * TK * LD;   // TK rows
     static constexpr size_t kScratch = sizeof(float) * WARPS * 16 * SLD;
     static constexpr size_t kP = sizeof(T) * WARPS * 16 * PLD;
-    static constexpr size_t bytes() { return 3 * kTile + kScratch + kP; }
+    static constexpr size_t bytes() {
+        return kTile + 2 * kWalkTile + kScratch + kP;
+    }
 };
 
 // The shared-memory regions of one CTA: Q, K and V tiles, each warp's
@@ -57,20 +66,44 @@ struct Smem {
         using L = Layout<T, HD>;
         Q = reinterpret_cast<T*>(base);
         K = Q + BQ * L::LD;
-        V = K + BK * L::LD;
-        S = reinterpret_cast<float*>(V + BK * L::LD);
+        V = K + L::TK * L::LD;
+        S = reinterpret_cast<float*>(V + L::TK * L::LD);
         P = reinterpret_cast<T*>(S + WARPS * 16 * L::SLD);
     }
 };
 
-// S[16 x BK] = Q[16 x HD] K^T for one warp, into its f32 scratch.
-template <int HD, int LD, int SLD>
-__device__ __forceinline__ void scores_mma(const QFrag (&qf)[HD / 16],
-                                           const __nv_bfloat16* Ks,
-                                           float* Sw) {
+// The bf16 Q fragments of a warp's 16 rows: held in registers across the
+// walk at hd <= 128; at hd 256 (64 registers) read from shared memory at
+// each use instead. Unused for f32.
+template <typename T, int HD>
+struct QRegs {
+    static constexpr int N = (sizeof(T) == 2 && HD <= 128) ? HD / 16 : 0;
+    QFrag f[N > 0 ? N : 1];
+
+    __device__ __forceinline__ void load(const T* Qs, int warp) {
+        if constexpr (N > 0) {
+            constexpr int LD = Layout<T, HD>::LD;
+#pragma unroll
+            for (int kk = 0; kk < N; ++kk) {
+                nvcuda::wmma::load_matrix_sync(
+                    f[kk],
+                    reinterpret_cast<const __nv_bfloat16*>(Qs) +
+                        warp * 16 * LD + kk * 16,
+                    LD);
+            }
+        }
+    }
+};
+
+// S[16 x TK] = Q[16 x HD] K^T for one warp, into its f32 scratch. Qw:
+// the warp's 16 Q rows in shared memory (read where qf holds none).
+template <int HD, int TK, int LD, int SLD>
+__device__ __forceinline__ void scores_mma(
+    const QRegs<__nv_bfloat16, HD>& qf, const __nv_bfloat16* Qw,
+    const __nv_bfloat16* Ks, float* Sw) {
     using namespace nvcuda;
 #pragma unroll
-    for (int n = 0; n < BK / 16; ++n) {
+    for (int n = 0; n < TK / 16; ++n) {
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
         wmma::fill_fragment(sf, 0.0f);
 #pragma unroll
@@ -79,14 +112,20 @@ __device__ __forceinline__ void scores_mma(const QFrag (&qf)[HD / 16],
             wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                            wmma::col_major> kf;
             wmma::load_matrix_sync(kf, Ks + n * 16 * LD + kk * 16, LD);
-            wmma::mma_sync(sf, qf[kk], kf, sf);
+            if constexpr (QRegs<__nv_bfloat16, HD>::N > 0) {
+                wmma::mma_sync(sf, qf.f[kk], kf, sf);
+            } else {
+                QFrag af;
+                wmma::load_matrix_sync(af, Qw + kk * 16, LD);
+                wmma::mma_sync(sf, af, kf, sf);
+            }
         }
         wmma::store_matrix_sync(Sw + n * 16, sf, SLD, wmma::mem_row_major);
     }
 }
 
-// O-partial[16 x HD] = P[16 x BK] V for one warp, into its f32 scratch.
-template <int HD, int LD, int SLD, int PLD>
+// O-partial[16 x HD] = P[16 x TK] V for one warp, into its f32 scratch.
+template <int HD, int TK, int LD, int SLD, int PLD>
 __device__ __forceinline__ void pv_mma(const __nv_bfloat16* Pw,
                                        const __nv_bfloat16* Vs, float* Sw) {
     using namespace nvcuda;
@@ -95,7 +134,7 @@ __device__ __forceinline__ void pv_mma(const __nv_bfloat16* Pw,
         wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
         wmma::fill_fragment(of, 0.0f);
 #pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
+        for (int kk = 0; kk < TK / 16; ++kk) {
             wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                            wmma::row_major> pf;
             wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
@@ -109,7 +148,7 @@ __device__ __forceinline__ void pv_mma(const __nv_bfloat16* Pw,
 }
 
 // One warp's online-softmax state: row r = lane / 2 of its 16, columns
-// [half * 32, +32) of S and [half * HD / 2, +HD / 2) of O.
+// [half * TK / 2, +TK / 2) of S and [half * HD / 2, +HD / 2) of O.
 template <int HD>
 struct RowState {
     float m = kNegInf;
@@ -122,34 +161,18 @@ struct RowState {
     }
 };
 
-// The bf16 Q fragments of a warp's 16 rows (unused for f32).
-template <typename T, int HD>
-__device__ __forceinline__ void load_q_frags(QFrag (&qf)[HD / 16],
-                                             const T* Qs, int warp) {
-    if constexpr (sizeof(T) == 2) {
-        constexpr int LD = Layout<T, HD>::LD;
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-            nvcuda::wmma::load_matrix_sync(
-                qf[kk],
-                reinterpret_cast<const __nv_bfloat16*>(Qs) + warp * 16 * LD +
-                    kk * 16,
-                LD);
-        }
-    }
-}
-
 // Fold the staged K/V tile starting at kv position k_start into the
 // warp's rows. ok(col) says whether this lane's row keeps kv column col
 // of the tile; it is asked only when !interior.
 template <typename T, int HD, typename Mask>
-__device__ __forceinline__ void fold_tile(const QFrag (&qf)[HD / 16],
+__device__ __forceinline__ void fold_tile(const QRegs<T, HD>& qf,
                                           const Smem<T, HD>& sm, int warp,
                                           int lane, float scale,
                                           bool interior, Mask ok,
                                           RowState<HD>& st) {
     using L = Layout<T, HD>;
-    constexpr int LD = L::LD, SLD = L::SLD, PLD = L::PLD;
+    constexpr int TK = L::TK, LD = L::LD, SLD = L::SLD, PLD = L::PLD;
+    constexpr int SC = TK / 2;  // S columns held by one lane
     constexpr int OC = HD / 2;  // output columns held by one lane
     const int r = lane >> 1;
     const int half = lane & 1;
@@ -158,28 +181,30 @@ __device__ __forceinline__ void fold_tile(const QFrag (&qf)[HD / 16],
 
     // ---- S = Q K^T (unscaled) into the warp's scratch ----
     if constexpr (sizeof(T) == 2) {
-        scores_mma<HD, LD, SLD>(
-            qf, reinterpret_cast<const __nv_bfloat16*>(sm.K), Sw);
+        scores_mma<HD, TK, LD, SLD>(
+            qf, reinterpret_cast<const __nv_bfloat16*>(sm.Q) +
+                    warp * 16 * LD,
+            reinterpret_cast<const __nv_bfloat16*>(sm.K), Sw);
     } else {
         const T* qrow = sm.Q + (warp * 16 + r) * LD;
-        for (int j = 0; j < 32; ++j) {
-            const T* krow = sm.K + (half * 32 + j) * LD;
+        for (int j = 0; j < SC; ++j) {
+            const T* krow = sm.K + (half * SC + j) * LD;
             float s = 0.0f;
 #pragma unroll 8
             for (int d = 0; d < HD; ++d) {
                 s = fmaf(to_float(qrow[d]), to_float(krow[d]), s);
             }
-            Sw[r * SLD + half * 32 + j] = s;
+            Sw[r * SLD + half * SC + j] = s;
         }
     }
     __syncwarp();
 
-    // ---- online softmax over this lane's 32 columns (f32) ----
-    float s[32];
+    // ---- online softmax over this lane's SC columns (f32) ----
+    float s[SC];
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
-        const int col = half * 32 + j;
+    for (int j = 0; j < SC; ++j) {
+        const int col = half * SC + j;
         float x = Sw[r * SLD + col] * scale;
         if (!interior && !ok(col)) x = kNegInf;
         s[j] = x;
@@ -189,10 +214,10 @@ __device__ __forceinline__ void fold_tile(const QFrag (&qf)[HD / 16],
     const float m_new = fmaxf(st.m, mx);
     float sum = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 32; ++j) {
+    for (int j = 0; j < SC; ++j) {
         const float p = expf(s[j] - m_new);
         sum += p;
-        Pw[r * PLD + half * 32 + j] = from_float<T>(p);
+        Pw[r * PLD + half * SC + j] = from_float<T>(p);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     const float alpha = expf(st.m - m_new);
@@ -204,14 +229,14 @@ __device__ __forceinline__ void fold_tile(const QFrag (&qf)[HD / 16],
 
     // ---- acc += P V ----
     if constexpr (sizeof(T) == 2) {
-        pv_mma<HD, LD, SLD, PLD>(
+        pv_mma<HD, TK, LD, SLD, PLD>(
             reinterpret_cast<const __nv_bfloat16*>(Pw),
             reinterpret_cast<const __nv_bfloat16*>(sm.V), Sw);
         __syncwarp();
 #pragma unroll
         for (int c = 0; c < OC; ++c) st.acc[c] += Sw[r * SLD + half * OC + c];
     } else {
-        for (int j = 0; j < BK; ++j) {
+        for (int j = 0; j < TK; ++j) {
             const float p = to_float(Pw[r * PLD + j]);
             const T* vrow = sm.V + j * LD + half * OC;
 #pragma unroll
@@ -223,15 +248,15 @@ __device__ __forceinline__ void fold_tile(const QFrag (&qf)[HD / 16],
     __syncwarp();
 }
 
-// Rows [start, start + 64) of one head, zero past `n_rows`, 16 bytes a
+// Rows [start, start + ROWS) of one head, zero past `n_rows`, 16 bytes a
 // thread per step. Rows are `row_stride` elements apart in global memory.
-template <typename T, int HD, int LD>
+template <typename T, int HD, int LD, int ROWS = BK>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           size_t row_stride, int start,
                                           int n_rows) {
     constexpr int VEC = 16 / sizeof(T);
     constexpr int VPR = HD / VEC;
-    for (int i = threadIdx.x; i < BK * VPR; i += THREADS) {
+    for (int i = threadIdx.x; i < ROWS * VPR; i += THREADS) {
         const int r = i / VPR;
         const int c = (i % VPR) * VEC;
         const int s = start + r;
@@ -322,20 +347,21 @@ __device__ __forceinline__ bool interior_tile(int q_start, int k_start,
 template <typename T, int HD>
 struct BwdLayout {
     using L = Layout<T, HD>;
-    // Four staged tiles (two row-tiles of one side, K and V or Q and dO
-    // of the other), each warp's f32 scratch and its P / dS tile, and two
-    // row vectors (lse and D) of 64 floats.
+    // The CTA's own two 64-row tiles, the two TK-row tiles it walks
+    // over, each warp's f32 scratch and its P / dS tile, and two row
+    // vectors (lse and D) of up to 64 floats.
     static constexpr size_t bytes() {
-        return 4 * L::kTile + L::kScratch + L::kP + 2 * sizeof(float) * BQ;
+        return 2 * L::kTile + 2 * L::kWalkTile + L::kScratch + L::kP +
+               2 * sizeof(float) * BQ;
     }
 };
 
+// own: the CTA's 64-row tiles (Q and dO in K5, K and V in K6); walk: the
+// TK-row tiles it loops over (K and V in K5, Q and dO in K6).
 template <typename T, int HD>
 struct BwdSmem {
-    T* Q;
-    T* dO;
-    T* K;
-    T* V;
+    T* own[2];
+    T* walk[2];
     float* S;
     T* P;
     float* lse;
@@ -343,11 +369,11 @@ struct BwdSmem {
 
     __device__ explicit BwdSmem(unsigned char* base) {
         using L = Layout<T, HD>;
-        Q = reinterpret_cast<T*>(base);
-        dO = Q + BQ * L::LD;
-        K = dO + BQ * L::LD;
-        V = K + BK * L::LD;
-        S = reinterpret_cast<float*>(V + BK * L::LD);
+        own[0] = reinterpret_cast<T*>(base);
+        own[1] = own[0] + BQ * L::LD;
+        walk[0] = own[1] + BQ * L::LD;
+        walk[1] = walk[0] + L::TK * L::LD;
+        S = reinterpret_cast<float*>(walk[1] + L::TK * L::LD);
         P = reinterpret_cast<T*>(S + WARPS * 16 * L::SLD);
         lse = reinterpret_cast<float*>(P + WARPS * 16 * L::PLD);
         D = lse + BQ;
@@ -357,27 +383,27 @@ struct BwdSmem {
 using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16,
                                        16, float>;
 
-// Sw[16 x 64] = A[16 x HD] B^T for one warp: A's 16 rows and B's 64 rows
-// both `LD` apart in shared memory. bf16 on the tensor cores, f32 with
-// FMA (lane: row lane / 2, columns [half * 32, +32)).
+// Sw[16 x TK] = A[16 x HD] B^T for one warp: A's 16 rows and B's TK
+// rows both `LD` apart in shared memory. bf16 on the tensor cores, f32
+// with FMA (lane: row lane / 2, columns [half * TK / 2, +TK / 2)).
 template <typename T, int HD>
 __device__ __forceinline__ void abt(const T* A, const T* B, float* Sw,
                                     int lane) {
     using L = Layout<T, HD>;
-    constexpr int LD = L::LD, SLD = L::SLD;
+    constexpr int TK = L::TK, LD = L::LD, SLD = L::SLD;
     if constexpr (sizeof(T) == 2) {
         using namespace nvcuda;
         const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(A);
         const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(B);
-        AccFrag sf[BK / 16];
+        AccFrag sf[TK / 16];
 #pragma unroll
-        for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(sf[n], 0.0f);
+        for (int n = 0; n < TK / 16; ++n) wmma::fill_fragment(sf[n], 0.0f);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
             QFrag af;
             wmma::load_matrix_sync(af, a + kk * 16, LD);
 #pragma unroll
-            for (int n = 0; n < BK / 16; ++n) {
+            for (int n = 0; n < TK / 16; ++n) {
                 // B^T as a col-major operand: element (k, n) sits at B[n][k].
                 wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                                wmma::col_major> bf;
@@ -386,60 +412,62 @@ __device__ __forceinline__ void abt(const T* A, const T* B, float* Sw,
             }
         }
 #pragma unroll
-        for (int n = 0; n < BK / 16; ++n) {
+        for (int n = 0; n < TK / 16; ++n) {
             wmma::store_matrix_sync(Sw + n * 16, sf[n], SLD,
                                     wmma::mem_row_major);
         }
     } else {
         const int r = lane >> 1, half = lane & 1;
         const T* arow = A + r * LD;
-        for (int j = 0; j < 32; ++j) {
-            const T* brow = B + (half * 32 + j) * LD;
+        for (int j = 0; j < TK / 2; ++j) {
+            const T* brow = B + (half * TK / 2 + j) * LD;
             float s = 0.0f;
 #pragma unroll 8
             for (int d = 0; d < HD; ++d) {
                 s = fmaf(to_float(arow[d]), to_float(brow[d]), s);
             }
-            Sw[r * SLD + half * 32 + j] = s;
+            Sw[r * SLD + half * TK / 2 + j] = s;
         }
     }
 }
 
-// A warp's f32 accumulator of 16 rows x HD columns: wmma fragments for
-// bf16, and for f32 the lane's row lane / 2, columns [half * HD / 2, +HD / 2).
-template <typename T, int HD>
+// A warp's f32 accumulator of 16 rows x COLS columns (all HD, or one
+// half of them): wmma fragments for bf16, and for f32 the lane's row
+// lane / 2, columns [half * COLS / 2, +COLS / 2).
+template <typename T, int HD, int COLS = HD>
 struct RowAcc {
-    AccFrag f[HD / 16];
-    float a[HD / 2];
+    AccFrag f[sizeof(T) == 2 ? COLS / 16 : 1];
+    float a[sizeof(T) == 2 ? 1 : COLS / 2];
 
     __device__ RowAcc() {
         if constexpr (sizeof(T) == 2) {
 #pragma unroll
-            for (int n = 0; n < HD / 16; ++n) {
+            for (int n = 0; n < COLS / 16; ++n) {
                 nvcuda::wmma::fill_fragment(f[n], 0.0f);
             }
         } else {
 #pragma unroll
-            for (int c = 0; c < HD / 2; ++c) a[c] = 0.0f;
+            for (int c = 0; c < COLS / 2; ++c) a[c] = 0.0f;
         }
     }
 
-    // acc += Pw[16 x 64] B[64 x HD]: Pw is the warp's P / dS tile (`PLD`
-    // apart), B 64 staged rows `LD` apart.
+    // acc += Pw[16 x TK] B[TK x COLS]: Pw is the warp's P / dS tile
+    // (`PLD` apart), B TK staged rows `LD` apart, from the first column
+    // this accumulator holds.
     __device__ __forceinline__ void add_ab(const T* Pw, const T* B,
                                            int lane) {
         using L = Layout<T, HD>;
-        constexpr int LD = L::LD, PLD = L::PLD;
+        constexpr int TK = L::TK, LD = L::LD, PLD = L::PLD;
         if constexpr (sizeof(T) == 2) {
             using namespace nvcuda;
             const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(Pw);
             const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(B);
 #pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
+            for (int kk = 0; kk < TK / 16; ++kk) {
                 QFrag af;
                 wmma::load_matrix_sync(af, p + kk * 16, PLD);
 #pragma unroll
-                for (int n = 0; n < HD / 16; ++n) {
+                for (int n = 0; n < COLS / 16; ++n) {
                     wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                                    wmma::row_major> bf;
                     wmma::load_matrix_sync(bf, b + kk * 16 * LD + n * 16, LD);
@@ -448,11 +476,11 @@ struct RowAcc {
             }
         } else {
             const int r = lane >> 1, half = lane & 1;
-            for (int j = 0; j < BK; ++j) {
+            for (int j = 0; j < TK; ++j) {
                 const float pj = to_float(Pw[r * PLD + j]);
-                const T* brow = B + j * LD + half * (HD / 2);
+                const T* brow = B + j * LD + half * (COLS / 2);
 #pragma unroll
-                for (int c = 0; c < HD / 2; ++c) {
+                for (int c = 0; c < COLS / 2; ++c) {
                     a[c] = fmaf(pj, to_float(brow[c]), a[c]);
                 }
             }
@@ -460,29 +488,30 @@ struct RowAcc {
     }
 
     // Write the lane's half row (row lane / 2 of the warp's 16) to `dst`
-    // (HD / 2 elements, at the row's column half * HD / 2) if `live`; Sw
-    // is the warp's f32 scratch, used to unpack the fragments.
+    // (COLS / 2 elements, at column half * COLS / 2 of the accumulator's
+    // columns) if `live`; Sw is the warp's f32 scratch, used to unpack
+    // the fragments.
     __device__ __forceinline__ void store(T* dst, bool live, float* Sw,
                                           int lane) {
         constexpr int SLD = Layout<T, HD>::SLD;
         const int r = lane >> 1, half = lane & 1;
         if constexpr (sizeof(T) == 2) {
 #pragma unroll
-            for (int n = 0; n < HD / 16; ++n) {
+            for (int n = 0; n < COLS / 16; ++n) {
                 nvcuda::wmma::store_matrix_sync(Sw + n * 16, f[n], SLD,
                                                 nvcuda::wmma::mem_row_major);
             }
             __syncwarp();
             if (live) {
 #pragma unroll
-                for (int c = 0; c < HD / 2; ++c) {
-                    dst[c] = from_float<T>(Sw[r * SLD + half * (HD / 2) + c]);
+                for (int c = 0; c < COLS / 2; ++c) {
+                    dst[c] = from_float<T>(Sw[r * SLD + half * (COLS / 2) + c]);
                 }
             }
             __syncwarp();
         } else if (live) {
 #pragma unroll
-            for (int c = 0; c < HD / 2; ++c) dst[c] = a[c];
+            for (int c = 0; c < COLS / 2; ++c) dst[c] = a[c];
         }
     }
 };

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks, as raw PTX: TMA tile loads and stores
 // through tensor maps, mbarrier waits with phase parity, warpgroup
 // matrix multiplies (wgmma) with their shared-memory descriptors, and
-// register rebalancing between warpgroups (setmaxnreg). Used by the flash
-// prefill kernel (flash_prefill.cu); written to be shared by any kernel
-// that feeds wgmma from a TMA ring.
+// register rebalancing between warpgroups (setmaxnreg), and the host's
+// tensor maps. Used by the flash prefill kernel (flash_prefill.cu) and
+// the flash backward kernels (flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
 // Shared-memory tiles are what TMA writes with a 128- or 64-byte swizzle:
 // rows of SW bytes (SW = 128 or 64), each 8-row group an atom of 8 * SW
@@ -204,6 +204,29 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared
+// memory (descriptors), D f32 in registers; D is overwritten unless
+// `accumulate`.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D[64 x 128] += A[64 x 16] B[16 x 128], A bf16 in registers (each
 // warp's m16n8k16 A fragment of its 16 rows), B MN-major in shared
 // memory (descriptor, transposed), D f32 in registers;
@@ -286,6 +309,68 @@ __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
           "r"(accumulate));
+}
+
+// ---- host ----
+
+// Consumer warpgroups per CTA for a grid that has `ctas_of_two` CTAs
+// with two: two, unless that leaves some of the card's SMs idle.
+inline int consumers_for(long ctas_of_two) {
+    int dev = 0, sms = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess) {
+        sms = 0;
+    }
+    return ctas_of_two < sms ? 1 : 2;
+}
+
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+        if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+            fn = reinterpret_cast<EncodeTiled>(p);
+        }
+    }
+    return fn;
+}
+
+// A map over bf16 [B, S, N, D] (contiguous) whose box is `rows` rows of
+// one head, SW bytes of columns, swizzled SW bytes wide.
+inline bool tensor_map(CUtensorMap* map, const void* base, int B, int S,
+                       int N, int D, int rows, int sw) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return false;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)N, (cuuint64_t)S,
+                                (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)N * D * 2,
+                                   (cuuint64_t)S * N * D * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)sw / 2, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(base), dims, strides, box, unit,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  sw == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

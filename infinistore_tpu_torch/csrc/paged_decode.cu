@@ -15,7 +15,10 @@
 // own page ids from the table, clamps each into the pool, and walks only
 // the pages that hold live tokens (up to (seq_len - 1) / page, and none
 // wholly below the window floor max(seq_len - window, 0)); no other
-// page is read. The GQA group's query rows stay in registers. Each of the
+// page is read. The GQA group's query rows stay in registers, up to 8 a
+// CTA (4 at hd 256): a larger or odd group is taken in blocks of rows
+// (grid.z, paged_decode.cuh's decode_block_rows), each block reading the
+// kv head's pages again. Each of the
 // 8 warps folds every 8th page into its own f32 online softmax, 4 tokens
 // per step (their loads issued together), with warp-reduced dot products
 // (each lane holds hd / 32 dims); the warps' partial states merge through
@@ -44,8 +47,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const T* __restrict__ vp,
                     const int* __restrict__ page_table,
                     const int* __restrict__ seq_lens, T* __restrict__ out,
-                    int H, int KV, int N, int P, int max_pages, int window,
-                    float scale) {
+                    int H, int KV, int group, int N, int P, int max_pages,
+                    int window, float scale) {
     constexpr int EPL = HD / 32;  // head dims held by one lane
 
     const int kvh = blockIdx.x;
@@ -53,13 +56,19 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int d0 = lane * EPL;
+    // This block's query rows: head0 .. head0 + rows - 1.
+    const int g0 = blockIdx.z * G;
+    const int rows = min(G, group - g0);
+    const size_t head0 = (size_t)b * H + kvh * group + g0;
 
     float qr[G][EPL];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-        const T* qrow = q + ((size_t)b * H + kvh * G + g) * HD + d0;
+        const T* qrow = q + (head0 + g) * HD + d0;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) qr[g][e] = to_float(qrow[e]);
+        for (int e = 0; e < EPL; ++e) {
+            qr[g][e] = g < rows ? to_float(qrow[e]) : 0.0f;
+        }
     }
 
     float m[G], l[G], acc[G][EPL];
@@ -139,43 +148,48 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         }
     }
 
-    istpu::merge_warps_store<T, WARPS, G, HD>(
-        m, l, acc, out + ((size_t)b * H + kvh * G) * HD);
+    istpu::merge_warps_store<T, WARPS, G, HD>(m, l, acc, rows,
+                                              out + head0 * HD);
 }
 
 template <typename T, int HD, int G>
 int launch(const void* q, const void* kp, const void* vp, const int* pt,
            const int* sl, void* o, int B, int H, int KV, int N, int P,
            int max_pages, int window, cudaStream_t stream) {
-    const dim3 grid(KV, B);
+    const int group = H / KV;
+    const dim3 grid(KV, B, (group + G - 1) / G);
     paged_decode_kernel<T, HD, G><<<grid, THREADS, 0, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(kp),
-        static_cast<const T*>(vp), pt, sl, static_cast<T*>(o), H, KV, N, P,
-        max_pages, window, (float)(1.0 / sqrt((double)HD)));
+        static_cast<const T*>(vp), pt, sl, static_cast<T*>(o), H, KV, group,
+        N, P, max_pages, window, (float)(1.0 / sqrt((double)HD)));
     return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
-int dispatch_g(int G, const void* q, const void* kp, const void* vp,
-               const int* pt, const int* sl, void* o, int B, int H, int KV,
-               int N, int P, int mp, int w, cudaStream_t s) {
-    switch (G) {
+int dispatch_g(const void* q, const void* kp, const void* vp, const int* pt,
+               const int* sl, void* o, int B, int H, int KV, int N, int P,
+               int mp, int w, cudaStream_t s) {
+    switch (istpu::decode_block_rows(H / KV, HD)) {
         case 1: return launch<T, HD, 1>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
         case 2: return launch<T, HD, 2>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
         case 4: return launch<T, HD, 4>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
-        case 8: return launch<T, HD, 8>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
-        default: return (int)cudaErrorInvalidValue;
+        default:
+            if constexpr (HD <= 128) {
+                return launch<T, HD, 8>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
+            }
+            return (int)cudaErrorInvalidValue;
     }
 }
 
 template <typename T>
-int dispatch_hd(int D, int G, const void* q, const void* kp, const void* vp,
+int dispatch_hd(int D, const void* q, const void* kp, const void* vp,
                 const int* pt, const int* sl, void* o, int B, int H, int KV,
                 int N, int P, int mp, int w, cudaStream_t s) {
     switch (D) {
-        case 32: return dispatch_g<T, 32>(G, q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
-        case 64: return dispatch_g<T, 64>(G, q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
-        case 128: return dispatch_g<T, 128>(G, q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
+        case 32: return dispatch_g<T, 32>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
+        case 64: return dispatch_g<T, 64>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
+        case 128: return dispatch_g<T, 128>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
+        case 256: return dispatch_g<T, 256>(q, kp, vp, pt, sl, o, B, H, KV, N, P, mp, w, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -194,12 +208,11 @@ extern "C" int istpu_paged_decode(const void* q, const void* k_pages,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int* pt = static_cast<const int*>(page_table);
     const int* sl = static_cast<const int*>(seq_lens);
-    const int G = H / KV;
     if (is_bf16) {
-        return dispatch_hd<__nv_bfloat16>(D, G, q, k_pages, v_pages, pt, sl,
+        return dispatch_hd<__nv_bfloat16>(D, q, k_pages, v_pages, pt, sl,
                                           out, B, H, KV, N, P, max_pages,
                                           window, s);
     }
-    return dispatch_hd<float>(D, G, q, k_pages, v_pages, pt, sl, out, B, H,
+    return dispatch_hd<float>(D, q, k_pages, v_pages, pt, sl, out, B, H,
                               KV, N, P, max_pages, window, s);
 }

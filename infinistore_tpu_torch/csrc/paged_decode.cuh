@@ -1,21 +1,35 @@
 // Shared by the paged decode kernels (paged_decode.cu, K2, and
-// paged_decode_q.cu, K4): the merge of the warps' partial online-softmax
-// states at the end of a CTA's page walk.
+// paged_decode_q.cu, K4): the query rows a CTA takes, and the merge of
+// the warps' partial online-softmax states at the end of its page walk.
 #pragma once
 
 #include "common.cuh"
 
 namespace istpu {
 
-// Merge the partial states of a CTA's WARPS warps and write its G output
-// rows. Each lane holds, for row g, the warp's running max m[g], sum l[g]
-// and acc[g][e] for dims lane * (HD / 32) + e. Row g goes to
-// out + g * HD, normalised by the merged sum (0 for a row that saw no
-// token).
+// A kv head's GQA group is taken in blocks of G query rows, one CTA each
+// (grid.z): G is the group itself when it is 1, 2, 4 or 8, else the
+// least of those at or above it, capped at 8 (4 at hd 256, where a row's
+// query and sum take 16 registers a lane). Rows past the group pad the
+// last block: they are neither loaded nor stored, and each block reads
+// its kv head's pages again.
+inline int decode_block_rows(int group, int hd) {
+    const int cap = hd > 128 ? 4 : 8;
+    int g = 1;
+    while (g < group && g < cap) g *= 2;
+    return g;
+}
+
+// Merge the partial states of a CTA's WARPS warps and write the first
+// `rows` of its G query rows (the others pad the block: never stored).
+// Each lane holds, for row g, the warp's running max m[g], sum l[g] and
+// acc[g][e] for dims lane * (HD / 32) + e. Row g goes to out + g * HD,
+// normalised by the merged sum (0 for a row that saw no token).
 template <typename T, int WARPS, int G, int HD>
 __device__ __forceinline__ void merge_warps_store(const float (&m)[G],
                                                   const float (&l)[G],
                                                   const float (&acc)[G][HD / 32],
+                                                  int rows,
                                                   T* __restrict__ out) {
     constexpr int EPL = HD / 32;
     __shared__ float sm_m[WARPS][G];
@@ -33,7 +47,7 @@ __device__ __forceinline__ void merge_warps_store(const float (&m)[G],
         }
     }
     __syncthreads();
-    for (int i = threadIdx.x; i < G * HD; i += WARPS * 32) {
+    for (int i = threadIdx.x; i < rows * HD; i += WARPS * 32) {
         const int g = i / HD;
         const int d = i % HD;
         float mx = kNegInf;

@@ -20,9 +20,10 @@
 // point, so the least time is those bytes over 3.35 TB/s.
 //
 // Design: K2's (csrc/paged_decode.cu), with int8 loads. One CTA owns one
-// (sequence, kv head) and reads its own page ids from the table, clamps
-// each into the pool, and walks only the pages that hold live tokens (up
-// to (seq_len - 1) / page, and none wholly below the window floor
+// (sequence, kv head, block of up to 8 query rows of its GQA group, 4 at
+// hd 256) and reads its own page ids from the table, clamps each into
+// the pool, and walks only the pages that hold live tokens (up to
+// (seq_len - 1) / page, and none wholly below the window floor
 // max(seq_len - window, 0)). Each of the 8 warps folds every 8th page,
 // 4 tokens a step with their loads issued together; a lane holds D / 32
 // dims, so at D = 128 its 4 int8 values of one token are one 32-bit load
@@ -76,6 +77,17 @@ template <>
 __device__ __forceinline__ void load_i8<1>(const int8_t* p, float (&out)[1]) {
     out[0] = *p;
 }
+template <>
+__device__ __forceinline__ void load_i8<8>(const int8_t* p, float (&out)[8]) {
+    float lo[4], hi[4];
+    load_i8<4>(p, lo);
+    load_i8<4>(p + 4, hi);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+        out[e] = lo[e];
+        out[4 + e] = hi[e];
+    }
+}
 
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(THREADS)
@@ -85,8 +97,8 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                       const float* __restrict__ vs,
                       const int* __restrict__ page_table,
                       const int* __restrict__ seq_lens, T* __restrict__ out,
-                      int H, int KV, int N, int P, int max_pages, int window,
-                      float scale) {
+                      int H, int KV, int group, int N, int P, int max_pages,
+                      int window, float scale) {
     constexpr int EPL = HD / 32;  // head dims held by one lane
 
     const int kvh = blockIdx.x;
@@ -94,13 +106,19 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int d0 = lane * EPL;
+    // This block's query rows: head0 .. head0 + rows - 1.
+    const int g0 = blockIdx.z * G;
+    const int rows = min(G, group - g0);
+    const size_t head0 = (size_t)b * H + kvh * group + g0;
 
     float qr[G][EPL];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-        const T* qrow = q + ((size_t)b * H + kvh * G + g) * HD + d0;
+        const T* qrow = q + (head0 + g) * HD + d0;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) qr[g][e] = to_float(qrow[e]);
+        for (int e = 0; e < EPL; ++e) {
+            qr[g][e] = g < rows ? to_float(qrow[e]) : 0.0f;
+        }
     }
 
     float m[G], l[G], acc[G][EPL];
@@ -186,8 +204,8 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
         }
     }
 
-    istpu::merge_warps_store<T, WARPS, G, HD>(
-        m, l, acc, out + ((size_t)b * H + kvh * G) * HD);
+    istpu::merge_warps_store<T, WARPS, G, HD>(m, l, acc, rows,
+                                              out + head0 * HD);
 }
 
 struct Args {
@@ -205,31 +223,34 @@ struct Args {
 
 template <typename T, int HD, int G>
 int launch(const Args& a) {
-    const dim3 grid(a.KV, a.B);
+    const int group = a.H / a.KV;
+    const dim3 grid(a.KV, a.B, (group + G - 1) / G);
     paged_decode_q_kernel<T, HD, G><<<grid, THREADS, 0, a.stream>>>(
         static_cast<const T*>(a.q), a.kq, a.ks, a.vq, a.vs, a.pt, a.sl,
-        static_cast<T*>(a.out), a.H, a.KV, a.N, a.P, a.max_pages, a.window,
-        (float)(1.0 / sqrt((double)HD)));
+        static_cast<T*>(a.out), a.H, a.KV, group, a.N, a.P, a.max_pages,
+        a.window, (float)(1.0 / sqrt((double)HD)));
     return (int)cudaGetLastError();
 }
 
 template <typename T, int HD>
-int dispatch_g(int G, const Args& a) {
-    switch (G) {
+int dispatch_g(const Args& a) {
+    switch (istpu::decode_block_rows(a.H / a.KV, HD)) {
         case 1: return launch<T, HD, 1>(a);
         case 2: return launch<T, HD, 2>(a);
         case 4: return launch<T, HD, 4>(a);
-        case 8: return launch<T, HD, 8>(a);
-        default: return (int)cudaErrorInvalidValue;
+        default:
+            if constexpr (HD <= 128) return launch<T, HD, 8>(a);
+            return (int)cudaErrorInvalidValue;
     }
 }
 
 template <typename T>
-int dispatch_hd(int D, int G, const Args& a) {
+int dispatch_hd(int D, const Args& a) {
     switch (D) {
-        case 32: return dispatch_g<T, 32>(G, a);
-        case 64: return dispatch_g<T, 64>(G, a);
-        case 128: return dispatch_g<T, 128>(G, a);
+        case 32: return dispatch_g<T, 32>(a);
+        case 64: return dispatch_g<T, 64>(a);
+        case 128: return dispatch_g<T, 128>(a);
+        case 256: return dispatch_g<T, 256>(a);
         default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -256,7 +277,6 @@ extern "C" int istpu_paged_decode_q(const void* q, const void* k_q,
                  static_cast<const int*>(seq_lens),
                  out, B, H, KV, N, P, max_pages, window,
                  static_cast<cudaStream_t>(stream)};
-    const int G = H / KV;
-    if (is_bf16) return dispatch_hd<__nv_bfloat16>(D, G, a);
-    return dispatch_hd<float>(D, G, a);
+    if (is_bf16) return dispatch_hd<__nv_bfloat16>(D, a);
+    return dispatch_hd<float>(D, a);
 }

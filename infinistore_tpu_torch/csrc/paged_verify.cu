@@ -17,7 +17,8 @@
 // Design. The TPU kernel walks (batch, page) in order with acc/m/l in
 // VMEM scratch, over query rows laid out kv-head-major and padded to its
 // 128-lane tiles. Here one CTA owns one (sequence, kv head, tile of 64
-// query rows) and loops over kv tiles of 64 positions itself, reading q
+// query rows) and loops over kv tiles of 64 positions (32 for f32 at hd
+// 256, so that the tiles fit in shared memory) itself, reading q
 // and writing the output in the public [B, m, H, D] layout. A kv head's
 // rows are taken token-major (row = token * group + member), so a tile's
 // rows have neighbouring causal limits and its kv range is tight: from
@@ -54,7 +55,8 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const int* __restrict__ seq_lens, T* __restrict__ out,
                     int m, int H, int KV, int N, int P, int max_pages,
                     int window, float scale) {
-    constexpr int LD = Layout<T, HD>::LD;
+    using L = Layout<T, HD>;
+    constexpr int TK = L::TK, LD = L::LD;
     constexpr int OC = HD / 2;  // output columns held by one lane
     constexpr int VEC = 16 / sizeof(T);
     constexpr int VPR = HD / VEC;  // 16-byte vectors per row
@@ -96,8 +98,8 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const int j_hi = (min(r0 + BQ, R) - 1) / G;
     const int hi = min(seq_len + j_hi + 1, t_end);
     const int lo = window > 0 ? max(seq_len + j_lo + 1 - window, 0) : 0;
-    const int kt_begin = lo / BK;
-    const int kt_end = (hi + BK - 1) / BK;
+    const int kt_begin = lo / TK;
+    const int kt_end = (hi + TK - 1) / TK;
     // A tile below every row's limit and at or above every row's floor
     // needs no mask.
     const int lim_lo = min(seq_len + j_lo + 1, t_end);
@@ -111,13 +113,13 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     RowState<HD> st;
 
     __syncthreads();
-    QFrag qf[HD / 16];
-    load_q_frags<T, HD>(qf, sm.Q, warp);
+    QRegs<T, HD> qf;
+    qf.load(sm.Q, warp);
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
-        const int k_start = kt * BK;
+        const int k_start = kt * TK;
         __syncthreads();  // every warp is done with the previous tile
-        for (int i = threadIdx.x; i < BK * VPR; i += THREADS) {
+        for (int i = threadIdx.x; i < TK * VPR; i += THREADS) {
             const int rr = i / VPR;
             const int c = (i % VPR) * VEC;
             const int pos = k_start + rr;
@@ -135,7 +137,7 @@ paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
         }
         __syncthreads();
 
-        const bool interior = k_start + BK <= lim_lo && k_start >= floor_hi;
+        const bool interior = k_start + TK <= lim_lo && k_start >= floor_hi;
         fold_tile<T, HD>(qf, sm, warp, lane, scale, interior,
                          [&](int col) {
                              const int pos = k_start + col;
@@ -180,6 +182,7 @@ int dispatch_hd(int D, const void* q, const void* kp, const void* vp,
         case 32: return launch<T, 32>(q, kp, vp, pt, sl, o, B, m, H, KV, N, P, mp, w, s);
         case 64: return launch<T, 64>(q, kp, vp, pt, sl, o, B, m, H, KV, N, P, mp, w, s);
         case 128: return launch<T, 128>(q, kp, vp, pt, sl, o, B, m, H, KV, N, P, mp, w, s);
+        case 256: return launch<T, 256>(q, kp, vp, pt, sl, o, B, m, H, KV, N, P, mp, w, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

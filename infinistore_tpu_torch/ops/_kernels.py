@@ -113,6 +113,25 @@ def lib():
     return _lib
 
 
+# Head dims every CUDA route takes. The kernels derive the softmax scale
+# from the head dim as a template argument, so another head dim needs the
+# scale passed in first.
+HEAD_DIMS = (32, 64, 128, 256)
+
+
+def check_head_shape(hd, n_heads, n_kv, kernel):
+    """The shape rule of every kernel wrapper: hd in HEAD_DIMS and any GQA
+    group (n_heads a positive multiple of n_kv). Raises ValueError."""
+    if n_kv < 1 or n_heads < n_kv or n_heads % n_kv:
+        raise ValueError(f"{kernel}: n_heads {n_heads} is not a positive "
+                         f"multiple of n_kv {n_kv}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(
+            f"{kernel}: head_dim {hd} is not in {HEAD_DIMS}, the head dims "
+            "the CUDA kernels are built for (fault F1's remainder: other "
+            "head dims need the softmax scale passed to the kernels)")
+
+
 def check(err, what):
     """Raise if a kernel entry point reported a CUDA error."""
     if err != 0:

@@ -8,8 +8,9 @@ Counterpart of ``infinistore_tpu/ops/pallas_flash_attention.py``:
 ``flash_prefill_attention`` / ``_forward_impl`` (K1), ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel`` behind ``_flash_backward`` (K5, K6),
 ``_flash_with_vjp`` (:class:`FlashAttention`) and ``flash_prefill``.
-:func:`k1_schedule` is K1's tile walk in Python (its order, live kv tiles
-and interior tiles), for the tests and ``chip_smoke.py``.
+:func:`k1_schedule`, :func:`k5_schedule` and :func:`k6_schedule` are
+the bf16 kernels' tile walks in Python (their order, live tiles and
+interior tiles), for the tests and ``chip_smoke.py``.
 
 :func:`flash_prefill` with no gradient to track takes the forward-only
 route: K1 for CUDA tensors, ``paged_attention.prefill_attention`` for CPU
@@ -34,7 +35,6 @@ dq_launches = 0
 dkv_launches = 0
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-_HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches():
@@ -43,9 +43,14 @@ def reset_launches():
 
 
 def _check_kernel_args(q, k, v, causal, do=None, rows=()):
-    """What every kernel takes: q/k/v (and dO) CUDA, contiguous, 16-byte
-    aligned, one dtype (bf16 or f32), GQA shapes, hd in _HEAD_DIMS; row
-    vectors (lse, D) f32 [batch, n_heads, s_q] on the same card."""
+    """What every kernel takes: the shape rule of
+    :func:`_kernels.check_head_shape`; q/k/v (and dO) CUDA, contiguous,
+    16-byte aligned, one dtype (bf16 or f32); row vectors (lse, D) f32
+    [batch, n_heads, s_q] on the same card."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("q and k must be 4-D")
+    _kernels.check_head_shape(q.shape[3], q.shape[2], k.shape[2],
+                              "flash attention")
     named = [("q", q), ("k", k), ("v", v)] + ([("dout", do)] if do is not
                                                None else [])
     for name, t in named:
@@ -66,11 +71,6 @@ def _check_kernel_args(q, k, v, causal, do=None, rows=()):
                          f"v {tuple(v.shape)} do not agree")
     if do is not None and do.shape != q.shape:
         raise ValueError(f"dout {tuple(do.shape)} is not q's shape")
-    if n_heads % k.shape[2]:
-        raise ValueError(f"n_heads {n_heads} not a multiple of n_kv "
-                         f"{k.shape[2]}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
     check_causal(q, k, causal)
     for name, t in rows:
         if (t.device != q.device or t.dtype != torch.float32
@@ -90,10 +90,10 @@ def flash_prefill_attention(q, k, v, causal=True, window=0, with_lse=False):
 
     q: [batch, s_q, n_heads, hd]; k/v: [batch, s_kv, n_kv, hd], CUDA,
     contiguous, bf16 or float32, n_heads a multiple of n_kv, hd in
-    (32, 64, 128). s_kv may exceed s_q (suffix over a cached prefix: the
-    causal diagonal shifts by s_kv - s_q). Returns [batch, s_q, n_heads,
-    hd] in q's dtype; with ``with_lse``, also the row logsumexp of the
-    scaled logits, float32 [batch, n_heads, s_q]."""
+    (32, 64, 128, 256). s_kv may exceed s_q (suffix over a cached prefix:
+    the causal diagonal shifts by s_kv - s_q). Returns [batch, s_q,
+    n_heads, hd] in q's dtype; with ``with_lse``, also the row logsumexp
+    of the scaled logits, float32 [batch, n_heads, s_q]."""
     global launches
     batch, s_q, s_kv, n_heads, n_kv, hd = _check_kernel_args(q, k, v, causal)
     out = torch.empty_like(q)
@@ -155,19 +155,28 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal=True, window=0):
 
 
 # ---------------------------------------------------------------------------
-# K1's tile schedule, in Python (csrc/flash_prefill.cu, flash_tile.cuh)
+# The kernels' tile schedules, in Python (csrc/flash_prefill.cu,
+# flash_bwd_dq.cu, flash_bwd_dkv.cu and flash_tile.cuh)
 # ---------------------------------------------------------------------------
 
 # K1's bf16 tiles (flash_prefill.cu's kRows and kBK): 64 query rows per
 # consumer warpgroup, one or two consumers per CTA, 128 keys per kv tile.
-# The f32 variant, K5 and K6 keep flash_tile.cuh's 64 x 64 tiles.
+# The f32 variant keeps flash_tile.cuh's 64 x 64 tiles.
 K1_ROWS = 64
 K1_BK = 128
+# K5's bf16 tiles at hd <= 128 (flash_bwd_dq.cu's kRows and kBK): 64 q
+# rows per consumer warpgroup, one or two consumers per CTA, 64 keys per
+# kv tile. K6's (flash_bwd_dkv.cu's kRows, kBQ and kNC): 64 kv rows per
+# CTA, 64 q rows per stage, two consumers taking the stages in turn.
+K5_ROWS = K5_BK = 64
+K6_ROWS = K6_BQ = 64
+K6_CONSUMERS = 2
 
 
 def k1_consumers(batch, s_q, n_heads, sm_count):
-    """Consumer warpgroups per CTA of K1's bf16 kernel: two (128-row q
-    tiles) unless that launches fewer CTAs than the card has SMs."""
+    """Consumer warpgroups per CTA of K1's bf16 kernel (and K5's, whose
+    rule is the same): two (128-row q tiles) unless that launches fewer
+    CTAs than the card has SMs."""
     ctas = -(-s_q // (2 * K1_ROWS)) * batch * n_heads
     return 1 if ctas < sm_count else 2
 
@@ -182,6 +191,20 @@ def kv_tile_range(q_start, s_q, s_kv, causal, window, bq, bk):
         end = min(end, (min(q_start + bq, s_q) - 1 + offset) // bk + 1)
         if window > 0:
             begin = max(q_start + offset - window + 1, 0) // bk
+    return begin, end
+
+
+def q_tile_range(k_start, s_q, s_kv, causal, window, bq, bk):
+    """flash_tile.cuh's q_tiles<bq, bk>: the live q tiles [begin, end) of
+    the kv tile at k_start."""
+    offset = s_kv - s_q
+    end = -(-s_q // bq)
+    begin = 0
+    if causal:
+        begin = max(k_start - offset, 0) // bq
+        if window > 0:
+            last = k_start + bk - 1 - offset + window - 1
+            end = 0 if last < 0 else min(end, last // bq + 1)
     return begin, end
 
 
@@ -215,6 +238,62 @@ def k1_schedule(s_q, s_kv, causal=True, window=0, consumers=2):
                               causal, window, K1_ROWS, K1_BK)
                 for c in range(consumers)))
             for kt in range(begin, end)]))
+    return order
+
+
+def _visit(own, q0, k0, s_q, s_kv, causal, window):
+    """A consumer's 64 x 64 part of one tile (K5's and K6's tiles alike):
+    "dead" where its own rows see none of it (it skips its products),
+    else "interior" or "masked"."""
+    if not own:
+        return "dead"
+    return ("interior" if interior_tile(q0, k0, s_q, s_kv, causal, window,
+                                        K5_ROWS, K5_BK) else "masked")
+
+
+def k5_schedule(s_q, s_kv, causal=True, window=0, consumers=2):
+    """The tiles K5's bf16 kernel visits for one (batch, head), in launch
+    order (heaviest q tile first): a list of (q_start, [(k_start, (state
+    of each consumer's 64 rows: "interior", "masked" or "dead")), ...])
+    over the CTA's live kv tiles."""
+    bq = consumers * K5_ROWS
+    n_qt = -(-s_q // bq)
+    order = []
+    for rank in range(n_qt):
+        q_start = (n_qt - 1 - rank) * bq
+        begin, end = kv_tile_range(q_start, s_q, s_kv, causal, window, bq,
+                                   K5_BK)
+        owns = []
+        for c in range(consumers):
+            row0 = q_start + c * K5_ROWS
+            owns.append(kv_tile_range(row0, s_q, s_kv, causal, window,
+                                      K5_ROWS, K5_BK)
+                        if row0 < s_q else (0, 0))
+        order.append((q_start, [
+            (kt * K5_BK, tuple(
+                _visit(ob <= kt < oe, q_start + c * K5_ROWS, kt * K5_BK,
+                       s_q, s_kv, causal, window)
+                for c, (ob, oe) in enumerate(owns)))
+            for kt in range(begin, end)]))
+    return order
+
+
+def k6_schedule(s_q, s_kv, group, causal=True, window=0):
+    """The stages K6's bf16 kernel walks for one (batch, kv head), in
+    launch order (kv tile 0 first): a list of (k_start, [(group member,
+    q_start, consumer, "interior" or "masked"), ...]), stage i going to
+    consumer i % K6_CONSUMERS. An empty list is a kv tile no query sees:
+    the kernel writes its dK and dV rows as zeros."""
+    order = []
+    for k_start in range(0, s_kv, K6_ROWS):
+        begin, end = q_tile_range(k_start, s_q, s_kv, causal, window,
+                                  K6_BQ, K6_ROWS)
+        walk = [(g, qt * K6_BQ) for g in range(group)
+                for qt in range(begin, end)]
+        order.append((k_start, [
+            (g, q0, i % K6_CONSUMERS,
+             _visit(True, q0, k_start, s_q, s_kv, causal, window))
+            for i, (g, q0) in enumerate(walk)]))
     return order
 
 

@@ -17,8 +17,6 @@ from .paged_attention import paged_decode_attention
 launches = 0
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-_HEAD_DIMS = (32, 64, 128)
-_GROUPS = (1, 2, 4, 8)
 
 
 def reset_launches():
@@ -33,8 +31,14 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, seq_lens, window=0):
     page_table: int32 [batch, max_pages] (padded arbitrarily: ids are
     clamped into the pool); seq_lens: int32 [batch], tokens per sequence
     including the current one. All on one CUDA device and contiguous;
-    q and the pages bf16 or float32. Returns [batch, n_heads, hd]."""
+    q and the pages bf16 or float32; hd in (32, 64, 128, 256), any GQA
+    group. Returns [batch, n_heads, hd]."""
     global launches
+    if q.dim() != 3 or k_pages.dim() != 4:
+        raise ValueError("q must be [batch, n_heads, hd] and the pages "
+                         "[n_pages, page, n_kv, hd]")
+    _kernels.check_head_shape(q.shape[2], q.shape[1], k_pages.shape[2],
+                              "paged_decode")
     dev = q.device
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("seq_lens", seq_lens)):
@@ -57,10 +61,6 @@ def paged_flash_decode(q, k_pages, v_pages, page_table, seq_lens, window=0):
         raise ValueError("page_table must be [batch, max_pages]")
     if seq_lens.shape != (batch,):
         raise ValueError("seq_lens must be [batch]")
-    if n_heads % n_kv or n_heads // n_kv not in _GROUPS:
-        raise ValueError(f"GQA group {n_heads}/{n_kv} not in {_GROUPS}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
     out = torch.empty_like(q)
     if batch == 0:
         return out

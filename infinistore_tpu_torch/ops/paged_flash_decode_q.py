@@ -28,8 +28,6 @@ from .paged_attention import paged_decode_attention
 launches = 0
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-_HEAD_DIMS = (32, 64, 128)
-_GROUPS = (1, 2, 4, 8)
 
 
 def reset_launches():
@@ -45,9 +43,15 @@ def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
     page, n_kv, hd]; k_s/v_s: float32 [n_pages, page, n_kv];
     page_table: int32 [batch, max_pages] (padded arbitrarily: ids are
     clamped into the pool); seq_lens: int32 [batch], tokens per sequence
-    including the current one. All on one CUDA device and contiguous.
-    Returns [batch, n_heads, hd] in q's dtype."""
+    including the current one. All on one CUDA device and contiguous;
+    hd in (32, 64, 128, 256), any GQA group. Returns [batch, n_heads,
+    hd] in q's dtype."""
     global launches
+    if q.dim() != 3 or k_q.dim() != 4:
+        raise ValueError("q must be [batch, n_heads, hd] and the pages "
+                         "[n_pages, page, n_kv, hd]")
+    _kernels.check_head_shape(q.shape[2], q.shape[1], k_q.shape[2],
+                              "paged_decode_q")
     dev = q.device
     named = (("q", q), ("k_q", k_q), ("k_s", k_s), ("v_q", v_q),
              ("v_s", v_s), ("page_table", page_table),
@@ -77,10 +81,6 @@ def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
         raise ValueError("page_table must be [batch, max_pages]")
     if seq_lens.shape != (batch,):
         raise ValueError("seq_lens must be [batch]")
-    if n_heads % n_kv or n_heads // n_kv not in _GROUPS:
-        raise ValueError(f"GQA group {n_heads}/{n_kv} not in {_GROUPS}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
     out = torch.empty_like(q)
     if batch == 0:
         return out

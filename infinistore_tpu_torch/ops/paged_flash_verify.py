@@ -18,7 +18,6 @@ from .paged_attention import multi_token_paged_attention
 launches = 0
 
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-_HEAD_DIMS = (32, 64, 128)
 
 
 def reset_launches():
@@ -34,9 +33,14 @@ def paged_flash_verify(q, k_pages, v_pages, page_table, seq_lens, window=0):
     pool); seq_lens: int32 [batch], tokens in the cache BEFORE the m new
     ones (whose KV is already in the pages at seq_lens + j). All on one
     CUDA device and contiguous; q and the pages bf16 or float32, n_heads
-    a multiple of n_kv, hd in (32, 64, 128), any page size. Returns
+    a multiple of n_kv, hd in (32, 64, 128, 256), any page size. Returns
     [batch, m, n_heads, hd]."""
     global launches
+    if q.dim() != 4 or k_pages.dim() != 4:
+        raise ValueError("q must be [batch, m, heads, hd] and the pages "
+                         "[n_pages, page, n_kv, hd]")
+    _kernels.check_head_shape(q.shape[3], q.shape[2], k_pages.shape[2],
+                              "paged_verify")
     dev = q.device
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("page_table", page_table), ("seq_lens", seq_lens)):
@@ -53,9 +57,6 @@ def paged_flash_verify(q, k_pages, v_pages, page_table, seq_lens, window=0):
         raise TypeError(f"q dtype {q.dtype} (need bf16 or f32)")
     if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("page_table and seq_lens must be int32")
-    if q.dim() != 4 or k_pages.dim() != 4:
-        raise ValueError("q must be [batch, m, heads, hd] and the pages "
-                         "[n_pages, page, n_kv, hd]")
     batch, m, n_heads, hd = q.shape
     n_pages, page, n_kv, hd_k = k_pages.shape
     if v_pages.shape != k_pages.shape or hd_k != hd:
@@ -64,10 +65,6 @@ def paged_flash_verify(q, k_pages, v_pages, page_table, seq_lens, window=0):
         raise ValueError("page_table must be [batch, max_pages]")
     if seq_lens.shape != (batch,):
         raise ValueError("seq_lens must be [batch]")
-    if n_heads % n_kv:
-        raise ValueError(f"n_heads {n_heads} not a multiple of n_kv {n_kv}")
-    if hd not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {_HEAD_DIMS}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -131,3 +131,119 @@ def test_tile_constants_match_csrc():
     assert _constant("flash_tile.cuh", "BQ") == TILES[2][1]
     assert _constant("flash_tile.cuh", "BK") == TILES[2][2]
 
+
+
+# ---- K5 and K6 (flash backward): the bf16 kernels' walks ----
+
+from infinistore_tpu.ops.pallas_flash_attention import (  # noqa: E402
+    _make_row_maps)
+
+BWD_SHAPES = (
+    (128, 128, True, 0), (129, 129, True, 0), (200, 200, True, 0),
+    (128, 320, True, 0), (96, 300, True, 40), (256, 256, True, 48),
+    (1000, 1000, True, 0), (512, 2048, True, 256), (300, 700, True, 128),
+    (17, 2065, True, 0), (1000, 1000, False, 0), (63, 257, False, 0),
+)
+GROUPS = (1, 4, 7)
+
+
+def _live(flag):
+    return flag != "dead"
+
+
+@pytest.mark.parametrize("consumers", (1, 2))
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_k5_schedule_matches_jax_rules(shape, consumers):
+    """K5's walk: q tiles heaviest first; each CTA visits exactly the kv
+    tiles that _bwd_dq_kernel's live rule keeps for its rows (none past
+    the last real row's diagonal); a consumer is "dead" on a tile its 64
+    rows see none of, else interior exactly where _interior_tile says so
+    and the mask is all true; every kept pair lies in a visited tile."""
+    s_q, s_kv, causal, window = shape
+    rows, bk = fa.K5_ROWS, fa.K5_BK
+    bq = consumers * rows
+    walk = fa.k5_schedule(s_q, s_kv, causal, window, consumers)
+    n_qt = -(-s_q // bq)
+    assert [q0 for q0, _ in walk] == [(n_qt - 1 - i) * bq
+                                      for i in range(n_qt)]
+    mask = _full_mask(s_q, s_kv, causal, window, bq, bk)
+    offset = s_kv - s_q
+    for q0, tiles in walk:
+        real = mask[q0:min(q0 + bq, s_q)]
+        want = [k0 for k0 in range(0, s_kv, bk) if real[:, k0:k0 + bk].any()]
+        assert [k0 for k0, _ in tiles] == want, f"q tile {q0}"
+        for k0, states in tiles:
+            # _bwd_dq_kernel's live rule holds for every visited tile.
+            if causal:
+                assert k0 <= q0 + bq - 1 + offset
+                if window:
+                    assert k0 + bk - 1 > q0 + offset - window
+            for c, state in enumerate(states):
+                r0 = q0 + c * rows
+                part = mask[r0:r0 + rows, k0:k0 + bk]
+                assert _live(state) == bool(part.any()), (r0, k0, state)
+                if _live(state):
+                    jax_flag = bool(_interior_tile(r0, k0, rows, bk, s_q,
+                                                   s_kv, causal, window))
+                    assert (state == "interior") == jax_flag == bool(
+                        part.all()), (r0, k0, state)
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_k6_schedule_matches_jax_rules(shape, group):
+    """K6's walk: kv tiles of 64 rows from 0 up; each CTA walks every q
+    head of its kv head's group (_make_row_maps' _kv_row) over exactly the
+    q tiles that _bwd_dkv_kernel's live rule keeps, starting where
+    _q_idx's frozen index starts, the two consumers taking the stages in
+    turn; a kv tile no query sees has no stage (its rows are written as
+    zeros); every stage sees some of the tile, and is interior exactly
+    where _interior_tile says so and the mask is all true."""
+    s_q, s_kv, causal, window = shape
+    rows, bq = fa.K6_ROWS, fa.K6_BQ
+    n_kv = 2
+    n_heads = n_kv * group
+    walk = fa.k6_schedule(s_q, s_kv, group, causal, window)
+    assert [k0 for k0, _ in walk] == list(range(0, s_kv, rows))
+    mask = _full_mask(s_q, s_kv, causal, window, bq, rows)
+    offset = s_kv - s_q
+    kv_row, _, q_idx = _make_row_maps(n_heads, n_kv, group, bq, rows, causal,
+                                      offset)
+    for k0, stages in walk:
+        cols = mask[:, k0:k0 + rows]
+        want = [q0 for q0 in range(0, s_q, bq) if cols[q0:q0 + bq].any()]
+        if not want:
+            assert stages == [], f"kv tile {k0} sees no query: dead"
+            continue
+        assert [(g, q0) for g, q0, _, _ in stages] == [
+            (g, q0) for g in range(group) for q0 in want]
+        assert [c for _, _, c, _ in stages] == [
+            i % fa.K6_CONSUMERS for i in range(len(stages))]
+        for kvh in range(n_kv):
+            heads = {kvh * group + g for g, _, _, _ in stages}
+            assert {kv_row(h) for h in heads} == {kvh}
+        if causal:
+            first = int(q_idx(0, k0 // rows, 0)[1]) * bq
+            assert want[0] == first, (k0, want[0], first)
+        for g, q0, _, state in stages:
+            if causal:
+                assert q0 + bq - 1 + offset >= k0
+                if window:
+                    assert q0 <= k0 + rows - 1 - offset + window - 1
+            part = mask[q0:q0 + bq, k0:k0 + rows]
+            assert part.any() and state in ("interior", "masked")
+            jax_flag = bool(_interior_tile(q0, k0, bq, rows, s_q, s_kv,
+                                           causal, window))
+            assert (state == "interior") == jax_flag == bool(part.all()), (
+                q0, k0, state)
+
+
+def test_bwd_tile_constants_match_csrc():
+    """The Python twins' backward tile sizes are the kernels' own."""
+    assert _constant("flash_bwd_dq.cu", "kRows") == fa.K5_ROWS
+    assert _constant("flash_bwd_dq.cu", "kBK") == fa.K5_BK
+    assert _constant("flash_bwd_dkv.cu", "kRows") == fa.K6_ROWS
+    assert _constant("flash_bwd_dkv.cu", "kBQ") == fa.K6_BQ
+    assert _constant("flash_bwd_dkv.cu", "kNC") == fa.K6_CONSUMERS

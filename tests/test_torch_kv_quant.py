@@ -233,12 +233,13 @@ def test_int8_page_bytes_cross_packages(port_server, ctype):
 # ---- K4's plain version and the dispatcher ---------------------------------
 
 
-def _q8_inputs(seed, dtype, n_heads, n_kv, seq_lens, window_pad=False):
+def _q8_inputs(seed, dtype, n_heads, n_kv, seq_lens, window_pad=False,
+               hd=64):
     """q, int8 k/v pages with their scales, a shuffled table (padded with
     -1 and past-the-pool ids when ``window_pad``) and seq_lens, as numpy
     arrays (q in ``dtype`` through JAX)."""
     rng = np.random.default_rng(seed)
-    batch, hd, page, n_pages, max_pages = len(seq_lens), 64, 16, 24, 6
+    batch, page, n_pages, max_pages = len(seq_lens), 16, 24, 6
     q = rng.standard_normal((batch, n_heads, hd)).astype(np.float32)
     k_q, k_s = jq.quantize_kv_pages(jnp.asarray(
         _pages(rng, n_pages, (page, n_kv, hd))))
@@ -263,20 +264,25 @@ def _torch_args(jq_, arrays, table, sl):
 
 
 Q8_CASES = {
-    # (dtype, n_heads, n_kv, seq_lens, window, padded table)
-    "f32_8_4": ("float32", 8, 4, [5, 37, 96], 0, False),
-    "f32_4_1": ("float32", 4, 1, [5, 37, 96], 0, False),
-    "bf16_8_2": ("bfloat16", 8, 2, [5, 37, 96], 0, False),
-    "f32_window16_padded": ("float32", 8, 2, [1, 16, 33, 90], 16, True),
-    "bf16_window16_padded": ("bfloat16", 8, 4, [17, 40, 64], 16, True),
+    # (dtype, n_heads, n_kv, seq_lens, window, padded table, hd)
+    "f32_8_4": ("float32", 8, 4, [5, 37, 96], 0, False, 64),
+    "f32_4_1": ("float32", 4, 1, [5, 37, 96], 0, False, 64),
+    "bf16_8_2": ("bfloat16", 8, 2, [5, 37, 96], 0, False, 64),
+    "f32_window16_padded": ("float32", 8, 2, [1, 16, 33, 90], 16, True, 64),
+    "bf16_window16_padded": ("bfloat16", 8, 4, [17, 40, 64], 16, True, 64),
+    # Shapes the CUDA routes take since hd 256 and any group.
+    "f32_12_2_group6": ("float32", 12, 2, [5, 37, 96], 0, False, 32),
+    "f32_7_1_group7_window": ("float32", 7, 1, [1, 33, 90], 16, True, 32),
+    "bf16_16_1_group16": ("bfloat16", 16, 1, [5, 37, 96], 0, False, 32),
+    "f32_4_2_hd256": ("float32", 4, 2, [5, 37, 96], 0, False, 256),
 }
 
 
 @pytest.mark.parametrize("case", list(Q8_CASES))
 def test_plain_matches_pallas_kernel(case):
-    dtype, n_heads, n_kv, lens, window, pad = Q8_CASES[case]
+    dtype, n_heads, n_kv, lens, window, pad, hd = Q8_CASES[case]
     jq_, arrays, table, sl = _q8_inputs(len(case), dtype, n_heads, n_kv,
-                                        lens, pad)
+                                        lens, pad, hd)
     want = jpp.paged_flash_decode_quantized(
         jq_, *map(jnp.asarray, (*arrays, table, sl)), interpret=True,
         window=window)
@@ -291,9 +297,9 @@ def test_plain_matches_pallas_kernel(case):
 
 @pytest.mark.parametrize("case", list(Q8_CASES))
 def test_cpu_dispatcher_matches_jax_fallback(case):
-    dtype, n_heads, n_kv, lens, window, pad = Q8_CASES[case]
+    dtype, n_heads, n_kv, lens, window, pad, hd = Q8_CASES[case]
     jq_, arrays, table, sl = _q8_inputs(len(case) + 1, dtype, n_heads, n_kv,
-                                        lens, pad)
+                                        lens, pad, hd)
     want = jpp.decode_attention_quantized(
         jq_, *map(jnp.asarray, (*arrays, table, sl)), window=window)
     args = _torch_args(jq_, arrays, table, sl)

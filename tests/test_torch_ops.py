@@ -94,6 +94,11 @@ def _decode_inputs(seed, batch, heads, kv_heads, hd, n_pages, page,
     [
         (4, 2, 32, 0, [8, 16, 17, 1]),     # page boundaries, group 2
         (8, 2, 64, 5, [24, 9, 40, 3]),     # group 4, sliding window
+        # Shapes the CUDA routes take since hd 256 and any group.
+        (12, 2, 32, 0, [5, 30, 17]),       # group 6 (Qwen2-1.5B's)
+        (7, 1, 32, 3, [24, 9, 40, 3]),     # group 7, sliding window
+        (16, 1, 32, 0, [8, 16, 17, 1]),    # group 16 (Llama-3.1-405B's)
+        (4, 2, 256, 0, [8, 16, 17, 1]),    # hd 256 (Gemma's)
     ],
 )
 def test_decode_plain_matches_pallas(heads, kv_heads, hd, window, seq_lens):
@@ -149,6 +154,11 @@ def _verify_inputs(seed, m, heads, kv_heads, hd, page, n_pages, max_pages,
         (3, 4, 2, 64, 8, 4, [21, 13], 12, False),     # sliding window
         (4, 8, 2, 32, 8, 6, [3, 17, 30], 0, True),    # -1 / N+5 padding
         (6, 4, 2, 32, 8, 3, [4, 21], 0, False),       # 21 + 6 > 24
+        # Shapes the CUDA routes take since hd 256 and any group.
+        (3, 7, 1, 64, 8, 4, [5, 20], 0, False),       # group 7
+        (2, 12, 2, 32, 8, 4, [9, 14], 0, True),       # group 6, padding
+        (2, 16, 1, 32, 8, 4, [3, 11], 5, False),      # group 16, window
+        (3, 2, 2, 256, 8, 4, [7, 19], 0, False),      # hd 256
     ],
 )
 def test_verify_plain_matches_jax(m, heads, kv_heads, hd, page, max_pages,
@@ -227,3 +237,83 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                             None, None, None)
     with pytest.raises(ValueError, match="unsupported device"):
         pv.verify_attention(meta, None, None, None, None)
+
+
+# ---- the shape rule of every CUDA route -------------------------------------
+
+from infinistore_tpu_torch.ops import _kernels  # noqa: E402
+from infinistore_tpu_torch.ops import paged_flash_decode_q as pq  # noqa: E402
+
+
+@pytest.mark.parametrize("hd,n_heads,n_kv", [
+    (256, 16, 16),   # Gemma-7B
+    (256, 8, 1),     # Gemma-2B: group 8
+    (64, 6, 2),      # group 3
+    (128, 12, 2),    # Qwen2-1.5B: group 6
+    (128, 28, 4),    # Qwen2-7B: group 7
+    (128, 128, 8),   # Llama-3.1-405B: group 16
+    (32, 5, 5),
+])
+def test_shape_rule_accepts_hd_256_and_any_group(hd, n_heads, n_kv):
+    _kernels.check_head_shape(hd, n_heads, n_kv, "test")
+
+
+@pytest.mark.parametrize("hd,n_heads,n_kv,match", [
+    (96, 8, 2, "F1"),        # a head dim the kernels are not built for
+    (80, 8, 8, "F1"),
+    (128, 6, 4, "multiple"),  # not a GQA group
+    (128, 2, 4, "multiple"),
+])
+def test_shape_rule_refuses(hd, n_heads, n_kv, match):
+    with pytest.raises(ValueError, match=match):
+        _kernels.check_head_shape(hd, n_heads, n_kv, "test")
+
+
+def _wrapper_calls(hd, n_heads, n_kv):
+    """Each CUDA kernel wrapper called with CPU tensors of one shape."""
+    q = torch.zeros(1, 4, n_heads, hd)
+    kv = torch.zeros(1, 4, n_kv, hd)
+    rows = torch.zeros(1, n_heads, 4)
+    qd = torch.zeros(2, n_heads, hd)
+    pages = torch.zeros(3, 8, n_kv, hd)
+    q8 = torch.zeros(3, 8, n_kv, hd, dtype=torch.int8)
+    s8 = torch.ones(3, 8, n_kv)
+    table = torch.zeros(2, 2, dtype=torch.int32)
+    lens = torch.ones(2, dtype=torch.int32)
+    return {
+        "flash_prefill_attention": lambda: fa.flash_prefill_attention(
+            q, kv, kv),
+        "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, kv, kv, q, rows, rows),
+        "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, kv, kv, q, rows, rows),
+        "paged_flash_decode": lambda: pd.paged_flash_decode(
+            qd, pages, pages, table, lens),
+        "paged_flash_decode_quantized": lambda: (
+            pq.paged_flash_decode_quantized(qd, q8, s8, q8, s8, table,
+                                            lens)),
+        "paged_flash_verify": lambda: pv.paged_flash_verify(
+            q[:, :2].expand(2, 2, n_heads, hd).contiguous(), pages, pages,
+            table, lens),
+    }
+
+
+def test_every_wrapper_calls_the_shape_rule(monkeypatch):
+    """All six kernel wrappers go through _kernels.check_head_shape before
+    anything else: hd 96 is refused with F1's message (even for CPU
+    tensors), while hd 256 at group 7 passes the rule and is refused only
+    because the tensors are not on the card."""
+    seen = []
+    real = _kernels.check_head_shape
+
+    def spy(hd, n_heads, n_kv, kernel):
+        seen.append(hd)
+        return real(hd, n_heads, n_kv, kernel)
+
+    monkeypatch.setattr(_kernels, "check_head_shape", spy)
+    for name, call in _wrapper_calls(96, 4, 2).items():
+        with pytest.raises(ValueError, match="F1"):
+            call()
+    assert seen == [96] * 6
+    for name, call in _wrapper_calls(256, 7, 1).items():
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert seen == [96] * 6 + [256] * 6

@@ -81,6 +81,12 @@ BWD_CASES = [
     (2, 100, 100, 4, 4, 32, False, 0),   # not causal, ragged, MHA
     (1, 200, 200, 8, 2, 64, True, 0),    # ragged, group 4
     (1, 96, 300, 4, 1, 32, True, 40),    # prefix + window: dead kv rows
+    # Shapes the CUDA routes take since hd 256 and any group: Gemma's
+    # head dim, and Qwen2's groups of 6 and 7.
+    (1, 64, 96, 2, 2, 256, True, 0),     # hd 256 over a 32 prefix
+    (1, 80, 80, 6, 1, 64, True, 0),      # group 6
+    (1, 64, 64, 7, 1, 64, True, 0),      # group 7
+    (1, 72, 136, 7, 1, 64, True, 24),    # group 7, prefix + window
 ]
 
 

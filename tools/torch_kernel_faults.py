@@ -4,7 +4,8 @@
     python3 tools/torch_kernel_faults.py [WORD]
 
 With WORD, only the faults whose name contains it are planted (for
-example ``decode_q:`` for K4's), beside the unchanged sources.
+example ``decode_q:`` for K4's, ``bwd`` for K5's and K6's), beside the
+unchanged sources.
 
 Needs one NVIDIA GPU and nvcc. For the unchanged kernel sources and for
 each fault in FAULTS, copies infinistore_tpu_torch/csrc into a temporary
@@ -52,6 +53,20 @@ _SOFTMAX_PV = (
     "            hp::wgmma_wait<0>();\n"
     "            hp::fence_regs(o);\n")
 _RELEASE = "            if (lane == 0) hp::mbar_arrive(&empty[stage]);\n"
+# The end of K6's consumer stage, from the dV / dK products' commit to
+# the stage's release, and the same with the release before the wait.
+_DKV_TAIL = (
+    "            hp::wgmma_commit();\n"
+    "            hp::wgmma_wait<0>();\n"
+    "            hp::fence_regs(dv);\n"
+    "            hp::fence_regs(dk);\n"
+    "            if (lane == 0) hp::mbar_arrive(&empty[stage]);\n")
+_DKV_TAIL_EARLY = (
+    "            hp::wgmma_commit();\n"
+    "            if (lane == 0) hp::mbar_arrive(&empty[stage]);\n"
+    "            hp::wgmma_wait<0>();\n"
+    "            hp::fence_regs(dv);\n"
+    "            hp::fence_regs(dk);\n")
 
 # (name, source file, original text, faulty text)
 FAULTS = (
@@ -78,15 +93,24 @@ FAULTS = (
      _FENCE_S + _SOFTMAX_PV + _RELEASE,
      _FENCE_S + _RELEASE + _SOFTMAX_PV),
     ("bwd dq: skips the last live kv tile", "flash_bwd_dq.cu",
-     "for (int kt = kt_begin; kt < kt_end; ++kt) {",
-     "for (int kt = kt_begin; kt < kt_end - (kt_end - kt_begin > 1); "
-     "++kt) {"),
+     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
+     "kt_end);",
+     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
+     "kt_end);\n    kt_end -= (kt_end - kt_begin > 1);"),
     ("bwd dkv: q tiles start one late under a prefix", "flash_tile.cuh",
      "begin = max(k_start - offset, 0) / TQ;",
      "begin = max(k_start - offset, 0) / TQ + (offset > 0);"),
     ("bwd dkv: only the group's first q head", "flash_bwd_dkv.cu",
-     "for (int g = 0; g < G; ++g) {",
-     "for (int g = 0; g < 1; ++g) {"),
+     "const int stages = group * n_qt;",
+     "const int stages = n_qt;"),
+    # A race: the stage is released once dV += P^T dO and dK += dS^T Q are
+    # issued, before they are waited for; the next load may overwrite the
+    # Q and dO tiles they read.
+    ("bwd dkv: a stage released before the dK wgmma that reads its Q",
+     "flash_bwd_dkv.cu", _DKV_TAIL, _DKV_TAIL_EARLY),
+    ("bwd dkv: hd-256 column half written at column 0", "flash_bwd_dkv.cu",
+     "* KV + kvh) * HD + c0 +",
+     "* KV + kvh) * HD + 0 * c0 +"),
     ("decode: skips the last page", "paged_decode.cu",
      "j <= last_page; j += WARPS",
      "j < last_page + (last_page == low / P); j += WARPS"),
@@ -96,6 +120,10 @@ FAULTS = (
     ("decode: window floor one page high", "paged_decode.cu",
      "for (int j = low / P + warp;",
      "for (int j = (low > 0 ? low / P + 1 : 0) + warp;"),
+    # Rows past the group in its last block of query rows (K2 and K4)
+    # land on the next kv head's or sequence's rows.
+    ("decode: a padded group row stored", "paged_decode.cuh",
+     "i < rows * HD;", "i < G * HD;"),
     ("verify: skips the last live page", "paged_verify.cu",
      "if (pos < hi) {",
      "if (pos < (hi - 1) / P * P) {"),
@@ -180,11 +208,12 @@ def main():
                     torch, fa.flash_prefill_attention, prefill_attention,
                     gen):
                 readings["flash " + " ".join(map(str, case))] = (rel, case[0])
-            for case, _, rel, _ in chip_smoke.decode_readings(
+            for c, _, rel, _ in chip_smoke.decode_readings(
                     torch, pd.paged_flash_decode, paged_decode_attention,
                     gen):
-                readings["decode " + " ".join(map(str, case))] = (rel,
-                                                                  case[0])
+                label = (f"decode {c.label} {c.dtype} {c.n_heads}/{c.n_kv} "
+                         f"hd {c.hd} window {c.window}")
+                readings[label] = (rel, c.dtype)
             for case, _, rel, _ in chip_smoke.decode_q_readings(
                     torch, pq.paged_flash_decode_quantized,
                     pq.paged_decode_quantized_plain, gen):

@@ -38,13 +38,15 @@ def device_us(evt):
     return 0.0
 
 
-# Kernel-name fragments: the port's flash kernels (K1's bf16
-# flash_prefill_wgmma_kernel and f32 flash_prefill_f32_kernel), and the
-# matrix products (cuBLAS's and CUTLASS's kernels).
+# Kernel-name fragments: the port's flash kernels (each a bf16 *_wgmma
+# variant and a *_tile variant for f32 and hd 256), and the matrix
+# products (cuBLAS's and CUTLASS's kernels).
 GROUPS = (("K1 flash_prefill", ("flash_prefill_wgmma_kernel",
-                                "flash_prefill_f32_kernel")),
-          ("K5 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-          ("K6 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+                                "flash_prefill_tile_kernel")),
+          ("K5 flash_bwd_dq", ("flash_bwd_dq_wgmma_kernel",
+                               "flash_bwd_dq_tile_kernel")),
+          ("K6 flash_bwd_dkv", ("flash_bwd_dkv_wgmma_kernel",
+                                "flash_bwd_dkv_tile_kernel")),
           ("matmuls", ("gemm", "nvjet", "xmma", "cutlass")))
 
 

@@ -8,11 +8,11 @@ infinistore_tpu_torch/csrc/*.cu with the flags of ops/_kernels.py plus
 ``-Xptxas -v`` into a temporary directory, side by side, and prints one
 line per kernel variant: registers a thread, spill stores and loads in
 bytes (and any ptxas note that it serialised a kernel's wgmma). Then,
-for each variant of the flash prefill kernel (K1), the count of HGMMA
+for each variant of the flash kernels (K1, K5, K6), the count of HGMMA
 (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in its
-SASS (``cuobjdump -sass`` of the built object): the bf16 variants must
-show the first two. Exits non-zero if a source does not compile or
-cuobjdump fails.
+SASS (``cuobjdump -sass`` of the built objects): the bf16 ``*_wgmma``
+variants must show the first two. Exits non-zero if a source does not
+compile or cuobjdump fails.
 """
 
 import glob
@@ -33,16 +33,21 @@ def pretty(mangled):
                   r"((?:Li\d+E)+)", mangled)
     if not m:
         return mangled
+    # An anonymous namespace's hash prefix ends in the name's length.
+    name = re.sub(r".*\d(?=[a-z])", "", m.group(1))
     dtype = {None: [], "f": ["f32"]}.get(m.group(2), ["bf16"])
     ints = re.findall(r"Li(\d+)E", m.group(3))
-    return f"{m.group(1)}<{', '.join([*dtype, *ints])}>"
+    return f"{name}<{', '.join([*dtype, *ints])}>"
 
 
 SASS_OPS = ("HGMMA", "UTMALDG", "SYNCS")
 
 
+FLASH_OBJECTS = ("flash_prefill", "flash_bwd_dq", "flash_bwd_dkv")
+
+
 def sass_counts(obj):
-    """{kernel: {op: count}} for the flash prefill kernels in ``obj``."""
+    """{kernel: {op: count}} for the flash kernels in ``obj``."""
     cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         cuobjdump = "cuobjdump"
@@ -53,7 +58,7 @@ def sass_counts(obj):
         m = re.search(r"Function : (\S+)", line)
         if m:
             kernel = pretty(m.group(1))
-            if "flash_prefill" in kernel:
+            if kernel.startswith("flash_"):
                 counts[kernel] = dict.fromkeys(SASS_OPS, 0)
             else:
                 kernel = None
@@ -96,8 +101,10 @@ def main():
                     kernel = spill = None
             if proc.returncode:
                 print(out)
-        obj = os.path.join(work, "flash_prefill.cu.o")
-        if os.path.exists(obj):
+        for name in FLASH_OBJECTS:
+            obj = os.path.join(work, name + ".cu.o")
+            if not os.path.exists(obj):
+                continue
             for kernel, counts in sass_counts(obj).items():
                 print(f"  SASS {kernel}: " + ", ".join(
                     f"{op} {n}" for op, n in counts.items()))
