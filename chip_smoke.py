@@ -12,31 +12,42 @@ Phases, in order; any failure exits non-zero before the result line:
    PyTorch version on the card: the main path's shapes and the edges of
    its tiles (ragged, batch 2, MHA, hd 64 and 32, not causal, 17 queries
    over 2065 keys, a 256 window, f32) and the attention widths of
-   Qwen2-7B (group 7), Gemma-7B and Gemma-2B (hd 256), each with the
-   tiles its schedule visits and, where one exists, one SDPA call's time
-   as a yardstick; the host time of one call.
-3. Paged decode kernel (csrc/paged_decode.cu) against its plain version:
-   ragged lengths, a shuffled pool, a table padded with out-of-range ids;
+   Qwen2-7B (group 7), Gemma-7B and Gemma-2B (hd 256), phi-2 (hd 80) and
+   Phi-3-mini (hd 96), and hd 24, 48 and 192 (inside the capacity-32, -64
+   and -256 instantiations), each with the tiles its schedule visits and,
+   where
+   one exists, one SDPA call's time as a yardstick; the host time of one
+   call.
+3. Paged decode kernel (K2: csrc/paged_split.cu at m = 1) against its
+   plain version: ragged lengths, a shuffled pool, a table padded with
+   out-of-range ids; one 32768-token sequence at Llama-3.1-8B's heads;
    and at batch 4 the attention widths of Qwen2-7B and Qwen2-1.5B
-   (groups 7 and 6), Gemma-7B and Gemma-2B (hd 256) and Llama-3.1-405B
-   (group 16).
+   (groups 7 and 6), Gemma-7B and Gemma-2B (hd 256), Llama-3.1-405B
+   (group 16), phi-2 (hd 80) and Phi-3-mini (hd 96); hd 24, 48 and 192;
+   each case's split plan, and two launches byte-equal. K2 and K3 are
+   timed eagerly (kernel_ms, CUDA events over a loop of calls: the host's
+   time per call is in it) and as device time alone (graph_ms: the calls
+   captured in one CUDA graph).
    3b. The int8 paged decode kernel (csrc/paged_decode_q.cu, K4) against
    its plain version, bf16 and f32: K2's ragged shape with and without a
    256 window, the main path's decode shape (batch 4), a full-card shape
    (32 x 2048 tokens) and hd 64 at group 2; K4 ms beside K2's over the
    same pages dequantized, and the byte bound; phase 3's published
-   widths.
+   widths, Phi-3-mini's (hd 96) among them, and hd 24, 48 and 192.
 4. The main path at Llama-3.1-8B width (random weights from a seed)
    through the port's own server on SHM: prefill 4 prompts streaming
    every layer's pages, find the prefix on a fresh connection, restore
    into one device page pool, decode the 4 sequences as a batch, and a
    prefix-hit request that prefills only its new tail. Launch counts
    show the path ran through both kernels.
-5. Paged verify kernel (csrc/paged_verify.cu) against its plain version:
-   the speculative-verify shape (m = 5 over K2's ragged lengths, with and
-   without a window, bf16 and f32), a 512-token chunk over 1536 cached
-   tokens, a row whose new tokens run past the page table, and the
-   speculative shape at the widths of Qwen2-7B, Gemma-7B and Gemma-2B.
+5. Paged verify kernel (K3: csrc/paged_split.cu) against its plain
+   version: the speculative-verify shape (m = 5 over K2's ragged lengths,
+   with and without a window, bf16 and f32), a 512-token chunk over 1536
+   cached tokens, a row whose new tokens run past the page table, m = 5
+   over one 32768-token sequence, and the speculative shape at the
+   widths of Qwen2-7B, Gemma-7B, Gemma-2B, phi-2 and Phi-3-mini, and at
+   hd 24, 48 and 192; each case's split plan, and two launches
+   byte-equal.
 6. Serving at Llama-3.1-8B width, bf16, through the port's
    ServingEngine and its store on SHM: engine A (8 slots, speculative
    decoding) serves 8 cold requests, then 8 that regenerate or extend
@@ -66,7 +77,8 @@ Phases, in order; any failure exits non-zero before the result line:
    and K1's row logsumexp against their plain versions, bf16 and f32:
    the training shape (2048 x 2048), a 512-token suffix over 2048 (with
    and without a 256 window), not causal, a ragged 1000, hd 64 and 32,
-   and 2048 x 2048 at the widths of Qwen2-7B, Gemma-7B and Gemma-2B; at
+   and 2048 x 2048 at the widths of Qwen2-7B, Gemma-7B, Gemma-2B, phi-2
+   and Phi-3-mini; 512 x 1000 at hd 24, 48, 136 and 192; at
    the training shape, one SDPA backward (flash backend) timed in turns
    with K5, K6 and the D pass, as a yardstick.
 9. Training at Llama-3.1-8B width cut to 16 layers, bf16: 4 AdamW steps
@@ -75,8 +87,9 @@ Phases, in order; any failure exits non-zero before the result line:
    once per layer. Then, at 2 layers, the loss and every leaf's grad with
    the kernels against the same Function on its plain leaves (f32 and
    bf16).
-10. A JSON line of per-kernel numbers (six kernels), the card line, and
-    as the last line {"ok": true, "device": {...}}.
+10. A JSON line of per-kernel numbers (six kernels; K2's and K3's also
+    carry graph_ms), the card line, and as the last line {"ok": true,
+    "device": {...}}.
 """
 
 import collections
@@ -151,6 +164,37 @@ def cuda_ms(torch, fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters=20, reps=5):
+    """Device time of fn() alone: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so that the
+    host's time per call (the wrapper's checks, the ctypes call) is not
+    in it; where a kernel is shorter than that, cuda_ms measures the
+    host."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * reps)
+    del graph
+    return ms
 
 
 def rel_err(out, ref):
@@ -260,6 +304,18 @@ FLASH_CASES = (
     _fc("float32", 2048, 2048, n_heads=16, n_kv=16, hd=256),
     _fc("bfloat16", 2048, 2048, n_heads=8, n_kv=1, hd=256),
     _fc("float32", 2048, 2048, n_heads=8, n_kv=1, hd=256),
+    # Head dims between the instantiated ones (the kernels run at the
+    # next capacity up, with the real hd's scale): microsoft/phi-2 (32 /
+    # 32, hd 80) and microsoft/Phi-3-mini-4k-instruct (32 / 32, hd 96).
+    _fc("bfloat16", 2048, 2048, n_heads=32, n_kv=32, hd=80),
+    _fc("float32", 2048, 2048, n_heads=32, n_kv=32, hd=80),
+    _fc("bfloat16", 2048, 2048, n_heads=32, n_kv=32, hd=96),
+    _fc("float32", 2048, 2048, n_heads=32, n_kv=32, hd=96),
+    # A head dim inside each of the other instantiations (capacity 32, 64
+    # and 256; no published config above has one): partial TMA boxes,
+    # K6's column halves past D, a group of 4.
+    *(_fc(dt, 1000, 1000, n_heads=8, n_kv=2, hd=hd)
+      for hd in (24, 48, 192) for dt in ("bfloat16", "float32")),
 )
 
 
@@ -404,6 +460,7 @@ DecodeCase = collections.namedtuple(
     "DecodeCase", "label dtype window seq_lens n_heads n_kv hd")
 DECODE_CASES = (
     DecodeCase("ragged", "bfloat16", 0, DECODE_SEQ_LENS, 32, 8, 128),
+    DecodeCase("main path", "bfloat16", 0, MAIN_DECODE_LENS, 32, 8, 128),
     DecodeCase("ragged", "bfloat16", 256, DECODE_SEQ_LENS, 32, 8, 128),
     DecodeCase("ragged", "float32", 0, DECODE_SEQ_LENS, 32, 8, 128),
     DecodeCase("ragged", "float32", 256, DECODE_SEQ_LENS, 32, 8, 128),
@@ -417,34 +474,76 @@ DECODE_CASES = (
     DecodeCase("Gemma-2B", "float32", 256, MAIN_DECODE_LENS, 8, 1, 256),
     DecodeCase("Llama-3.1-405B", "bfloat16", 0, MAIN_DECODE_LENS, 128, 8,
                128),
+    # One long sequence: 8 (sequence, kv head) pairs for 132 SMs, only
+    # the splits over its pages fill the card.
+    DecodeCase("long context", "bfloat16", 0, (32768,), 32, 8, 128),
+    # Head dims between the instantiated ones, as in FLASH_CASES.
+    DecodeCase("phi-2", "bfloat16", 0, MAIN_DECODE_LENS, 32, 32, 80),
+    DecodeCase("phi-2", "float32", 0, MAIN_DECODE_LENS, 32, 32, 80),
+    DecodeCase("Phi-3-mini", "bfloat16", 0, MAIN_DECODE_LENS, 32, 32, 96),
+    DecodeCase("Phi-3-mini", "float32", 256, MAIN_DECODE_LENS, 32, 32, 96),
+    # A head dim inside each of the other instantiations, as in
+    # FLASH_CASES.
+    *(DecodeCase(f"hd {hd}", dt, win, DECODE_SEQ_LENS, 8, 2, hd)
+      for hd in (24, 48, 192)
+      for dt, win in (("bfloat16", 0), ("float32", 256))),
 )
+
+
+def decode_args(torch, c, gen):
+    """A DECODE_CASES case's inputs (q, k_pages, v_pages, table,
+    seq_lens): a shuffled pool, the table padded with -1 and
+    out-of-range ids."""
+    P = 16
+    need = [-(-s // P) for s in c.seq_lens]
+    n_pages = sum(need) + 64
+    perm = torch.randperm(n_pages, generator=torch.Generator()
+                          .manual_seed(SEED)).int()
+    table = padded_table(torch, need, max(need) + 2, n_pages, perm).cuda()
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            getattr(torch, c.dtype))
+
+    return (rn(len(c.seq_lens), c.n_heads, c.hd),
+            rn(n_pages, P, c.n_kv, c.hd), rn(n_pages, P, c.n_kv, c.hd),
+            table, torch.tensor(c.seq_lens, dtype=torch.int32,
+                                device="cuda"))
 
 
 def decode_readings(torch, kernel, plain, gen):
     """Run the paged decode kernel and its plain version on every
-    DECODE_CASES shape over a shuffled pool, the table padded with -1 and
-    out-of-range ids; yield (case, args, relative error, max abs error)."""
-    P = 16
+    DECODE_CASES shape (decode_args); yield (case, args, relative error,
+    max abs error)."""
     for c in DECODE_CASES:
-        need = [-(-s // P) for s in c.seq_lens]
-        n_pages = sum(need) + 64
-        perm = torch.randperm(n_pages, generator=torch.Generator()
-                              .manual_seed(SEED)).int()
-        table = padded_table(torch, need, max(need) + 2, n_pages,
-                             perm).cuda()
-
-        def rn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(
-                getattr(torch, c.dtype))
-
-        args = (rn(len(c.seq_lens), c.n_heads, c.hd),
-                rn(n_pages, P, c.n_kv, c.hd), rn(n_pages, P, c.n_kv, c.hd),
-                table, torch.tensor(c.seq_lens, dtype=torch.int32,
-                                    device="cuda"))
+        args = decode_args(torch, c, gen)
         out = kernel(*args, window=c.window)
         torch.cuda.synchronize()
         ref = plain(*args, window=c.window)
         yield c, args, rel_err(out, ref), abs_err(out, ref)
+
+
+def split_desc(torch, q, k_pages, table, m, window):
+    """The split plan (ops/paged_split.py) of one K2 / K3 launch, for the
+    phase lines: CTAs, row tiles and splits."""
+    from infinistore_tpu_torch.ops import _kernels, paged_split
+
+    n_kv = k_pages.shape[2]
+    plan = paged_split.split_plan(
+        q.shape[0], n_kv, m * (q.shape[-2] // n_kv), table.shape[1],
+        k_pages.shape[1], _kernels.sm_count(q.device), window, m)
+    ctas = plan.n_splits * plan.row_tiles * n_kv * q.shape[0]
+    return (f"plan: {ctas} CTAs, {plan.row_tiles} tile(s) of "
+            f"{plan.row_tile} rows for {plan.rows}, {plan.n_splits} "
+            f"split(s) of {plan.pages_per_split} pages")
+
+
+def byte_equal_runs(torch, fn):
+    """Two launches of fn() give byte-equal outputs (the splits merge in
+    a fixed order)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    return torch.equal(a.view(torch.uint8), b.view(torch.uint8))
 
 
 def phase_decode(torch, pd, plain, gen):
@@ -452,17 +551,25 @@ def phase_decode(torch, pd, plain, gen):
     for c, args, rel, err in decode_readings(
             torch, pd.paged_flash_decode, plain, gen):
         tol = TOL_REL[c.dtype]
-        ms = cuda_ms(torch, lambda: pd.paged_flash_decode(
-            *args, window=c.window), 50)
+
+        def kernel():
+            return pd.paged_flash_decode(*args, window=c.window)
+
+        ms = cuda_ms(torch, kernel, 50)
+        dev_ms = graph_ms(torch, kernel)
+        same = byte_equal_runs(torch, kernel)
         bms, by = decode_bound(torch, c.seq_lens, c.window,
                                len(c.seq_lens), c.n_heads, c.n_kv, c.hd,
                                args[0].element_size())
         say(f"decode {c.label} {c.dtype} B={len(c.seq_lens)} "
             f"H={c.n_heads} KV={c.n_kv} hd={c.hd} window={c.window}: rel "
             f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
-            f"{ms:.4f} bound_ms {bms:.5f} ({by}: K/V bytes read / "
-            f"3.35 TB/s)")
+            f"{ms:.4f} graph_ms {dev_ms:.4f} bound_ms {bms:.5f} ({by}: K/V "
+            f"bytes read / 3.35 TB/s); "
+            f"{split_desc(torch, args[0], args[1], args[3], 1, c.window)}; "
+            f"two launches byte-equal: {same}")
         check(rel <= tol, f"paged decode disagrees ({c}): {rel} > {tol}")
+        check(same, f"paged decode differs between two launches ({c})")
         del args
 
 
@@ -488,6 +595,14 @@ DECODE_Q_CASES = (
     ("Gemma-2B", "bfloat16", MAIN_DECODE_LENS, 0, 256, 8, 1),
     ("Gemma-2B", "float32", MAIN_DECODE_LENS, 256, 256, 8, 1),
     ("Llama-3.1-405B", "bfloat16", MAIN_DECODE_LENS, 0, 128, 16, 8),
+    # A head dim between the instantiated ones: Phi-3-mini's (hd 96).
+    ("Phi-3-mini", "bfloat16", MAIN_DECODE_LENS, 0, 96, 1, 32),
+    ("Phi-3-mini", "float32", MAIN_DECODE_LENS, 256, 96, 1, 32),
+    # A head dim inside each of the other instantiations, as in
+    # FLASH_CASES.
+    *((f"hd {hd}", dt, DECODE_SEQ_LENS, win, hd, 4, 2)
+      for hd in (24, 48, 192)
+      for dt, win in (("bfloat16", 0), ("float32", 256))),
 )
 
 
@@ -499,35 +614,39 @@ def decode_q_bound(seq_lens, window, B, H, KV, D, esize):
     return bound_ms(4.0 * toks * H * D, nbytes, PEAK_F32)
 
 
-def decode_q_readings(torch, kernel, plain, gen):
-    """Run the int8 paged decode kernel and its plain version on every
-    DECODE_Q_CASES shape over a shuffled pool of quantized pages (rows
-    of varied scale, as real KV has), the table padded with -1 and
-    out-of-range ids; yield (case, args, relative error, max abs
-    error), args being (q, k_q, k_s, v_q, v_s, table, seq_lens)."""
+def decode_q_args(torch, case, gen):
+    """A DECODE_Q_CASES case's inputs (q, k_q, k_s, v_q, v_s, table,
+    seq_lens): a shuffled pool of quantized pages (rows of varied scale,
+    as real KV has), the table padded with -1 and out-of-range ids."""
     from infinistore_tpu_torch.ops import kv_quant
 
     P = 16
+    _, dt, lens, win, D, G, KV = case
+    need = [-(-s // P) for s in lens]
+    n_pages = sum(need) + 64
+    perm = torch.randperm(n_pages, generator=torch.Generator()
+                          .manual_seed(SEED)).int()
+    table = padded_table(torch, need, max(need) + 2, n_pages, perm).cuda()
+
+    def pages():
+        x = torch.randn((n_pages, P, KV, D), generator=gen, device="cuda")
+        x *= torch.exp(0.5 * torch.randn((n_pages, P, KV, 1), generator=gen,
+                                         device="cuda"))
+        return kv_quant.quantize_kv_pages(x)
+
+    q = torch.randn((len(lens), KV * G, D), generator=gen,
+                    device="cuda").to(getattr(torch, dt))
+    return (q, *pages(), *pages(), table,
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
+
+
+def decode_q_readings(torch, kernel, plain, gen):
+    """Run the int8 paged decode kernel and its plain version on every
+    DECODE_Q_CASES shape (decode_q_args); yield (case, args, relative
+    error, max abs error)."""
     for case in DECODE_Q_CASES:
-        _, dt, lens, win, D, G, KV = case
-        need = [-(-s // P) for s in lens]
-        n_pages = sum(need) + 64
-        perm = torch.randperm(n_pages, generator=torch.Generator()
-                              .manual_seed(SEED)).int()
-        table = padded_table(torch, need, max(need) + 2, n_pages,
-                             perm).cuda()
-
-        def pages():
-            x = torch.randn((n_pages, P, KV, D), generator=gen,
-                            device="cuda")
-            x *= torch.exp(0.5 * torch.randn((n_pages, P, KV, 1),
-                                             generator=gen, device="cuda"))
-            return kv_quant.quantize_kv_pages(x)
-
-        q = torch.randn((len(lens), KV * G, D), generator=gen,
-                        device="cuda").to(getattr(torch, dt))
-        args = (q, *pages(), *pages(), table,
-                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        args = decode_q_args(torch, case, gen)
+        win = case[3]
         out = kernel(*args, window=win)
         torch.cuda.synchronize()
         ref = plain(*args, window=win)
@@ -553,8 +672,8 @@ def phase_decode_q(torch, pq, pd, gen):
             *args, window=win), 5, warmup=1)
         kd = kv_quant.dequantize_kv_pages(kq, ks, q.dtype)
         vd = kv_quant.dequantize_kv_pages(vq, vs, q.dtype)
-        k2_ms = cuda_ms(torch, lambda: pd.paged_flash_decode(
-            q, kd, vd, table, sl, window=win), 50)
+        k2_ms = graph_ms(torch, lambda: pd.paged_flash_decode(
+            q, kd, vd, table, sl, window=win))
         B, H = q.shape[0], q.shape[1]
         bms, by = decode_q_bound(lens, win, B, H, kq.shape[2], D,
                                  q.element_size())
@@ -564,7 +683,7 @@ def phase_decode_q(torch, pq, pd, gen):
             f"window={win}: rel "
             f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
             f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bms:.5f} ({by}); "
-            f"K2 over the dequantized pages {k2_ms:.4f} ms (bound "
+            f"K2 over the dequantized pages graph_ms {k2_ms:.4f} (bound "
             f"{k2_bms:.5f})")
         check(rel <= tol, f"int8 paged decode disagrees ({label}, {dt}): "
               f"{rel} > {tol}")
@@ -861,15 +980,17 @@ def phase_main(torch, np, report, params):
         check(rel <= TOL_REL["bfloat16"],
               f"paged decode at main-path shape: rel err {rel}")
         ms = cuda_ms(torch, lambda: pd.paged_flash_decode(*args), 100)
+        dev_ms = graph_ms(torch, lambda: pd.paged_flash_decode(*args), 50)
         plain_ms = cuda_ms(torch, lambda: paged_decode_attention(*args), 10)
         bms, by = decode_bound(torch, lens_end.tolist(), 0, len(PROMPTS),
                                cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 2)
         say(f"decode kernel at main-path shape (batch {len(PROMPTS)}, "
             f"lens {lens_end.tolist()}): rel err {rel:.3e} max|err| "
-            f"{err:.3e} kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} "
-            f"bound_ms {bms:.5f} ({by})")
-        report["k2"] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                            bound_by=by)
+            f"{err:.3e} kernel_ms {ms:.4f} graph_ms {dev_ms:.4f} plain_ms "
+            f"{plain_ms:.4f} bound_ms {bms:.5f} ({by}); "
+            f"{split_desc(torch, q, k_pool[0], table, 1, 0)}")
+        report["k2"] = dict(err=err, ms=ms, graph_ms=dev_ms,
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by)
     finally:
         for s in stores:
             s.close()
@@ -916,32 +1037,52 @@ VERIFY_CASES = (
      256),
     ("spec Gemma-2B", "bfloat16", DECODE_SEQ_LENS, 5, 0, None, 8, 1, 256),
     ("spec Gemma-2B", "float32", DECODE_SEQ_LENS, 5, 0, None, 8, 1, 256),
+    ("spec long context", "bfloat16", (32768,), 5, 0, None, 32, 8, 128),
+    # Head dims between the instantiated ones, as in FLASH_CASES.
+    ("spec phi-2", "bfloat16", DECODE_SEQ_LENS, 5, 0, None, 32, 32, 80),
+    ("spec phi-2", "float32", DECODE_SEQ_LENS, 5, 256, None, 32, 32, 80),
+    ("spec Phi-3-mini", "bfloat16", DECODE_SEQ_LENS, 5, 0, None, 32, 32,
+     96),
+    ("spec Phi-3-mini", "float32", DECODE_SEQ_LENS, 5, 0, None, 32, 32,
+     96),
+    # A head dim inside each of the other instantiations, as in
+    # FLASH_CASES.
+    *((f"spec hd {hd}", dt, DECODE_SEQ_LENS, 5, win, None, 8, 2, hd)
+      for hd in (24, 48, 192)
+      for dt, win in (("bfloat16", 256), ("float32", 0))),
 )
+
+
+def verify_args(torch, case, gen):
+    """A VERIFY_CASES case's inputs (q, k_pages, v_pages, table,
+    seq_lens): a shuffled pool, the table padded with -1 and
+    out-of-range ids."""
+    P = 16
+    _, dt, lens, m, win, width, H, KV, D = case
+    need = [-(-(s + m) // P) for s in lens]
+    width = width or max(need) + 2
+    need = [min(n, width) for n in need]
+    n_pages = sum(need) + 64
+    perm = torch.randperm(n_pages, generator=torch.Generator()
+                          .manual_seed(SEED)).int()
+    table = padded_table(torch, need, width, n_pages, perm).cuda()
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            getattr(torch, dt))
+
+    return (rn(len(lens), m, H, D), rn(n_pages, P, KV, D),
+            rn(n_pages, P, KV, D), table,
+            torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
 def verify_readings(torch, kernel, plain, gen):
     """Run the paged verify kernel and its plain version on every
-    VERIFY_CASES shape over a shuffled pool, the table padded with -1
-    and out-of-range ids; yield (case, args, relative error, max abs
-    error)."""
-    P = 16
+    VERIFY_CASES shape (verify_args); yield (case, args, relative error,
+    max abs error)."""
     for case in VERIFY_CASES:
-        _, dt, lens, m, win, width, H, KV, D = case
-        need = [-(-(s + m) // P) for s in lens]
-        width = width or max(need) + 2
-        need = [min(n, width) for n in need]
-        n_pages = sum(need) + 64
-        perm = torch.randperm(n_pages, generator=torch.Generator()
-                              .manual_seed(SEED)).int()
-        table = padded_table(torch, need, width, n_pages, perm).cuda()
-
-        def rn(*shape):
-            return torch.randn(shape, generator=gen, device="cuda").to(
-                getattr(torch, dt))
-
-        args = (rn(len(lens), m, H, D), rn(n_pages, P, KV, D),
-                rn(n_pages, P, KV, D), table,
-                torch.tensor(lens, dtype=torch.int32, device="cuda"))
+        args = verify_args(torch, case, gen)
+        win = case[4]
         out = kernel(*args, window=win)
         torch.cuda.synchronize()
         ref = plain(*args, window=win)
@@ -956,8 +1097,13 @@ def phase_verify(torch, pv, plain, gen):
             torch, pv.paged_flash_verify, plain, gen):
         label, dt, lens, m, win, _, H, KV, D = case
         tol = TOL_REL[dt]
-        ms = cuda_ms(torch, lambda: pv.paged_flash_verify(
-            *args, window=win), 50)
+
+        def kernel():
+            return pv.paged_flash_verify(*args, window=win)
+
+        ms = cuda_ms(torch, kernel, 50)
+        dev_ms = graph_ms(torch, kernel)
+        same = byte_equal_runs(torch, kernel)
         plain_ms = cuda_ms(torch, lambda: plain(*args, window=win), 5,
                            warmup=1)
         flops, nbytes = verify_work(lens, m, args[3].shape[1], P, win, H,
@@ -967,10 +1113,15 @@ def phase_verify(torch, pv, plain, gen):
         say(f"verify {label} {dt} B={len(lens)} m={m} H={H} KV={KV} hd={D} "
             f"window={win}: rel "
             f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
-            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bms:.5f} ({by})")
+            f"{ms:.4f} graph_ms {dev_ms:.4f} plain_ms {plain_ms:.4f} bound_ms "
+            f"{bms:.5f} ({by}); "
+            f"{split_desc(torch, args[0], args[1], args[3], m, win)}; two "
+            f"launches byte-equal: {same}")
         check(rel <= tol, f"paged verify disagrees ({label}): {rel} > {tol}")
-        rows.setdefault((label, dt), dict(err=err, ms=ms, plain_ms=plain_ms,
-                                          bound_ms=bms, bound_by=by))
+        check(same, f"paged verify differs between two launches ({label})")
+        rows.setdefault((label, dt), dict(err=err, ms=ms, graph_ms=dev_ms,
+                                          plain_ms=plain_ms, bound_ms=bms,
+                                          bound_by=by))
     return rows
 
 
@@ -1970,6 +2121,14 @@ _BWD_SHAPES = (
     (2048, 2048, True, 0, 128, 28, 4),
     (2048, 2048, True, 0, 256, 16, 16),
     (2048, 2048, True, 0, 256, 8, 1),
+    # phi-2 (hd 80) and Phi-3-mini (hd 96), as in FLASH_CASES.
+    (2048, 2048, True, 0, 80, 32, 32),
+    (2048, 2048, True, 0, 96, 32, 32),
+    # A head dim inside each of the other instantiations, as in
+    # FLASH_CASES; at hd 136 and 192 one of K6's column halves holds
+    # fewer than its 64 columns or none.
+    *((512, 1000, True, win, hd, 8, 2)
+      for hd, win in ((24, 0), (48, 128), (136, 0), (192, 128))),
 )
 BWD_CASES = tuple((dt, *shape) for dt in ("bfloat16", "float32")
                   for shape in _BWD_SHAPES)
@@ -2394,18 +2553,20 @@ def main():
          "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
          "bound_by": k1["bound_by"], "library_ms": k1["library_ms"]},
         {"name": "paged_decode", "route": "cuda",
-         "source": "infinistore_tpu_torch/csrc/paged_decode.cu",
+         "source": "infinistore_tpu_torch/csrc/paged_split.cu",
          "replaces": "infinistore_tpu/ops/pallas_paged_attention.py:34",
          "launches": report["launches"]["paged_decode"],
          "max_abs_err": k2["err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "graph_ms": k2["graph_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"],
          "bound_by": k2["bound_by"], "library_ms": None},
         {"name": "paged_verify", "route": "cuda",
-         "source": "infinistore_tpu_torch/csrc/paged_verify.cu",
+         "source": "infinistore_tpu_torch/csrc/paged_split.cu",
          "replaces": "infinistore_tpu/ops/pallas_paged_attention.py:364",
          "launches": serve_report["launches"]["paged_verify"],
          "max_abs_err": k3["err"], "ms": k3["ms"],
-         "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+         "graph_ms": k3["graph_ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"],
          "bound_by": k3["bound_by"], "library_ms": None},
     ]
     k4 = k4["main path"]

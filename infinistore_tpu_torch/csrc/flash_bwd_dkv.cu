@@ -413,19 +413,22 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     }
 }
 
+// The tensor maps take the tensors' own D as their innermost dim (zero
+// fill past it on load, clipped on store), as K1's do.
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* dvec,
                  void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-                 int causal, int window, cudaStream_t stream) {
+                 int D, float scale, int causal, int window,
+                 cudaStream_t stream) {
     using P = Plan<HD>;
     CUtensorMap qm, km, vm, dom, dkm, dvm;
-    if (!hp::tensor_map(&qm, q, B, Sq, H, HD, kBQ, P::SW) ||
-        !hp::tensor_map(&km, k, B, Skv, KV, HD, kRows, P::SW) ||
-        !hp::tensor_map(&vm, v, B, Skv, KV, HD, kRows, P::SW) ||
-        !hp::tensor_map(&dom, dout, B, Sq, H, HD, kBQ, P::SW) ||
-        !hp::tensor_map(&dkm, dk, B, Skv, KV, HD, kRows, P::SW) ||
-        !hp::tensor_map(&dvm, dv, B, Skv, KV, HD, kRows, P::SW)) {
+    if (!hp::tensor_map(&qm, q, B, Sq, H, D, kBQ, P::SW) ||
+        !hp::tensor_map(&km, k, B, Skv, KV, D, kRows, P::SW) ||
+        !hp::tensor_map(&vm, v, B, Skv, KV, D, kRows, P::SW) ||
+        !hp::tensor_map(&dom, dout, B, Sq, H, D, kBQ, P::SW) ||
+        !hp::tensor_map(&dkm, dk, B, Skv, KV, D, kRows, P::SW) ||
+        !hp::tensor_map(&dvm, dv, B, Skv, KV, D, kRows, P::SW)) {
         return (int)cudaErrorInvalidValue;
     }
     auto kern = flash_bwd_dkv_wgmma_kernel<HD>;
@@ -435,7 +438,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     const dim3 grid(B * KV, (Skv + kRows - 1) / kRows);
     kern<<<grid, P::THREADS, P::bytes(), stream>>>(
         qm, km, vm, dom, dkm, dvm, lse, dvec, Sq, Skv, H, KV, causal, window,
-        (float)(1.0 / sqrt((double)HD)));
+        scale);
     return (int)cudaGetLastError();
 }
 
@@ -450,7 +453,7 @@ flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const float* __restrict__ lse,
                           const float* __restrict__ dvec, T* __restrict__ dk,
                           T* __restrict__ dv, int Sq, int Skv, int H, int KV,
-                          int causal, int window, float scale) {
+                          int D, int causal, int window, float scale) {
     using L = Layout<T, HD>;
     constexpr int TQ = L::TK, LD = L::LD, SLD = L::SLD, PLD = L::PLD;
     constexpr int SC = TQ / 2;  // S^T columns held by one lane
@@ -475,12 +478,12 @@ flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = lane >> 1;
     const int half = lane & 1;
 
-    const size_t q_stride = (size_t)H * HD;
-    const size_t kv_stride = (size_t)KV * HD;
-    const T* kbase = k + ((size_t)b * Skv * KV + kvh) * HD;
-    const T* vbase = v + ((size_t)b * Skv * KV + kvh) * HD;
-    load_tile<T, HD, LD>(sK, kbase, kv_stride, k_start, Skv);
-    load_tile<T, HD, LD>(sV, vbase, kv_stride, k_start, Skv);
+    const size_t q_stride = (size_t)H * D;
+    const size_t kv_stride = (size_t)KV * D;
+    const T* kbase = k + ((size_t)b * Skv * KV + kvh) * D;
+    const T* vbase = v + ((size_t)b * Skv * KV + kvh) * D;
+    load_tile<T, HD, LD>(sK, kbase, kv_stride, k_start, Skv, D);
+    load_tile<T, HD, LD>(sV, vbase, kv_stride, k_start, Skv, D);
 
     int qt_begin, qt_end;
     q_tiles<TQ, BK>(k_start, Sq, Skv, causal, window, qt_begin, qt_end);
@@ -495,15 +498,15 @@ flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     for (int g = 0; g < G; ++g) {
         const int h = kvh * G + g;
-        const T* qbase = q + ((size_t)b * Sq * H + h) * HD;
-        const T* dobase = dout + ((size_t)b * Sq * H + h) * HD;
+        const T* qbase = q + ((size_t)b * Sq * H + h) * D;
+        const T* dobase = dout + ((size_t)b * Sq * H + h) * D;
         const float* lse_h = lse + ((size_t)b * H + h) * Sq;
         const float* d_h = dvec + ((size_t)b * H + h) * Sq;
         for (int qt = qt_begin; qt < qt_end; ++qt) {
             const int q_start = qt * TQ;
             __syncthreads();  // every warp is done with the previous tile
-            load_tile<T, HD, LD, TQ>(sQ, qbase, q_stride, q_start, Sq);
-            load_tile<T, HD, LD, TQ>(sdO, dobase, q_stride, q_start, Sq);
+            load_tile<T, HD, LD, TQ>(sQ, qbase, q_stride, q_start, Sq, D);
+            load_tile<T, HD, LD, TQ>(sdO, dobase, q_stride, q_start, Sq, D);
             if (threadIdx.x < TQ) {
                 const int pq = q_start + threadIdx.x;
                 sm.lse[threadIdx.x] = pq < Sq ? lse_h[pq] : 0.0f;
@@ -549,17 +552,19 @@ flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
     }
 
-    const size_t row = (((size_t)b * Skv + pos_k) * KV + kvh) * HD + c0 +
+    const size_t row = (((size_t)b * Skv + pos_k) * KV + kvh) * D + c0 +
                        half * (COLS / 2);
-    dk_acc.store(dk + row, pos_k < Skv, Sw, lane);
-    dv_acc.store(dv + row, pos_k < Skv, Sw, lane);
+    const int cols = D - c0 - half * (COLS / 2);  // of this lane's columns
+    dk_acc.store(dk + row, pos_k < Skv, cols, Sw, lane);
+    dv_acc.store(dv + row, pos_k < Skv, cols, Sw, lane);
 }
 
 template <typename T, int HD>
 int launch_tile(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-                int causal, int window, cudaStream_t stream) {
+                int D, float scale, int causal, int window,
+                cudaStream_t stream) {
     const size_t smem = BwdLayout<T, HD>::bytes();
     auto kern = flash_bwd_dkv_tile_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -569,8 +574,8 @@ int launch_tile(const void* q, const void* k, const void* v,
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
-        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H, KV, causal,
-        window, (float)(1.0 / sqrt((double)HD)));
+        static_cast<T*>(dk), static_cast<T*>(dv), Sq, Skv, H, KV, D, causal,
+        window, scale);
     return (int)cudaGetLastError();
 }
 
@@ -579,14 +584,14 @@ template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-                int causal, int window, cudaStream_t s) {
+                int D, float scale, int causal, int window, cudaStream_t s) {
     if constexpr (HD > 128) {
         return launch_tile<__nv_bfloat16, HD>(q, k, v, dout, lse, dvec, dk,
-                                              dv, B, Sq, Skv, H, KV, causal,
-                                              window, s);
+                                              dv, B, Sq, Skv, H, KV, D,
+                                              scale, causal, window, s);
     } else {
         return launch_wgmma<HD>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,
-                                Skv, H, KV, causal, window, s);
+                                Skv, H, KV, D, scale, causal, window, s);
     }
 }
 
@@ -594,34 +599,35 @@ template <int HD>
 int launch_f32(const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* dvec,
                void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-               int causal, int window, cudaStream_t s) {
+               int D, float scale, int causal, int window, cudaStream_t s) {
     return launch_tile<float, HD>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,
-                                  Skv, H, KV, causal, window, s);
+                                  Skv, H, KV, D, scale, causal, window, s);
 }
 
 }  // namespace
 
 // q/dout [B, Sq, H, D], k/v/dk/dv [B, Skv, KV, D], bf16 (is_bf16 = 1) or
-// f32; lse and dvec f32 [B, H, Sq] (see istpu_flash_bwd_dq); all
-// contiguous. dk and dv are summed over each kv head's group of q heads.
-// Returns cudaGetLastError().
+// f32, D a multiple of 8 up to 256; scale, lse and dvec as in
+// istpu_flash_bwd_dq; all contiguous. dk and dv are summed over each kv
+// head's group of q heads. Returns cudaGetLastError().
 extern "C" int istpu_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* dvec,
                                    void* dk, void* dv, int is_bf16, int B,
                                    int Sq, int Skv, int H, int KV, int D,
-                                   int causal, int window, void* stream) {
+                                   float scale, int causal, int window,
+                                   void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ISTPU_HD(fn)                                                        \
-    switch (D) {                                                            \
+    switch (istpu::head_dim_capacity(D)) {                                  \
         case 32: return fn<32>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,     \
-                               Skv, H, KV, causal, window, s);              \
+                               Skv, H, KV, D, scale, causal, window, s);    \
         case 64: return fn<64>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,     \
-                               Skv, H, KV, causal, window, s);              \
+                               Skv, H, KV, D, scale, causal, window, s);    \
         case 128: return fn<128>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,   \
-                                 Skv, H, KV, causal, window, s);            \
+                                 Skv, H, KV, D, scale, causal, window, s);  \
         case 256: return fn<256>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,   \
-                                 Skv, H, KV, causal, window, s);            \
+                                 Skv, H, KV, D, scale, causal, window, s);  \
         default: return (int)cudaErrorInvalidValue;                         \
     }
     if (is_bf16) {

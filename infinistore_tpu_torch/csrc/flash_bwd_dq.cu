@@ -328,18 +328,20 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     }
 }
 
+// The tensor maps take the tensors' own D as their innermost dim (zero
+// fill past it on load, clipped on store), as K1's do.
 template <int HD, int NC>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* dvec,
-                 void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
-                 int window, cudaStream_t stream) {
+                 void* dq, int B, int Sq, int Skv, int H, int KV, int D,
+                 float scale, int causal, int window, cudaStream_t stream) {
     using P = Plan<HD, NC>;
     CUtensorMap qm, km, vm, dom, dqm;
-    if (!hp::tensor_map(&qm, q, B, Sq, H, HD, P::BQ, P::SW) ||
-        !hp::tensor_map(&km, k, B, Skv, KV, HD, kBK, P::SW) ||
-        !hp::tensor_map(&vm, v, B, Skv, KV, HD, kBK, P::SW) ||
-        !hp::tensor_map(&dom, dout, B, Sq, H, HD, P::BQ, P::SW) ||
-        !hp::tensor_map(&dqm, dq, B, Sq, H, HD, kRows, P::SW)) {
+    if (!hp::tensor_map(&qm, q, B, Sq, H, D, P::BQ, P::SW) ||
+        !hp::tensor_map(&km, k, B, Skv, KV, D, kBK, P::SW) ||
+        !hp::tensor_map(&vm, v, B, Skv, KV, D, kBK, P::SW) ||
+        !hp::tensor_map(&dom, dout, B, Sq, H, D, P::BQ, P::SW) ||
+        !hp::tensor_map(&dqm, dq, B, Sq, H, D, kRows, P::SW)) {
         return (int)cudaErrorInvalidValue;
     }
     auto kern = flash_bwd_dq_wgmma_kernel<HD, NC>;
@@ -349,7 +351,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     const dim3 grid(B * H, (Sq + P::BQ - 1) / P::BQ);
     kern<<<grid, P::THREADS, P::bytes(), stream>>>(
         qm, km, vm, dom, dqm, lse, dvec, Sq, Skv, H, KV, causal, window,
-        (float)(1.0 / sqrt((double)HD)));
+        scale);
     return (int)cudaGetLastError();
 }
 
@@ -369,7 +371,7 @@ flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse,
                          const float* __restrict__ dvec, T* __restrict__ dq,
-                         int Sq, int Skv, int H, int KV, int causal,
+                         int Sq, int Skv, int H, int KV, int D, int causal,
                          int window, float scale) {
     using L = Layout<T, HD>;
     constexpr int TK = L::TK, LD = L::LD, SLD = L::SLD, PLD = L::PLD;
@@ -392,15 +394,15 @@ flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int r = lane >> 1;
     const int half = lane & 1;
 
-    const size_t q_stride = (size_t)H * HD;
-    const size_t kv_stride = (size_t)KV * HD;
-    const T* qbase = q + ((size_t)b * Sq * H + h) * HD;
-    const T* dobase = dout + ((size_t)b * Sq * H + h) * HD;
-    const T* kbase = k + ((size_t)b * Skv * KV + kvh) * HD;
-    const T* vbase = v + ((size_t)b * Skv * KV + kvh) * HD;
+    const size_t q_stride = (size_t)H * D;
+    const size_t kv_stride = (size_t)KV * D;
+    const T* qbase = q + ((size_t)b * Sq * H + h) * D;
+    const T* dobase = dout + ((size_t)b * Sq * H + h) * D;
+    const T* kbase = k + ((size_t)b * Skv * KV + kvh) * D;
+    const T* vbase = v + ((size_t)b * Skv * KV + kvh) * D;
 
-    load_tile<T, HD, LD>(sQ, qbase, q_stride, q_start, Sq);
-    load_tile<T, HD, LD>(sdO, dobase, q_stride, q_start, Sq);
+    load_tile<T, HD, LD>(sQ, qbase, q_stride, q_start, Sq, D);
+    load_tile<T, HD, LD>(sdO, dobase, q_stride, q_start, Sq, D);
 
     int kt_begin, kt_end;
     kv_tiles<BQ, TK>(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
@@ -417,8 +419,8 @@ flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kt = kt_begin; kt < kt_end; ++kt) {
         const int k_start = kt * TK;
         __syncthreads();  // every warp is done with the previous tile
-        load_tile<T, HD, LD, TK>(sK, kbase, kv_stride, k_start, Skv);
-        load_tile<T, HD, LD, TK>(sV, vbase, kv_stride, k_start, Skv);
+        load_tile<T, HD, LD, TK>(sK, kbase, kv_stride, k_start, Skv, D);
+        load_tile<T, HD, LD, TK>(sV, vbase, kv_stride, k_start, Skv, D);
         __syncthreads();
         const bool interior = interior_tile<BQ, TK>(q_start, k_start, Sq,
                                                     Skv, causal, window);
@@ -452,15 +454,15 @@ flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
         __syncwarp();
     }
 
-    T* dst = dq + (((size_t)b * Sq + pos_q) * H + h) * HD + half * (HD / 2);
-    acc.store(dst, pos_q < Sq, Sw, lane);
+    T* dst = dq + (((size_t)b * Sq + pos_q) * H + h) * D + half * (HD / 2);
+    acc.store(dst, pos_q < Sq, D - half * (HD / 2), Sw, lane);
 }
 
 template <typename T, int HD>
 int launch_tile(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
-                void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
-                int window, cudaStream_t stream) {
+                void* dq, int B, int Sq, int Skv, int H, int KV, int D,
+                float scale, int causal, int window, cudaStream_t stream) {
     const size_t smem = BwdLayout<T, HD>::bytes();
     auto kern = flash_bwd_dq_tile_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -470,8 +472,7 @@ int launch_tile(const void* q, const void* k, const void* v,
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, dvec,
-        static_cast<T*>(dq), Sq, Skv, H, KV, causal, window,
-        (float)(1.0 / sqrt((double)HD)));
+        static_cast<T*>(dq), Sq, Skv, H, KV, D, causal, window, scale);
     return (int)cudaGetLastError();
 }
 
@@ -479,53 +480,54 @@ int launch_tile(const void* q, const void* k, const void* v,
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
-                void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
-                int window, cudaStream_t s) {
+                void* dq, int B, int Sq, int Skv, int H, int KV, int D,
+                float scale, int causal, int window, cudaStream_t s) {
     if constexpr (HD > 128) {
         return launch_tile<__nv_bfloat16, HD>(q, k, v, dout, lse, dvec, dq,
-                                              B, Sq, Skv, H, KV, causal,
-                                              window, s);
+                                              B, Sq, Skv, H, KV, D, scale,
+                                              causal, window, s);
     } else if (consumers(B, Sq, H) == 1) {
         return launch_wgmma<HD, 1>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
-                                   H, KV, causal, window, s);
+                                   H, KV, D, scale, causal, window, s);
     } else {
         return launch_wgmma<HD, 2>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
-                                   H, KV, causal, window, s);
+                                   H, KV, D, scale, causal, window, s);
     }
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* dvec,
-               void* dq, int B, int Sq, int Skv, int H, int KV, int causal,
-               int window, cudaStream_t s) {
+               void* dq, int B, int Sq, int Skv, int H, int KV, int D,
+               float scale, int causal, int window, cudaStream_t s) {
     return launch_tile<float, HD>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
-                                  H, KV, causal, window, s);
+                                  H, KV, D, scale, causal, window, s);
 }
 
 }  // namespace
 
 // q/dout/dq [B, Sq, H, D], k/v [B, Skv, KV, D], bf16 (is_bf16 = 1) or
-// f32; lse (the forward's row logsumexp of the scaled logits) and dvec
+// f32, D a multiple of 8 up to 256; scale: the forward's softmax scale;
+// lse (the forward's row logsumexp of the scaled logits) and dvec
 // (rowsum(dO * O)) f32 [B, H, Sq]; all contiguous. Returns
 // cudaGetLastError().
 extern "C" int istpu_flash_bwd_dq(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const float* lse, const float* dvec,
                                   void* dq, int is_bf16, int B, int Sq,
-                                  int Skv, int H, int KV, int D, int causal,
-                                  int window, void* stream) {
+                                  int Skv, int H, int KV, int D, float scale,
+                                  int causal, int window, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ISTPU_HD(fn)                                                        \
-    switch (D) {                                                            \
+    switch (istpu::head_dim_capacity(D)) {                                  \
         case 32: return fn<32>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H, \
-                               KV, causal, window, s);                      \
+                               KV, D, scale, causal, window, s);            \
         case 64: return fn<64>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv, H, \
-                               KV, causal, window, s);                      \
+                               KV, D, scale, causal, window, s);            \
         case 128: return fn<128>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,  \
-                                 H, KV, causal, window, s);                 \
+                                 H, KV, D, scale, causal, window, s);       \
         case 256: return fn<256>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,  \
-                                 H, KV, causal, window, s);                 \
+                                 H, KV, D, scale, causal, window, s);       \
         default: return (int)cudaErrorInvalidValue;                         \
     }
     if (is_bf16) {

@@ -359,7 +359,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, T* __restrict__ o,
                           float* __restrict__ lse, int Sq, int Skv, int H,
-                          int KV, int causal, int window, float scale) {
+                          int KV, int D, int causal, int window,
+                          float scale) {
     using L = Layout<T, HD>;
     constexpr int TK = L::TK, LD = L::LD;
     constexpr int OC = HD / 2;  // output columns held by one lane
@@ -375,13 +376,13 @@ flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
 
-    const size_t q_stride = (size_t)H * HD;
-    const size_t kv_stride = (size_t)KV * HD;
-    const T* qbase = q + ((size_t)b * Sq * H + h) * HD;
-    const T* kbase = k + ((size_t)b * Skv * KV + kvh) * HD;
-    const T* vbase = v + ((size_t)b * Skv * KV + kvh) * HD;
+    const size_t q_stride = (size_t)H * D;
+    const size_t kv_stride = (size_t)KV * D;
+    const T* qbase = q + ((size_t)b * Sq * H + h) * D;
+    const T* kbase = k + ((size_t)b * Skv * KV + kvh) * D;
+    const T* vbase = v + ((size_t)b * Skv * KV + kvh) * D;
 
-    load_tile<T, HD, LD>(sm.Q, qbase, q_stride, q_start, Sq);
+    load_tile<T, HD, LD>(sm.Q, qbase, q_stride, q_start, Sq, D);
 
     int kt_begin, kt_end;
     kv_tiles<BQ, TK>(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
@@ -397,8 +398,8 @@ flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int kt = kt_begin; kt < kt_end; ++kt) {
         const int k_start = kt * TK;
         __syncthreads();  // every warp is done with the previous tile
-        load_tile<T, HD, LD, TK>(sm.K, kbase, kv_stride, k_start, Skv);
-        load_tile<T, HD, LD, TK>(sm.V, vbase, kv_stride, k_start, Skv);
+        load_tile<T, HD, LD, TK>(sm.K, kbase, kv_stride, k_start, Skv, D);
+        load_tile<T, HD, LD, TK>(sm.V, vbase, kv_stride, k_start, Skv, D);
         __syncthreads();
 
         const bool interior = interior_tile<BQ, TK>(q_start, k_start, Sq,
@@ -412,10 +413,12 @@ flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     if (pos_q < Sq) {
-        T* orow = o + (((size_t)b * Sq + pos_q) * H + h) * HD + half * OC;
+        T* orow = o + (((size_t)b * Sq + pos_q) * H + h) * D + half * OC;
 #pragma unroll
         for (int c = 0; c < OC; ++c) {
-            orow[c] = istpu::from_float<T>(st.acc[c] / st.l);
+            if (half * OC + c < D) {
+                orow[c] = istpu::from_float<T>(st.acc[c] / st.l);
+            }
         }
         if (lse != nullptr && half == 0) {
             lse[(size_t)bh * Sq + pos_q] = st.m + logf(st.l);
@@ -425,8 +428,8 @@ flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD>
 int launch_tile(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Sq, int Skv, int H, int KV,
-                int causal, int window, cudaStream_t stream) {
+                float* lse, int B, int Sq, int Skv, int H, int KV, int D,
+                float scale, int causal, int window, cudaStream_t stream) {
     const size_t smem = Layout<T, HD>::bytes();
     auto kern = flash_prefill_tile_kernel<T, HD>;
     cudaError_t err = cudaFuncSetAttribute(
@@ -436,28 +439,31 @@ int launch_tile(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KV,
-        causal, window, (float)(1.0 / sqrt((double)HD)));
+        D, causal, window, scale);
     return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               float* lse, int B, int Sq, int Skv, int H, int KV, int causal,
-               int window, cudaStream_t s) {
-    return launch_tile<float, HD>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                                  causal, window, s);
+               float* lse, int B, int Sq, int Skv, int H, int KV, int D,
+               float scale, int causal, int window, cudaStream_t s) {
+    return launch_tile<float, HD>(q, k, v, o, lse, B, Sq, Skv, H, KV, D,
+                                  scale, causal, window, s);
 }
 
+// The tensor maps take the tensors' own D as their innermost dim: a
+// column block that reaches past D is zero-filled on load and clipped on
+// store, so the capacity HD needs no padded copy.
 template <int HD, int NC>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                 float* lse, int B, int Sq, int Skv, int H, int KV,
-                 int causal, int window, cudaStream_t stream) {
+                 float* lse, int B, int Sq, int Skv, int H, int KV, int D,
+                 float scale, int causal, int window, cudaStream_t stream) {
     using P = Plan<HD, NC>;
     CUtensorMap qm, km, vm, om;
-    if (!hp::tensor_map(&qm, q, B, Sq, H, HD, P::BQ, P::SW) ||
-        !hp::tensor_map(&km, k, B, Skv, KV, HD, kBK, P::SW) ||
-        !hp::tensor_map(&vm, v, B, Skv, KV, HD, kBK, P::SW) ||
-        !hp::tensor_map(&om, o, B, Sq, H, HD, kRows, P::SW)) {
+    if (!hp::tensor_map(&qm, q, B, Sq, H, D, P::BQ, P::SW) ||
+        !hp::tensor_map(&km, k, B, Skv, KV, D, kBK, P::SW) ||
+        !hp::tensor_map(&vm, v, B, Skv, KV, D, kBK, P::SW) ||
+        !hp::tensor_map(&om, o, B, Sq, H, D, kRows, P::SW)) {
         return (int)cudaErrorInvalidValue;
     }
     auto kern = flash_prefill_wgmma_kernel<HD, NC>;
@@ -468,7 +474,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     const double log2e = 1.4426950408889634;
     kern<<<grid, P::THREADS, P::bytes(), stream>>>(
         qm, km, vm, om, lse, Sq, Skv, H, KV, causal, window,
-        (float)(log2e / sqrt((double)HD)));
+        (float)(log2e * scale));
     return (int)cudaGetLastError();
 }
 
@@ -482,43 +488,45 @@ int consumers(int B, int Sq, int H) {
 // of a consumer's 240 registers) flash_tile.cuh's tile fold.
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int Sq, int Skv, int H, int KV,
-                int causal, int window, cudaStream_t s) {
+                float* lse, int B, int Sq, int Skv, int H, int KV, int D,
+                float scale, int causal, int window, cudaStream_t s) {
     if constexpr (HD > 128) {
         return launch_tile<__nv_bfloat16, HD>(q, k, v, o, lse, B, Sq, Skv,
-                                              H, KV, causal, window, s);
+                                              H, KV, D, scale, causal,
+                                              window, s);
     } else if (consumers(B, Sq, H) == 1) {
-        return launch_wgmma<HD, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                                   causal, window, s);
+        return launch_wgmma<HD, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV, D,
+                                   scale, causal, window, s);
     } else {
-        return launch_wgmma<HD, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV,
-                                   causal, window, s);
+        return launch_wgmma<HD, 2>(q, k, v, o, lse, B, Sq, Skv, H, KV, D,
+                                   scale, causal, window, s);
     }
 }
 
 }  // namespace
 
 // q [B, Sq, H, D], k/v [B, Skv, KV, D], out [B, Sq, H, D]; all
-// contiguous, bf16 (is_bf16 = 1) or f32. lse: f32 [B, H, Sq], the row
-// logsumexp of the scaled logits, or null for none. Returns
-// cudaGetLastError().
+// contiguous, bf16 (is_bf16 = 1) or f32; D a multiple of 8 up to 256.
+// scale: the softmax scale of the logits (D^-0.5 for the real D). lse:
+// f32 [B, H, Sq], the row logsumexp of the scaled logits, or null for
+// none. Returns cudaGetLastError().
 extern "C" int istpu_flash_prefill(const void* q, const void* k,
                                    const void* v, void* out, float* lse,
                                    int is_bf16,
                                    int B, int Sq, int Skv, int H, int KV,
-                                   int D, int causal, int window,
-                                   void* stream) {
+                                   int D, float scale, int causal,
+                                   int window, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ISTPU_HD(fn)                                                        \
-    switch (D) {                                                            \
-        case 32: return fn<32>(q, k, v, out, lse, B, Sq, Skv, H, KV,        \
-                               causal, window, s);                          \
-        case 64: return fn<64>(q, k, v, out, lse, B, Sq, Skv, H, KV,        \
-                               causal, window, s);                          \
-        case 128: return fn<128>(q, k, v, out, lse, B, Sq, Skv, H, KV,      \
-                                 causal, window, s);                        \
-        case 256: return fn<256>(q, k, v, out, lse, B, Sq, Skv, H, KV,      \
-                                 causal, window, s);                        \
+    switch (istpu::head_dim_capacity(D)) {                                  \
+        case 32: return fn<32>(q, k, v, out, lse, B, Sq, Skv, H, KV, D,     \
+                               scale, causal, window, s);                   \
+        case 64: return fn<64>(q, k, v, out, lse, B, Sq, Skv, H, KV, D,     \
+                               scale, causal, window, s);                   \
+        case 128: return fn<128>(q, k, v, out, lse, B, Sq, Skv, H, KV, D,   \
+                                 scale, causal, window, s);                 \
+        case 256: return fn<256>(q, k, v, out, lse, B, Sq, Skv, H, KV, D,   \
+                                 scale, causal, window, s);                 \
         default: return (int)cudaErrorInvalidValue;                         \
     }
     if (is_bf16) {

@@ -1,13 +1,16 @@
 // Tile code shared by the tile-loop flash prefill (flash_prefill.cu: f32,
-// and bf16 at hd 256), paged verify (paged_verify.cu) and flash backward
-// (flash_bwd_dq.cu, flash_bwd_dkv.cu: f32, and bf16 at hd 256) kernels.
+// and bf16 at hd 256) and flash backward (flash_bwd_dq.cu,
+// flash_bwd_dkv.cu: f32, and bf16 at hd 256) kernels.
 // A CTA of 4 warps owns 64 rows, 16 per warp, staged in shared memory
 // with the tiles of TK rows it is folding (TK = 64, or 32 for f32 at hd
 // 256, so that the tiles fit in the 227 KB one block may use). bf16 runs
 // the tile products on the tensor cores (wmma 16x16x16, f32
 // accumulation); f32 runs plain FMA loops, so f32 stays true f32 (no
 // TF32). Softmax arithmetic is f32 in registers, two lanes per row, with
-// -1e30 as the masked logit. The dense kernels (K1, K5, K6) share one
+// -1e30 as the masked logit. HD is the kernels' compile-time capacity;
+// the tensors' own head dim D (a multiple of 8, at most HD) strides the
+// rows in device memory, columns at or past D are staged as zero and
+// never stored. The dense kernels (K1, K5, K6) share one
 // live-tile range, one interior rule and one mask, so the forward and
 // the backward can never disagree on which (query, key) pairs count; the
 // bf16 wgmma kernels (their own TMA tiles) take the ranges and the
@@ -248,12 +251,13 @@ __device__ __forceinline__ void fold_tile(const QRegs<T, HD>& qf,
     __syncwarp();
 }
 
-// Rows [start, start + ROWS) of one head, zero past `n_rows`, 16 bytes a
-// thread per step. Rows are `row_stride` elements apart in global memory.
+// Rows [start, start + ROWS) of one head, zero past `n_rows` and in the
+// columns at or past D, 16 bytes a thread per step. Rows are
+// `row_stride` elements apart in global memory.
 template <typename T, int HD, int LD, int ROWS = BK>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           size_t row_stride, int start,
-                                          int n_rows) {
+                                          int n_rows, int D) {
     constexpr int VEC = 16 / sizeof(T);
     constexpr int VPR = HD / VEC;
     for (int i = threadIdx.x; i < ROWS * VPR; i += THREADS) {
@@ -261,7 +265,7 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src,
         const int c = (i % VPR) * VEC;
         const int s = start + r;
         uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (s < n_rows) {
+        if (s < n_rows && c < D) {
             val = *reinterpret_cast<const uint4*>(src + (size_t)s * row_stride + c);
         }
         *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
@@ -488,11 +492,12 @@ struct RowAcc {
     }
 
     // Write the lane's half row (row lane / 2 of the warp's 16) to `dst`
-    // (COLS / 2 elements, at column half * COLS / 2 of the accumulator's
-    // columns) if `live`; Sw is the warp's f32 scratch, used to unpack
+    // (its first `cols` of COLS / 2 elements, at column half * COLS / 2
+    // of the accumulator's columns: the others lie at or past the
+    // tensor's D) if `live`; Sw is the warp's f32 scratch, used to unpack
     // the fragments.
-    __device__ __forceinline__ void store(T* dst, bool live, float* Sw,
-                                          int lane) {
+    __device__ __forceinline__ void store(T* dst, bool live, int cols,
+                                          float* Sw, int lane) {
         constexpr int SLD = Layout<T, HD>::SLD;
         const int r = lane >> 1, half = lane & 1;
         if constexpr (sizeof(T) == 2) {
@@ -505,13 +510,18 @@ struct RowAcc {
             if (live) {
 #pragma unroll
                 for (int c = 0; c < COLS / 2; ++c) {
-                    dst[c] = from_float<T>(Sw[r * SLD + half * (COLS / 2) + c]);
+                    if (c < cols) {
+                        dst[c] = from_float<T>(
+                            Sw[r * SLD + half * (COLS / 2) + c]);
+                    }
                 }
             }
             __syncwarp();
         } else if (live) {
 #pragma unroll
-            for (int c = 0; c < COLS / 2; ++c) dst[c] = a[c];
+            for (int c = 0; c < COLS / 2; ++c) {
+                if (c < cols) dst[c] = a[c];
+            }
         }
     }
 };

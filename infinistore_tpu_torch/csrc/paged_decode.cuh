@@ -1,6 +1,6 @@
-// Shared by the paged decode kernels (paged_decode.cu, K2, and
-// paged_decode_q.cu, K4): the query rows a CTA takes, and the merge of
-// the warps' partial online-softmax states at the end of its page walk.
+// The int8 paged decode kernel's (paged_decode_q.cu, K4) query rows a
+// CTA takes, and the merge of the warps' partial online-softmax states at
+// the end of its page walk.
 #pragma once
 
 #include "common.cuh"
@@ -23,13 +23,14 @@ inline int decode_block_rows(int group, int hd) {
 // Merge the partial states of a CTA's WARPS warps and write the first
 // `rows` of its G query rows (the others pad the block: never stored).
 // Each lane holds, for row g, the warp's running max m[g], sum l[g] and
-// acc[g][e] for dims lane * (HD / 32) + e. Row g goes to out + g * HD,
-// normalised by the merged sum (0 for a row that saw no token).
+// acc[g][e] for dims lane * (HD / 32) + e. Row g goes to out + g * D (its
+// first D of HD columns), normalised by the merged sum (0 for a row that
+// saw no token).
 template <typename T, int WARPS, int G, int HD>
 __device__ __forceinline__ void merge_warps_store(const float (&m)[G],
                                                   const float (&l)[G],
                                                   const float (&acc)[G][HD / 32],
-                                                  int rows,
+                                                  int rows, int D,
                                                   T* __restrict__ out) {
     constexpr int EPL = HD / 32;
     __shared__ float sm_m[WARPS][G];
@@ -50,6 +51,7 @@ __device__ __forceinline__ void merge_warps_store(const float (&m)[G],
     for (int i = threadIdx.x; i < rows * HD; i += WARPS * 32) {
         const int g = i / HD;
         const int d = i % HD;
+        if (d >= D) continue;
         float mx = kNegInf;
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, sm_m[w][g]);
@@ -60,7 +62,7 @@ __device__ __forceinline__ void merge_warps_store(const float (&m)[G],
             lsum = fmaf(sm_l[w][g], f, lsum);
             a = fmaf(sm_acc[w][g][d], f, a);
         }
-        out[(size_t)g * HD + d] = from_float<T>(lsum > 0.0f ? a / lsum : 0.0f);
+        out[(size_t)g * D + d] = from_float<T>(lsum > 0.0f ? a / lsum : 0.0f);
     }
 }
 

@@ -19,20 +19,24 @@
 // 2 * group FLOPs per K/V element: far below the ~295 FLOP/byte balance
 // point, so the least time is those bytes over 3.35 TB/s.
 //
-// Design: K2's (csrc/paged_decode.cu), with int8 loads. One CTA owns one
-// (sequence, kv head, block of up to 8 query rows of its GQA group, 4 at
-// hd 256) and reads its own page ids from the table, clamps each into
+// Design: the walk of K2's first port (one CTA per sequence and kv head;
+// K2 now runs the split-K kernel of paged_split.cu), with int8 loads.
+// HD is the compile-time capacity; the tensors' own head dim D strides
+// the pages and rows, and lanes whose dims lie past D add nothing and
+// store nothing. One CTA owns one (sequence, kv head, block of up to 8 query
+// rows of its GQA group, 4 at hd 256) and reads its own page ids from the table, clamps each into
 // the pool, and walks only the pages that hold live tokens (up to
 // (seq_len - 1) / page, and none wholly below the window floor
 // max(seq_len - window, 0)). Each of the 8 warps folds every 8th page,
-// 4 tokens a step with their loads issued together; a lane holds D / 32
-// dims, so at D = 128 its 4 int8 values of one token are one 32-bit load
+// 4 tokens a step with their loads issued together; a lane holds HD / 32
+// dims, so at HD = 128 its 4 int8 values of one token are one 32-bit load
 // (converted to float without I2F, see load_i8).
 // The token's scale is one f32 that every lane of the warp reads (one
 // broadcast load) and multiplies in after the warp-reduced dot product
 // (K) or into P (V). The warps' partial states merge through shared
 // memory at the end. One CTA per (sequence, kv head) fills few SMs at
-// small batch: split-K over pages, with K2's, is the first redesign.
+// small batch: moving onto the split-K kernel, with int8 loads, is its
+// redesign.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -97,8 +101,8 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
                       const float* __restrict__ vs,
                       const int* __restrict__ page_table,
                       const int* __restrict__ seq_lens, T* __restrict__ out,
-                      int H, int KV, int group, int N, int P, int max_pages,
-                      int window, float scale) {
+                      int H, int KV, int D, int group, int N, int P,
+                      int max_pages, int window, float scale) {
     constexpr int EPL = HD / 32;  // head dims held by one lane
 
     const int kvh = blockIdx.x;
@@ -106,6 +110,12 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     const int warp = threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
     const int d0 = lane * EPL;
+    // D is a multiple of 8, so a lane's dims lie wholly below D or at or
+    // past it. A lane past D reads dims [0, EPL) of each token (valid
+    // memory, no branch in the walk) against a zero q, so its dot product
+    // adds nothing, and its acc is never stored.
+    const bool live_dims = d0 < D;
+    const int d_ld = live_dims ? d0 : 0;
     // This block's query rows: head0 .. head0 + rows - 1.
     const int g0 = blockIdx.z * G;
     const int rows = min(G, group - g0);
@@ -114,10 +124,10 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     float qr[G][EPL];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-        const T* qrow = q + (head0 + g) * HD + d0;
+        const T* qrow = q + (head0 + g) * D + d0;
 #pragma unroll
         for (int e = 0; e < EPL; ++e) {
-            qr[g][e] = g < rows ? to_float(qrow[e]) : 0.0f;
+            qr[g][e] = g < rows && live_dims ? to_float(qrow[e]) : 0.0f;
         }
     }
 
@@ -133,12 +143,12 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
     const int seq_len = seq_lens[b];
     const int low = window > 0 ? max(seq_len - window, 0) : 0;
     const int last_page = seq_len > 0 ? min((seq_len - 1) / P, max_pages - 1) : -1;
-    const size_t tok_stride = (size_t)KV * HD;
+    const size_t tok_stride = (size_t)KV * D;
 
     for (int j = low / P + warp; j <= last_page; j += WARPS) {
         const int pid = min(max(page_table[(size_t)b * max_pages + j], 0), N - 1);
         const size_t tok0 = (size_t)pid * P;  // the page's first token row
-        const size_t page_off = (tok0 * KV + kvh) * HD + d0;
+        const size_t page_off = (tok0 * KV + kvh) * D + d_ld;
         const size_t scale_off = tok0 * KV + kvh;
         const int start = j * P;
         const int t_begin = max(low - start, 0);
@@ -204,8 +214,8 @@ paged_decode_q_kernel(const T* __restrict__ q, const int8_t* __restrict__ kq,
         }
     }
 
-    istpu::merge_warps_store<T, WARPS, G, HD>(m, l, acc, rows,
-                                              out + head0 * HD);
+    istpu::merge_warps_store<T, WARPS, G, HD>(m, l, acc, rows, D,
+                                              out + head0 * D);
 }
 
 struct Args {
@@ -217,7 +227,8 @@ struct Args {
     const int* pt;
     const int* sl;
     void* out;
-    int B, H, KV, N, P, max_pages, window;
+    int B, H, KV, D, N, P, max_pages, window;
+    float scale;
     cudaStream_t stream;
 };
 
@@ -227,8 +238,8 @@ int launch(const Args& a) {
     const dim3 grid(a.KV, a.B, (group + G - 1) / G);
     paged_decode_q_kernel<T, HD, G><<<grid, THREADS, 0, a.stream>>>(
         static_cast<const T*>(a.q), a.kq, a.ks, a.vq, a.vs, a.pt, a.sl,
-        static_cast<T*>(a.out), a.H, a.KV, group, a.N, a.P, a.max_pages,
-        a.window, (float)(1.0 / sqrt((double)HD)));
+        static_cast<T*>(a.out), a.H, a.KV, a.D, group, a.N, a.P,
+        a.max_pages, a.window, a.scale);
     return (int)cudaGetLastError();
 }
 
@@ -245,8 +256,8 @@ int dispatch_g(const Args& a) {
 }
 
 template <typename T>
-int dispatch_hd(int D, const Args& a) {
-    switch (D) {
+int dispatch_hd(const Args& a) {
+    switch (istpu::head_dim_capacity(a.D)) {
         case 32: return dispatch_g<T, 32>(a);
         case 64: return dispatch_g<T, 64>(a);
         case 128: return dispatch_g<T, 128>(a);
@@ -258,16 +269,17 @@ int dispatch_hd(int D, const Args& a) {
 }  // namespace
 
 // q [B, H, D] (bf16 if is_bf16, else f32); k_q / v_q int8 [N, P, KV, D],
-// 4-byte aligned; k_s / v_s f32 [N, P, KV]; page_table int32
-// [B, max_pages]; seq_lens int32 [B] (tokens including the current one);
-// out [B, H, D] in q's type. All contiguous. Returns cudaGetLastError().
+// 4-byte aligned, D a multiple of 8 up to 256; k_s / v_s f32 [N, P, KV];
+// page_table int32 [B, max_pages]; seq_lens int32 [B] (tokens including
+// the current one); scale: the softmax scale (D^-0.5); out [B, H, D] in
+// q's type. All contiguous. Returns cudaGetLastError().
 extern "C" int istpu_paged_decode_q(const void* q, const void* k_q,
                                     const void* k_s, const void* v_q,
                                     const void* v_s, const void* page_table,
                                     const void* seq_lens, void* out,
                                     int is_bf16, int B, int H, int KV, int D,
-                                    int N, int P, int max_pages, int window,
-                                    void* stream) {
+                                    float scale, int N, int P, int max_pages,
+                                    int window, void* stream) {
     const Args a{q,
                  static_cast<const int8_t*>(k_q),
                  static_cast<const float*>(k_s),
@@ -275,8 +287,8 @@ extern "C" int istpu_paged_decode_q(const void* q, const void* k_q,
                  static_cast<const float*>(v_s),
                  static_cast<const int*>(page_table),
                  static_cast<const int*>(seq_lens),
-                 out, B, H, KV, N, P, max_pages, window,
+                 out, B, H, KV, D, N, P, max_pages, window, scale,
                  static_cast<cudaStream_t>(stream)};
-    if (is_bf16) return dispatch_hd<__nv_bfloat16>(D, a);
-    return dispatch_hd<float>(D, a);
+    if (is_bf16) return dispatch_hd<__nv_bfloat16>(a);
+    return dispatch_hd<float>(a);
 }

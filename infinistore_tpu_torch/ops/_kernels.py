@@ -30,32 +30,36 @@ _lib = None
 
 _P = ct.c_void_p
 _I = ct.c_int
-# name -> argtypes of the C entry points (csrc/*.cu).
+_F = ct.c_float
+# name -> argtypes of the C entry points (csrc/*.cu). D is the tensors'
+# own head dim and scale the softmax scale (D ** -0.5).
 _DECLS = {
-    # q, k, v, out, lse (or null), is_bf16, B, Sq, Skv, H, KV, D, causal,
-    # window, stream
-    "istpu_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _I, _I, _P],
-    # q, k, v, dout, lse, dvec, dq, is_bf16, B, Sq, Skv, H, KV, D, causal,
-    # window, stream
-    "istpu_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _P],
-    # q, k, v, dout, lse, dvec, dk, dv, is_bf16, B, Sq, Skv, H, KV, D,
+    # q, k, v, out, lse (or null), is_bf16, B, Sq, Skv, H, KV, D, scale,
     # causal, window, stream
+    "istpu_flash_prefill": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _F, _I, _I, _P],
+    # q, k, v, dout, lse, dvec, dq, is_bf16, B, Sq, Skv, H, KV, D, scale,
+    # causal, window, stream
+    "istpu_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _I, _P],
+    # q, k, v, dout, lse, dvec, dk, dv, is_bf16, B, Sq, Skv, H, KV, D,
+    # scale, causal, window, stream
     "istpu_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _I, _I, _P],
-    # q, k_pages, v_pages, page_table, seq_lens, out, is_bf16,
-    # B, H, KV, D, N, P, max_pages, window, stream
-    "istpu_paged_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _P],
+                            _I, _I, _I, _F, _I, _I, _P],
+    # q, k_pages, v_pages, page_table, seq_lens, out, ws_ml, ws_acc,
+    # is_bf16, B, H, KV, D, scale, N, P, max_pages, window, row_tile,
+    # n_splits, pages_per_split, stream
+    "istpu_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _F, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_q, k_s, v_q, v_s, page_table, seq_lens, out, is_bf16,
-    # B, H, KV, D, N, P, max_pages, window, stream
+    # B, H, KV, D, scale, N, P, max_pages, window, stream
     "istpu_paged_decode_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _I, _I, _I, _I, _P],
-    # q, k_pages, v_pages, page_table, seq_lens, out, is_bf16,
-    # B, m, H, KV, D, N, P, max_pages, window, stream
-    "istpu_paged_verify": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _I, _P],
+                             _I, _I, _F, _I, _I, _I, _I, _P],
+    # q, k_pages, v_pages, page_table, seq_lens, out, ws_ml, ws_acc,
+    # is_bf16, B, m, H, KV, D, scale, N, P, max_pages, window, row_tile,
+    # n_splits, pages_per_split, stream
+    "istpu_paged_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -113,23 +117,52 @@ def lib():
     return _lib
 
 
-# Head dims every CUDA route takes. The kernels derive the softmax scale
-# from the head dim as a template argument, so another head dim needs the
-# scale passed in first.
+# Head dims the kernels are instantiated for: each is a compile-time
+# capacity, and a kernel takes any head dim up to it (common.cuh's
+# head_dim_capacity; the softmax scale comes from the wrapper).
 HEAD_DIMS = (32, 64, 128, 256)
 
 
+def kernel_head_dim(hd):
+    """The instantiation that serves head dim ``hd``: the least of
+    HEAD_DIMS at or above it."""
+    return next(d for d in HEAD_DIMS if d >= hd)
+
+
 def check_head_shape(hd, n_heads, n_kv, kernel):
-    """The shape rule of every kernel wrapper: hd in HEAD_DIMS and any GQA
-    group (n_heads a positive multiple of n_kv). Raises ValueError."""
+    """The shape rule of every kernel wrapper: a head dim that is a
+    multiple of 8 from 8 to 256 (a row is then whole 16-byte vectors, as
+    TMA's strides and the kernels' vector loads need) and any GQA group
+    (n_heads a positive multiple of n_kv). Raises ValueError."""
     if n_kv < 1 or n_heads < n_kv or n_heads % n_kv:
         raise ValueError(f"{kernel}: n_heads {n_heads} is not a positive "
                          f"multiple of n_kv {n_kv}")
-    if hd not in HEAD_DIMS:
+    if not (8 <= hd <= HEAD_DIMS[-1] and hd % 8 == 0):
         raise ValueError(
-            f"{kernel}: head_dim {hd} is not in {HEAD_DIMS}, the head dims "
-            "the CUDA kernels are built for (fault F1's remainder: other "
-            "head dims need the softmax scale passed to the kernels)")
+            f"{kernel}: head_dim {hd} is not a multiple of 8 from 8 to "
+            f"{HEAD_DIMS[-1]}, the head dims the CUDA kernels take (fault "
+            "F1's remainder, a limit of the port)")
+
+
+def softmax_scale(hd):
+    """The softmax scale every kernel is given: hd ** -0.5 of the real
+    head dim, as the JAX package's kernels take it."""
+    return float(hd) ** -0.5
+
+
+_sm_counts = {}
+
+
+def sm_count(device):
+    """The number of SMs of a CUDA device (a host-side property, cached;
+    no device sync)."""
+    count = _sm_counts.get(device)
+    if count is None:
+        import torch
+
+        count = _sm_counts[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return count
 
 
 def check(err, what):

@@ -89,8 +89,8 @@ def flash_prefill_attention(q, k, v, causal=True, window=0, with_lse=False):
     """Launch K1, the CUDA flash prefill kernel.
 
     q: [batch, s_q, n_heads, hd]; k/v: [batch, s_kv, n_kv, hd], CUDA,
-    contiguous, bf16 or float32, n_heads a multiple of n_kv, hd in
-    (32, 64, 128, 256). s_kv may exceed s_q (suffix over a cached prefix:
+    contiguous, bf16 or float32, n_heads a multiple of n_kv, hd a
+    multiple of 8 up to 256. s_kv may exceed s_q (suffix over a cached prefix:
     the causal diagonal shifts by s_kv - s_q). Returns [batch, s_q,
     n_heads, hd] in q's dtype; with ``with_lse``, also the row logsumexp
     of the scaled logits, float32 [batch, n_heads, s_q]."""
@@ -103,8 +103,9 @@ def flash_prefill_attention(q, k, v, causal=True, window=0, with_lse=False):
         err = _kernels.lib().istpu_flash_prefill(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), _DTYPES[q.dtype],
-            batch, s_q, s_kv, n_heads, n_kv, hd, int(bool(causal)),
-            int(window), _kernels.stream_handle(q.device),
+            batch, s_q, s_kv, n_heads, n_kv, hd, _kernels.softmax_scale(hd),
+            int(bool(causal)), int(window),
+            _kernels.stream_handle(q.device),
         )
         _kernels.check(err, "flash_prefill")
         launches += 1
@@ -124,8 +125,8 @@ def flash_bwd_dq(q, k, v, do, lse, dvec, causal=True, window=0):
     err = _kernels.lib().istpu_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dq.data_ptr(), _DTYPES[q.dtype],
-        batch, s_q, s_kv, n_heads, n_kv, hd, int(bool(causal)), int(window),
-        _kernels.stream_handle(q.device),
+        batch, s_q, s_kv, n_heads, n_kv, hd, _kernels.softmax_scale(hd),
+        int(bool(causal)), int(window), _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "flash_bwd_dq")
     dq_launches += 1
@@ -147,7 +148,8 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal=True, window=0):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _DTYPES[q.dtype], batch, s_q, s_kv, n_heads, n_kv, hd,
-        int(bool(causal)), int(window), _kernels.stream_handle(q.device),
+        _kernels.softmax_scale(hd), int(bool(causal)), int(window),
+        _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "flash_bwd_dkv")
     dkv_launches += 1

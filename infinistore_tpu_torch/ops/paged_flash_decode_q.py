@@ -44,7 +44,7 @@ def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
     page_table: int32 [batch, max_pages] (padded arbitrarily: ids are
     clamped into the pool); seq_lens: int32 [batch], tokens per sequence
     including the current one. All on one CUDA device and contiguous;
-    hd in (32, 64, 128, 256), any GQA group. Returns [batch, n_heads,
+    hd a multiple of 8 up to 256, any GQA group. Returns [batch, n_heads,
     hd] in q's dtype."""
     global launches
     if q.dim() != 3 or k_q.dim() != 4:
@@ -88,8 +88,9 @@ def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
     err = lib.istpu_paged_decode_q(
         q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
         v_s.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], batch, n_heads, n_kv, hd, n_pages,
-        page, page_table.shape[1], int(window), _kernels.stream_handle(dev),
+        out.data_ptr(), _DTYPES[q.dtype], batch, n_heads, n_kv, hd,
+        _kernels.softmax_scale(hd), n_pages, page, page_table.shape[1],
+        int(window), _kernels.stream_handle(dev),
     )
     _kernels.check(err, "paged_decode_q")
     launches += 1

@@ -1,5 +1,5 @@
-"""Paged flash verify attention: the CUDA kernel ``csrc/paged_verify.cu``
-and its dispatcher.
+"""Paged flash verify attention (K3): the split-K CUDA kernel
+``csrc/paged_split.cu``, and its dispatcher.
 
 Counterpart of ``infinistore_tpu/ops/pallas_paged_attention.py``
 (``paged_flash_verify`` / ``verify_attention``): m new tokens per
@@ -9,15 +9,11 @@ plain version is ``paged_attention.multi_token_paged_attention``;
 launches the kernel or raises — there is no fallback.
 """
 
-import torch
-
-from . import _kernels
+from . import paged_split
 from .paged_attention import multi_token_paged_attention
 
 # Launches of the kernel (incremented only where it is launched).
 launches = 0
-
-_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
 def reset_launches():
@@ -32,50 +28,21 @@ def paged_flash_verify(q, k_pages, v_pages, page_table, seq_lens, window=0):
     hd]; page_table: int32 [batch, max_pages] (ids clamped into the
     pool); seq_lens: int32 [batch], tokens in the cache BEFORE the m new
     ones (whose KV is already in the pages at seq_lens + j). All on one
-    CUDA device and contiguous; q and the pages bf16 or float32, n_heads
-    a multiple of n_kv, hd in (32, 64, 128, 256), any page size. Returns
-    [batch, m, n_heads, hd]."""
+    CUDA device, contiguous and 16-byte aligned; q and the pages bf16 or
+    float32, n_heads a multiple of n_kv, hd a multiple of 8 up to 256,
+    any page size. Returns [batch, m, n_heads, hd]; a row with no
+    position to attend (its window floor at or past the table's end) gets
+    zeros."""
     global launches
     if q.dim() != 4 or k_pages.dim() != 4:
         raise ValueError("q must be [batch, m, heads, hd] and the pages "
                          "[n_pages, page, n_kv, hd]")
-    _kernels.check_head_shape(q.shape[3], q.shape[2], k_pages.shape[2],
-                              "paged_verify")
-    dev = q.device
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_table", page_table), ("seq_lens", seq_lens)):
-        if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor on {dev}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} dtype {t.dtype} != q dtype {q.dtype}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"q dtype {q.dtype} (need bf16 or f32)")
-    if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
-        raise TypeError("page_table and seq_lens must be int32")
-    batch, m, n_heads, hd = q.shape
-    n_pages, page, n_kv, hd_k = k_pages.shape
-    if v_pages.shape != k_pages.shape or hd_k != hd:
-        raise ValueError("page shapes do not agree with q")
-    if page_table.dim() != 2 or page_table.shape[0] != batch:
-        raise ValueError("page_table must be [batch, max_pages]")
-    if seq_lens.shape != (batch,):
-        raise ValueError("seq_lens must be [batch]")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = _kernels.lib()
-    err = lib.istpu_paged_verify(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        _DTYPES[q.dtype], batch, m, n_heads, n_kv, hd, n_pages, page,
-        page_table.shape[1], int(window), _kernels.stream_handle(dev),
-    )
-    _kernels.check(err, "paged_verify")
+    paged_split.check_args("paged_verify", q, k_pages, v_pages, page_table,
+                           seq_lens)
+    if q.numel() == 0:
+        return q.new_empty(q.shape)
+    out = paged_split.launch("istpu_paged_verify", q, k_pages, v_pages,
+                             page_table, seq_lens, window, q.shape[1])
     launches += 1
     return out
 

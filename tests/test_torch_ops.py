@@ -253,14 +253,20 @@ from infinistore_tpu_torch.ops import paged_flash_decode_q as pq  # noqa: E402
     (128, 28, 4),    # Qwen2-7B: group 7
     (128, 128, 8),   # Llama-3.1-405B: group 16
     (32, 5, 5),
+    (80, 32, 32),    # microsoft/phi-2
+    (96, 32, 32),    # microsoft/Phi-3-mini
+    (16, 4, 2),      # below the smallest instantiation (32)
 ])
 def test_shape_rule_accepts_hd_256_and_any_group(hd, n_heads, n_kv):
     _kernels.check_head_shape(hd, n_heads, n_kv, "test")
+    cap = _kernels.kernel_head_dim(hd)
+    assert cap in _kernels.HEAD_DIMS and hd <= cap
+    assert all(d < hd for d in _kernels.HEAD_DIMS if d < cap)
 
 
 @pytest.mark.parametrize("hd,n_heads,n_kv,match", [
-    (96, 8, 2, "F1"),        # a head dim the kernels are not built for
-    (80, 8, 8, "F1"),
+    (100, 8, 2, "F1"),       # not a multiple of 8: rows of 16-byte vectors
+    (320, 8, 8, "F1"),       # above the largest instantiation (256)
     (128, 6, 4, "multiple"),  # not a GQA group
     (128, 2, 4, "multiple"),
 ])
@@ -298,9 +304,9 @@ def _wrapper_calls(hd, n_heads, n_kv):
 
 def test_every_wrapper_calls_the_shape_rule(monkeypatch):
     """All six kernel wrappers go through _kernels.check_head_shape before
-    anything else: hd 96 is refused with F1's message (even for CPU
-    tensors), while hd 256 at group 7 passes the rule and is refused only
-    because the tensors are not on the card."""
+    anything else: hd 100 is refused with F1's message (even for CPU
+    tensors), while hd 256 at group 7 (and hd 96, phi-3's) passes the
+    rule and is refused only because the tensors are not on the card."""
     seen = []
     real = _kernels.check_head_shape
 
@@ -309,11 +315,12 @@ def test_every_wrapper_calls_the_shape_rule(monkeypatch):
         return real(hd, n_heads, n_kv, kernel)
 
     monkeypatch.setattr(_kernels, "check_head_shape", spy)
-    for name, call in _wrapper_calls(96, 4, 2).items():
+    for name, call in _wrapper_calls(100, 4, 2).items():
         with pytest.raises(ValueError, match="F1"):
             call()
-    assert seen == [96] * 6
-    for name, call in _wrapper_calls(256, 7, 1).items():
-        with pytest.raises(ValueError, match="CUDA"):
-            call()
-    assert seen == [96] * 6 + [256] * 6
+    assert seen == [100] * 6
+    for hd in (256, 96):
+        for name, call in _wrapper_calls(hd, 7, 1).items():
+            with pytest.raises(ValueError, match="CUDA"):
+                call()
+    assert seen == [100] * 6 + [256] * 6 + [96] * 6

@@ -1,202 +1,248 @@
 #!/usr/bin/env python3
-"""Time the flash kernels of this checkout against other checkouts', in
-turns, on one NVIDIA GPU: the prefill kernel (K1) or the backward kernels
-(K5 and K6).
+"""Time the attention kernels of this checkout against other checkouts',
+in turns, on one NVIDIA GPU: the prefill kernel (K1), the backward kernels
+(K5 and K6), the paged decode kernel (K2), the paged verify kernel (K3)
+or the int8 paged decode kernel (K4).
 
     python3 tools/torch_flash_ab.py OTHER_ROOT [OTHER_ROOT ...]
-        [--kernel prefill|bwd] [--iters 20] [--rounds 2] [--cases 0,1]
+        [--kernel prefill|bwd|decode|verify|decode_q] [--iters 20]
+        [--rounds 2] [--cases 0,1] [--timing eager|graph]
 
 Each OTHER_ROOT is a checkout of the repository (for example an earlier
-commit unpacked with ``git archive``), named by its directory's name: its
-infinistore_tpu_torch/csrc is built with this checkout's flags beside
-this checkout's csrc ("this"), into a temporary directory, side by side
-(the C entry points istpu_flash_prefill, istpu_flash_bwd_dq and
-istpu_flash_bwd_dkv are the same in all). With ``--kernel prefill`` each
-of chip_smoke.py's phase-2 FLASH_CASES, with ``--kernel bwd`` each of
-its phase-8 BWD_CASES (or those whose indices --cases lists), is then
-timed with CUDA events, ``--rounds`` times in the order others, this,
-this, others reversed, on the same inputs, and held to the plain version
-(K5 and K6 each timed alone; a build that refuses a shape reads none).
-Prints one line per case with each build's mean kernel ms and relative
-error, then the card line and a JSON summary as the last line. Exits
-non-zero if a build fails a case's tolerance.
+commit unpacked with ``git archive`` under the git-ignored
+``.archive_check/``), named by its directory's name; this checkout is
+"this". Each build is timed in a process of its own that imports that
+checkout's package (so the builds may differ in their C entry points),
+builds its kernels into its own ``_build/`` and times this checkout's
+chip_smoke.py cases on inputs made from the same seed: with ``--kernel
+prefill`` phase 2's FLASH_CASES, ``bwd`` phase 8's BWD_CASES (K5 and K6
+each timed alone), ``decode`` phase 3's DECODE_CASES, ``verify`` phase
+5's VERIFY_CASES, ``decode_q`` phase 3b's DECODE_Q_CASES (or those whose
+indices --cases lists). Prefill, the backward and K4 are timed with CUDA
+events over --iters launches (chip_smoke.cuda_ms: eager, the host's time
+per call included); decode and verify as device time
+(chip_smoke.graph_ms: --iters launches in one CUDA graph), since their
+kernels are shorter than the host's time per call. ``--timing`` picks
+either for decode, verify and decode_q.
+Each case is held to the build's own plain version; a build that
+refuses a shape reads "refused". The processes run --rounds times in the
+order others, this, this, others reversed. Prints one line per case with
+each build's mean kernel ms and relative error, then the card line and a
+JSON summary as the last line. Exits non-zero if a build fails a case's
+tolerance.
 """
 
 import argparse
 import json
 import os
-import shutil
 import statistics
+import subprocess
 import sys
-import tempfile
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke  # noqa: E402
 
-
-def build(kernels, native, work, roots):
-    """Build each root's csrc into ``work``; {label: library path}."""
-    compiles, links, libs = [], [], {}
-    for label, root in roots.items():
-        src = os.path.join(work, label)
-        shutil.copytree(os.path.join(root, "infinistore_tpu_torch", "csrc"),
-                        src)
-        objs = []
-        for name in sorted(os.listdir(src)):
-            if name.endswith(".cu"):
-                objs.append(os.path.join(src, name[:-3] + ".o"))
-                compiles.append([kernels._nvcc(), *kernels.NVCC_FLAGS, "-I",
-                                 src, "-c", os.path.join(src, name), "-o",
-                                 objs[-1]])
-        libs[label] = os.path.join(src, "libkernels.so")
-        links.append([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", *objs,
-                      "-o", libs[label]])
-    native.run_parallel(compiles)
-    native.run_parallel(links)
-    return libs
+KERNELS = ("prefill", "bwd", "decode", "verify", "decode_q")
 
 
-def prefill_ab(torch, fa, kernels, libs, order, picked, gen, args,
-               summary):
-    """The --kernel prefill rounds over chip_smoke's FLASH_CASES; appends
-    to ``summary``, returns False if a build fails a case's tolerance."""
-    from infinistore_tpu_torch.ops.paged_attention import prefill_attention
-
-    ok = True
-    kernels._lib = libs["this"]
-    for i, (c, (q, k, v), _, _) in enumerate(chip_smoke.flash_readings(
-            torch, fa.flash_prefill_attention, prefill_attention, gen)):
-        if picked and i not in picked:
-            continue
-        ref = prefill_attention(q, k, v, causal=c.causal, window=c.window)
-        times = {name: [] for name in libs}
-        rels = {}
-        for _ in range(args.rounds):
-            for name in order:
-                if times[name] is None:
-                    continue
-                kernels._lib = libs[name]
-                try:
-                    times[name].append(chip_smoke.cuda_ms(
-                        torch, lambda: fa.flash_prefill_attention(
-                            q, k, v, causal=c.causal, window=c.window),
-                        args.iters))
-                except RuntimeError:  # this build refuses the shape
-                    times[name] = None
-                    continue
-                out = fa.flash_prefill_attention(q, k, v, causal=c.causal,
-                                                 window=c.window)
-                torch.cuda.synchronize()
-                rels[name] = chip_smoke.rel_err(out, ref)
-        # flash_readings runs the next case's kernel with the current
-        # library: this checkout's, which takes every case.
-        kernels._lib = libs["this"]
-        ms = {name: statistics.mean(t) if t else None
-              for name, t in times.items()}
-        tol = chip_smoke.TOL_REL[c.dtype]
-        ok = ok and all(r <= tol for r in rels.values())
-        label = " ".join(f"{f}={getattr(c, f)}" for f in c._fields)
-        print(f"{label} (tol {tol:g}): " + "; ".join(
-            f"{name} {ms[name]:.4f} ms rel err {rels[name]:.3e}"
-            if ms[name] is not None else f"{name} refused"
-            for name in libs), flush=True)
-        summary.append(dict(case=c._asdict(), ms=ms, rel_err=rels,
-                            runs_ms=times))
-    return ok
+def cases(kernel):
+    return {"prefill": chip_smoke.FLASH_CASES, "bwd": chip_smoke.BWD_CASES,
+            "decode": chip_smoke.DECODE_CASES,
+            "verify": chip_smoke.VERIFY_CASES,
+            "decode_q": chip_smoke.DECODE_Q_CASES}[kernel]
 
 
-def bwd_ab(torch, fa, kernels, libs, order, picked, gen, args, summary):
-    """The --kernel bwd rounds over chip_smoke's BWD_CASES; appends to
-    ``summary``, returns False if a build fails a case's tolerance."""
-    ok = True
-    for i, case in enumerate(chip_smoke.BWD_CASES):
-        if picked and i not in picked:
-            continue
+def tolerance(kernel, case):
+    """chip_smoke.py's tolerance for a case of ``kernel``."""
+    if kernel == "bwd":
+        return chip_smoke.TOL_BWD[case[0]]
+    return chip_smoke.TOL_REL[case.dtype if kernel in ("prefill", "decode")
+                              else case[1]]
+
+
+def timer(kernel, timing):
+    """chip_smoke's timer for ``kernel`` under ``--timing``."""
+    if timing == "graph" or (timing is None
+                             and kernel in ("decode", "verify")):
+        return chip_smoke.graph_ms
+    return chip_smoke.cuda_ms
+
+
+def measure(torch, kernel, index, case, iters, timing=None):
+    """One case with the imported package's kernels: {"ms": ..., "rel":
+    ...} (bwd: "ms" is {"dq": ..., "dkv": ...}); raises ValueError or
+    RuntimeError where the build refuses the shape."""
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.ops import paged_attention as pa
+
+    gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED + index)
+    cs = chip_smoke
+    if kernel == "prefill":
+        c = case
+        q = torch.randn((c.batch, c.s_q, c.n_heads, c.hd), generator=gen,
+                        device="cuda").to(getattr(torch, c.dtype))
+        k, v = (torch.randn((c.batch, c.s_kv, c.n_kv, c.hd), generator=gen,
+                            device="cuda").to(q.dtype) for _ in range(2))
+
+        def run():
+            return fa.flash_prefill_attention(q, k, v, causal=c.causal,
+                                              window=c.window)
+
+        ref = pa.prefill_attention(q, k, v, causal=c.causal, window=c.window)
+        return {"ms": cs.cuda_ms(torch, run, iters),
+                "rel": cs.rel_err(run(), ref)}
+    if kernel == "bwd":
         dt, sq, skv, causal, win, hd, n_heads, n_kv = case
 
         def rn(*shape):
             return torch.randn(shape, generator=gen, device="cuda").to(
                 getattr(torch, dt))
 
-        q, k, v = (rn(1, sq, n_heads, hd), rn(1, skv, n_kv, hd),
-                   rn(1, skv, n_kv, hd))
+        q, k, v = rn(1, sq, n_heads, hd), rn(1, skv, n_kv, hd), \
+            rn(1, skv, n_kv, hd)
         do = rn(1, sq, n_heads, hd)
         o, lse = fa.flash_forward_lse_plain(q, k, v, causal, win)
         dvec = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        bargs = (q, k, v, do, lse, dvec, causal, win)
-        ref = {"dq": fa.flash_bwd_dq_plain(*bargs)}
-        ref["dk"], ref["dv"] = fa.flash_bwd_dkv_plain(*bargs)
-        fns = {"dq": lambda: fa.flash_bwd_dq(*bargs),
-               "dkv": lambda: fa.flash_bwd_dkv(*bargs)}
-        times = {name: {f: [] for f in fns} for name in libs}
-        rels = {}
-        for _ in range(args.rounds):
-            for name in order:
-                if times[name] is None:
-                    continue
-                kernels._lib = libs[name]
-                try:
-                    for f, fn in fns.items():
-                        times[name][f].append(chip_smoke.cuda_ms(
-                            torch, fn, args.iters))
-                    got = {"dq": fns["dq"]()}
-                    got["dk"], got["dv"] = fns["dkv"]()
-                    torch.cuda.synchronize()
-                except RuntimeError:  # this build refuses the shape
-                    times[name] = None
-                    continue
-                rels[name] = max(chip_smoke.grad_rel_err(
-                    got[n], ref[n], n != "dq") for n in ref)
-        tol = chip_smoke.TOL_BWD[dt]
-        ok = ok and all(r <= tol for r in rels.values())
-        ms = {name: ({f: statistics.mean(t) for f, t in tf.items()}
-                     if tf else None) for name, tf in times.items()}
-        print(f"bwd {case} (tol {tol:g}): " + "; ".join(
-            f"{name} " + (f"dq {ms[name]['dq']:.4f} dkv {ms[name]['dkv']:.4f}"
-                          f" ms rel err {rels[name]:.3e}" if ms[name]
-                          else "refused")
-            for name in libs), flush=True)
-        summary.append(dict(case=case, ms=ms, rel_err=rels, runs_ms=times))
-        del q, k, v, do, o, lse, dvec, bargs, ref
-    return ok
+        args = (q, k, v, do, lse, dvec, causal, win)
+        fns = {"dq": lambda: fa.flash_bwd_dq(*args),
+               "dkv": lambda: fa.flash_bwd_dkv(*args)}
+        ms = {f: cs.cuda_ms(torch, fn, iters) for f, fn in fns.items()}
+        got = {"dq": fns["dq"]()}
+        got["dk"], got["dv"] = fns["dkv"]()
+        ref = {"dq": fa.flash_bwd_dq_plain(*args)}
+        ref["dk"], ref["dv"] = fa.flash_bwd_dkv_plain(*args)
+        return {"ms": ms, "rel": max(cs.grad_rel_err(got[n], ref[n],
+                                                     n != "dq")
+                                     for n in ref)}
+    if kernel == "decode_q":
+        from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
+
+        args = cs.decode_q_args(torch, case, gen)
+
+        def run():
+            return pq.paged_flash_decode_quantized(*args, window=case[3])
+
+        ref = pq.paged_decode_quantized_plain(*args, window=case[3])
+        return {"ms": timer(kernel, timing)(torch, run, iters),
+                "rel": cs.rel_err(run(), ref)}
+    if kernel == "decode":
+        from infinistore_tpu_torch.ops import paged_flash_decode as pd
+
+        args = cs.decode_args(torch, case, gen)
+        win = case.window
+
+        def run():
+            return pd.paged_flash_decode(*args, window=win)
+
+        ref = pa.paged_decode_attention(*args, window=win)
+    else:
+        from infinistore_tpu_torch.ops import paged_flash_verify as pv
+
+        args = cs.verify_args(torch, case, gen)
+        win = case[4]
+
+        def run():
+            return pv.paged_flash_verify(*args, window=win)
+
+        ref = pa.multi_token_paged_attention(*args, window=win)
+    rel = cs.rel_err(run(), ref)
+    return {"ms": timer(kernel, timing)(torch, run, iters), "rel": rel}
+
+
+def worker(args):
+    """Time this process's checkout (args.worker) on the picked cases;
+    print {index: result or None} as JSON on the last line."""
+    sys.path.insert(0, os.path.abspath(args.worker))
+    import torch
+
+    from infinistore_tpu_torch._device import disable_tf32
+
+    disable_tf32()
+    picked = {int(i) for i in args.cases.split(",") if i}
+    out = {}
+    for i, case in enumerate(cases(args.kernel)):
+        if picked and i not in picked:
+            continue
+        try:
+            out[i] = measure(torch, args.kernel, i, case, args.iters,
+                             args.timing)
+        except (ValueError, RuntimeError) as e:  # the build refuses it
+            print(f"case {i}: refused: {e}", file=sys.stderr, flush=True)
+            out[i] = None
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return 0
 
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("other", nargs="+")
-    ap.add_argument("--kernel", choices=("prefill", "bwd"),
-                    default="prefill")
+    ap.add_argument("other", nargs="*")
+    ap.add_argument("--kernel", choices=KERNELS, default="prefill")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--cases", default="")
+    ap.add_argument("--timing", choices=("eager", "graph"))
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker:
+        return worker(args)
     import torch
 
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is False", flush=True)
         return 1
-    from infinistore_tpu_torch import _native
-    from infinistore_tpu_torch._device import disable_tf32
-    from infinistore_tpu_torch.ops import _kernels
-    from infinistore_tpu_torch.ops import flash_attention as fa
-
-    disable_tf32()
+    roots = {os.path.basename(os.path.abspath(r)): os.path.abspath(r)
+             for r in args.other}
+    roots["this"] = ROOT
+    others = [name for name in roots if name != "this"]
+    order = [*others, "this", "this", *reversed(others)]
+    runs = {name: [] for name in roots}
+    for _ in range(args.rounds):
+        for name in order:
+            cmd = [sys.executable, os.path.abspath(__file__), "--worker",
+                   roots[name], "--kernel", args.kernel, "--iters",
+                   str(args.iters), "--cases", args.cases]
+            if args.timing:
+                cmd += ["--timing", args.timing]
+            done = subprocess.run(cmd, capture_output=True, text=True,
+                                  cwd=roots[name])
+            if done.returncode != 0:
+                print(done.stdout[-4000:], done.stderr[-4000:], flush=True)
+                print(f"FAIL: the {name} build's process exited "
+                      f"{done.returncode}", flush=True)
+                return 1
+            runs[name].append(json.loads(done.stdout.strip().splitlines()[-1]))
     ok, summary = True, []
-    with tempfile.TemporaryDirectory() as work:
-        roots = {os.path.basename(os.path.abspath(r)): os.path.abspath(r)
-                 for r in args.other}
-        libs = {name: _kernels.load(path) for name, path in build(
-            _kernels, _native, work, {**roots, "this": ROOT}).items()}
-        order = [*roots, "this", "this", *reversed(list(roots))]
-        picked = {int(i) for i in args.cases.split(",") if i}
-        gen = torch.Generator(device="cuda").manual_seed(chip_smoke.SEED)
-        ab = bwd_ab if args.kernel == "bwd" else prefill_ab
-        ok = ab(torch, fa, _kernels, libs, order, picked, gen, args, summary)
-    _kernels._lib = None
+    all_cases = cases(args.kernel)
+    for key in runs["this"][0]:
+        case = all_cases[int(key)]
+        tol = tolerance(args.kernel, case)
+        line, row = [], dict(case=list(case), ms={}, rel_err={})
+        for name in roots:
+            res = [r[key] for r in runs[name]]
+            if any(r is None for r in res):
+                line.append(f"{name} refused")
+                row["ms"][name] = None
+                continue
+            if args.kernel == "bwd":
+                ms = {f: statistics.mean(r["ms"][f] for r in res)
+                      for f in ("dq", "dkv")}
+                text = f"dq {ms['dq']:.4f} dkv {ms['dkv']:.4f}"
+            else:
+                ms = statistics.mean(r["ms"] for r in res)
+                text = f"{ms:.4f}"
+            rel = max(r["rel"] for r in res)
+            ok = ok and rel <= tol
+            row["ms"][name], row["rel_err"][name] = ms, rel
+            row.setdefault("runs_ms", {})[name] = [r["ms"] for r in res]
+            line.append(f"{name} {text} ms rel err {rel:.3e}")
+        print(f"{args.kernel} {key} {tuple(case)} (tol {tol:g}): "
+              + "; ".join(line), flush=True)
+        summary.append(row)
     print(chip_smoke.card_line())
-    print(json.dumps({"ok": ok, "cases": summary}))
+    print(json.dumps({"ok": ok, "kernel": args.kernel, "cases": summary}))
     return 0 if ok else 1
 
 

@@ -4,8 +4,9 @@
     python3 tools/torch_kernel_faults.py [WORD]
 
 With WORD, only the faults whose name contains it are planted (for
-example ``decode_q:`` for K4's, ``bwd`` for K5's and K6's), beside the
-unchanged sources.
+example ``decode_q:`` for K4's, ``bwd`` for K5's and K6's, ``split:``
+for the split-K paged kernel's, K2's and K3's), beside the unchanged
+sources.
 
 Needs one NVIDIA GPU and nvcc. For the unchanged kernel sources and for
 each fault in FAULTS, copies infinistore_tpu_torch/csrc into a temporary
@@ -109,30 +110,47 @@ FAULTS = (
     ("bwd dkv: a stage released before the dK wgmma that reads its Q",
      "flash_bwd_dkv.cu", _DKV_TAIL, _DKV_TAIL_EARLY),
     ("bwd dkv: hd-256 column half written at column 0", "flash_bwd_dkv.cu",
-     "* KV + kvh) * HD + c0 +",
-     "* KV + kvh) * HD + 0 * c0 +"),
-    ("decode: skips the last page", "paged_decode.cu",
-     "j <= last_page; j += WARPS",
-     "j < last_page + (last_page == low / P); j += WARPS"),
-    ("decode: stops after 2048 tokens", "paged_decode.cu",
-     "j <= last_page; j += WARPS",
-     "j <= min(last_page, 2048 / P - 1); j += WARPS"),
-    ("decode: window floor one page high", "paged_decode.cu",
-     "for (int j = low / P + warp;",
-     "for (int j = (low > 0 ? low / P + 1 : 0) + warp;"),
-    # Rows past the group in its last block of query rows (K2 and K4)
-    # land on the next kv head's or sequence's rows.
-    ("decode: a padded group row stored", "paged_decode.cuh",
+     "* KV + kvh) * D + c0 +",
+     "* KV + kvh) * D + 0 * c0 +"),
+    # The split-K paged kernel (K2 and K3).
+    ("split: the last page of each split skipped", "paged_split.cu",
+     "const int s_hi = min(s_lo + a.pages_per_split * a.P, t_end);",
+     "const int s_hi = min(s_lo + (a.pages_per_split - 1) * a.P, t_end);"),
+    # An empty split's partial must count for nothing: written as m = 0,
+    # l = 1 it joins the merge with its unwritten acc.
+    ("split: an empty split merged as m = 0, l = 1", "paged_split.cu",
+     "r0 + i] = make_float2(kNegInf, 0.0f);",
+     "r0 + i] = make_float2(0.0f, 1.0f);"),
+    ("split: splits merged without rescaling to their common max",
+     "paged_split.cu",
+     "const float al = exp2f(M - m_new), f = exp2f(ml[j].x - m_new);",
+     "const float al = 1.0f, f = 1.0f;"),
+    ("split: decode's length offset off by one", "paged_split.cu",
+     "B, 1, H, KV, D, N, P, max_pages, window, -1, 0.0f,",
+     "B, 1, H, KV, D, N, P, max_pages, window, 0, 0.0f,"),
+    # Columns at or past D (zero) stored over the next row's first ones.
+    ("split: a column past D stored", "paged_split.cu",
+     "const int cols = a.D;",
+     "const int cols = row + 1 < n_rows ? a.D + 16 : a.D;"),
+    # Windowed splits cut only the pages the window spans: counted from
+    # page 0 instead of the floor's page, a long sequence's live positions
+    # lie past the last split.
+    ("split: windowed splits counted from page 0", "paged_split.cu",
+     "a.window > 0 ? max(base + 1 - a.window, 0) / a.P : 0;",
+     "a.window > 0 ? 0 * max(base + 1 - a.window, 0) / a.P : 0;"),
+    ("split: stops after 2048 positions", "paged_split.cu",
+     "const int t_end = a.max_pages * a.P;",
+     "const int t_end = min(a.max_pages * a.P, 2048);"),
+    ("split: window floor 16 positions high", "paged_split.cu",
+     "lo = max(window > 0 ? max(limit - window, 0) : 0, s_lo);",
+     "lo = max(window > 0 ? max(limit - window + 16, 0) : 0, s_lo);"),
+    ("split: causal limit one token too far", "paged_split.cu",
+     "const int limit = base + row / group + 1;",
+     "const int limit = base + row / group + 2;"),
+    # Rows past the group in K4's last block of query rows land on the
+    # next kv head's or sequence's rows.
+    ("decode_q: a padded group row stored", "paged_decode.cuh",
      "i < rows * HD;", "i < G * HD;"),
-    ("verify: skips the last live page", "paged_verify.cu",
-     "if (pos < hi) {",
-     "if (pos < (hi - 1) / P * P) {"),
-    ("verify: limit one token too far", "paged_verify.cu",
-     "const int limit = seq_len + min(row, R - 1) / G + 1;",
-     "const int limit = seq_len + min(row, R - 1) / G + 2;"),
-    ("verify: window floor a page high", "paged_verify.cu",
-     "const int low = window > 0 ? limit - window : 0;",
-     "const int low = window > 0 ? limit - window + P : 0;"),
     ("decode_q: V scaled by K's scales", "paged_decode_q.cu",
      "vsc[c] = vs[scale_off + (size_t)t * KV];",
      "vsc[c] = ks[scale_off + (size_t)t * KV];"),

@@ -6,8 +6,10 @@
 Needs nvcc (the machine with the card). Compiles each
 infinistore_tpu_torch/csrc/*.cu with the flags of ops/_kernels.py plus
 ``-Xptxas -v`` into a temporary directory, side by side, and prints one
-line per kernel variant: registers a thread, spill stores and loads in
-bytes (and any ptxas note that it serialised a kernel's wgmma). Then,
+line per kernel variant: registers a thread, spill stores and loads and
+the stack frame in bytes (an array the compiler could not keep in
+registers lives there), and any ptxas note that it serialised a
+kernel's wgmma. Then,
 for each variant of the flash kernels (K1, K5, K6), the count of HGMMA
 (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in its
 SASS (``cuobjdump -sass`` of the built objects): the bf16 ``*_wgmma``
@@ -87,17 +89,18 @@ def main():
                 m = re.search(r"Compiling entry function '(\w+)'", line)
                 if m:
                     kernel = pretty(m.group(1))
-                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                              r"loads", line)
+                m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                              r"stores, (\d+) bytes spill loads", line)
                 if m:
                     spill = m.groups()
                 if "C7513" in line:  # ptxas serialised the wgmma pipeline
                     print("  " + line.strip())
                 m = re.search(r"Used (\d+) registers", line)
                 if m and kernel:
+                    stack, st, ld = spill or (0, 0, 0)
                     print(f"  {kernel}: {m.group(1)} registers, spill "
-                          f"stores/loads {spill[0] if spill else 0}/"
-                          f"{spill[1] if spill else 0} bytes")
+                          f"stores/loads {st}/{ld} bytes, stack frame "
+                          f"{stack} bytes")
                     kernel = spill = None
             if proc.returncode:
                 print(out)
