@@ -28,12 +28,14 @@ Phases, in order; any failure exits non-zero before the result line:
    timed eagerly (kernel_ms, CUDA events over a loop of calls: the host's
    time per call is in it) and as device time alone (graph_ms: the calls
    captured in one CUDA graph).
-   3b. The int8 paged decode kernel (csrc/paged_decode_q.cu, K4) against
-   its plain version, bf16 and f32: K2's ragged shape with and without a
-   256 window, the main path's decode shape (batch 4), a full-card shape
-   (32 x 2048 tokens) and hd 64 at group 2; K4 ms beside K2's over the
-   same pages dequantized, and the byte bound; phase 3's published
-   widths, Phi-3-mini's (hd 96) among them, and hd 24, 48 and 192.
+   3b. The int8 paged decode kernel (K4: the split-K kernel over int8
+   pages, csrc/paged_split_q.cu) against its plain version, bf16 and
+   f32: K2's ragged shape with and without a 256 window, the main path's
+   decode shape (batch 4), a full-card shape (32 x 2048 tokens) and hd
+   64 at group 2; phase 3's published widths, Phi-3-mini's (hd 96) among
+   them, and hd 24, 48 and 192; each case's kernel_ms (eager) and
+   graph_ms, its split plan, two launches byte-equal, and K2's graph_ms
+   over the same pages dequantized, beside the byte bound.
 4. The main path at Llama-3.1-8B width (random weights from a seed)
    through the port's own server on SHM: prefill 4 prompts streaming
    every layer's pages, find the prefix on a fresh connection, restore
@@ -60,7 +62,8 @@ Phases, in order; any failure exits non-zero before the result line:
    dense prefill, and a planted page-table fault shows that check bites.
    6b. int8 at Llama-3.1-8B width, on phase 4's bf16 model: a 2048-token
    prompt's KV put int8 on SHM (16896-byte pages, no staging copy) and
-   taken back raw, then one decode step whose attention is K4 over those
+   taken back raw (GB/s and H2D copies beside the same pages' bf16
+   restore), then one decode step whose attention is K4 over those
    pages in all 32 layers (its launches counted), held to K4's plain
    version and beside K2 over the bf16 pages; quantize_params of the 8B
    tree, each int8 leaf kind held to float32 at full width, prefill and
@@ -87,8 +90,8 @@ Phases, in order; any failure exits non-zero before the result line:
    once per layer. Then, at 2 layers, the loss and every leaf's grad with
    the kernels against the same Function on its plain leaves (f32 and
    bf16).
-10. A JSON line of per-kernel numbers (six kernels; K2's and K3's also
-    carry graph_ms), the card line, and as the last line {"ok": true,
+10. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
+    K4's also carry graph_ms), the card line, and as the last line {"ok": true,
     "device": {...}}.
 """
 
@@ -524,15 +527,13 @@ def decode_readings(torch, kernel, plain, gen):
 
 
 def split_desc(torch, q, k_pages, table, m, window):
-    """The split plan (ops/paged_split.py) of one K2 / K3 launch, for the
-    phase lines: CTAs, row tiles and splits."""
+    """The split plan (ops/paged_split.py) of one K2, K3 or K4 launch, for
+    the phase lines: CTAs, row tiles and splits."""
     from infinistore_tpu_torch.ops import _kernels, paged_split
 
-    n_kv = k_pages.shape[2]
-    plan = paged_split.split_plan(
-        q.shape[0], n_kv, m * (q.shape[-2] // n_kv), table.shape[1],
-        k_pages.shape[1], _kernels.sm_count(q.device), window, m)
-    ctas = plan.n_splits * plan.row_tiles * n_kv * q.shape[0]
+    plan = paged_split.plan_of(q, k_pages, table, window, m,
+                               _kernels.sm_count(q.device))
+    ctas = plan.n_splits * plan.row_tiles * k_pages.shape[2] * q.shape[0]
     return (f"plan: {ctas} CTAs, {plan.row_tiles} tile(s) of "
             f"{plan.row_tile} rows for {plan.rows}, {plan.n_splits} "
             f"split(s) of {plan.pages_per_split} pages")
@@ -603,6 +604,10 @@ DECODE_Q_CASES = (
     *((f"hd {hd}", dt, DECODE_SEQ_LENS, win, hd, 4, 2)
       for hd in (24, 48, 192)
       for dt, win in (("bfloat16", 0), ("float32", 256))),
+    # A head dim that is not a multiple of 16 in a swizzled int8 tile
+    # (rows copied 8 bytes at a time).
+    *(("hd 136", dt, DECODE_SEQ_LENS, win, 136, 4, 2)
+      for dt, win in (("bfloat16", 0), ("float32", 256))),
 )
 
 
@@ -666,8 +671,13 @@ def phase_decode_q(torch, pq, pd, gen):
         label, dt, lens, win, D, G, KV = case
         q, kq, ks, vq, vs, table, sl = args
         tol = TOL_REL[dt]
-        ms = cuda_ms(torch, lambda: pq.paged_flash_decode_quantized(
-            *args, window=win), 50)
+
+        def kernel():
+            return pq.paged_flash_decode_quantized(*args, window=win)
+
+        ms = cuda_ms(torch, kernel, 50)
+        dev_ms = graph_ms(torch, kernel)
+        same = byte_equal_runs(torch, kernel)
         plain_ms = cuda_ms(torch, lambda: pq.paged_decode_quantized_plain(
             *args, window=win), 5, warmup=1)
         kd = kv_quant.dequantize_kv_pages(kq, ks, q.dtype)
@@ -682,13 +692,18 @@ def phase_decode_q(torch, pq, pd, gen):
         say(f"decode_q {label} {dt} B={B} H={H} KV={KV} hd={D} "
             f"window={win}: rel "
             f"err {rel:.3e} (tol {tol:g}) max|err| {err:.3e} kernel_ms "
-            f"{ms:.4f} plain_ms {plain_ms:.4f} bound_ms {bms:.5f} ({by}); "
-            f"K2 over the dequantized pages graph_ms {k2_ms:.4f} (bound "
-            f"{k2_bms:.5f})")
+            f"{ms:.4f} graph_ms {dev_ms:.4f} plain_ms {plain_ms:.4f} "
+            f"bound_ms {bms:.5f} ({by}); K2 over the dequantized pages "
+            f"graph_ms {k2_ms:.4f} (bound {k2_bms:.5f}); "
+            f"{split_desc(torch, q, kq, table, 1, win)}; two launches "
+            f"byte-equal: {same}")
         check(rel <= tol, f"int8 paged decode disagrees ({label}, {dt}): "
               f"{rel} > {tol}")
-        rows.setdefault(label, dict(err=err, ms=ms, plain_ms=plain_ms,
-                                    bound_ms=bms, bound_by=by, k2_ms=k2_ms,
+        check(same, f"int8 paged decode differs between two launches "
+              f"({label}, {dt})")
+        rows.setdefault(label, dict(err=err, ms=ms, graph_ms=dev_ms,
+                                    plain_ms=plain_ms, bound_ms=bms,
+                                    bound_by=by, k2_ms=k2_ms,
                                     k2_bound_ms=k2_bms))
         del args, q, kq, ks, vq, vs, kd, vd
     return rows
@@ -1639,25 +1654,52 @@ def int8_wire_and_k4(torch, params, cfg, store, prompt, report):
         for kind in ("k", "v")) for li in range(L)]
     torch.cuda.synchronize()
     t_rs = time.perf_counter() - t0
-    check(tcuda.copy_counters["h2d_bytes"] == wire,
-          f"int8 restore moved {tcuda.copy_counters['h2d_bytes']} B")
+    got = dict(tcuda.copy_counters)
+    check(got["h2d_bytes"] == wire, f"int8 restore moved {got['h2d_bytes']} B")
     for li in (0, L - 1):
         want = kv_quant.quantize_kv_pages(pages[li][0][0])
         check(all(torch.equal(a, b) for a, b in zip(q8[li][0], want)),
               f"layer {li}: int8 pages differ after the store round trip")
+    # The same pages in bf16, put and restored beside them.
+    sid16 = f"bf16_{uuid.uuid4()}"
+    for li, (kp, vp) in enumerate(pages):
+        store.put_kv_pages(llama.page_keys(sid16, li, "k", n_pages), kp[0])
+        store.put_kv_pages(llama.page_keys(sid16, li, "v", n_pages), vp[0])
+    tcuda.reset_copy_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    back16 = [store.get_kv_pages(llama.page_keys(sid16, li, kind, n_pages),
+                                 shape, cfg.torch_dtype)
+              for li in range(L) for kind in ("k", "v")]
+    torch.cuda.synchronize()
+    t_rs16 = time.perf_counter() - t0
+    got16 = dict(tcuda.copy_counters)
     bf16 = 2 * L * n_pages * cfg.kv_page_bytes()
+    check(got16["h2d_bytes"] == bf16
+          and torch.equal(back16[-1], pages[-1][1][0]),
+          f"bf16 restore moved {got16['h2d_bytes']} B")
+    del back16
     say(f"int8 wire: {n} tokens x {L} layers, {block} B a page ("
         f"{block / cfg.kv_page_bytes():.3f} of bf16's "
         f"{cfg.kv_page_bytes()}); offload {wire / 2**20:.0f} MiB in "
         f"{t_off * 1e3:.2f} ms, {wire / t_off / 1e9:.2f} GB/s ("
         f"{n / t_off:.0f} tok/s; bf16 {bf16 / 2**20:.0f} MiB); restore raw "
         f"in {t_rs * 1e3:.2f} ms, {wire / t_rs / 1e9:.2f} GB/s ("
-        f"{n / t_rs:.0f} tok/s); staging copies 0")
+        f"{n / t_rs:.0f} tok/s), {got['h2d_copies']} H2D copies for "
+        f"{2 * L * n_pages} pages ({got['h2d_gap_bytes']} gap bytes copied "
+        f"along); bf16 restore of the same pages in {t_rs16 * 1e3:.2f} ms, "
+        f"{bf16 / t_rs16 / 1e9:.2f} GB/s ({n / t_rs16:.0f} tok/s), "
+        f"{got16['h2d_copies']} H2D copies; staging copies 0")
     report["wire"] = dict(page_bytes=block, bf16_page_bytes=cfg.kv_page_bytes(),
                           offload_ms=t_off * 1e3,
                           offload_GBps=wire / t_off / 1e9,
                           restore_ms=t_rs * 1e3,
-                          restore_GBps=wire / t_rs / 1e9)
+                          restore_GBps=wire / t_rs / 1e9,
+                          restore_copies=got["h2d_copies"],
+                          restore_gap_bytes=got["h2d_gap_bytes"],
+                          bf16_restore_ms=t_rs16 * 1e3,
+                          bf16_restore_GBps=bf16 / t_rs16 / 1e9,
+                          bf16_restore_copies=got16["h2d_copies"])
 
     # One decode step over the pages, at shuffled pool ids: attention is
     # K4 over the int8 pages, with K2 over the bf16 pages and K4's plain
@@ -1968,10 +2010,10 @@ def phase_int8(torch, np, params, report):
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (1, INT8_PROMPT)),
                              dtype=torch.int32, device="cuda")
-    # Room (counted in bf16 pages) for the wire check, the delta prefix
-    # and both serving rounds. A 16896-byte int8 page takes 20 KB in the
+    # Room (counted in bf16 pages) for the wire check and its bf16 twin,
+    # the delta prefix and both serving rounds. A 16896-byte int8 page takes 20 KB in the
     # store's smallest allocation unit (4 KB, a power of two).
-    n_tokens = 2 * INT8_PROMPT + 2 * sum(INT8_ROUND) + 8 * INT8_NEW
+    n_tokens = 3 * INT8_PROMPT + 2 * sum(INT8_ROUND) + 8 * INT8_NEW
     srv = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens,
                       min_alloc_kb=4)
     conn = InfinityConnection(ClientConfig(
@@ -2572,10 +2614,11 @@ def main():
     k4 = k4["main path"]
     kernels.append({
         "name": "paged_decode_q", "route": "cuda",
-        "source": "infinistore_tpu_torch/csrc/paged_decode_q.cu",
+        "source": "infinistore_tpu_torch/csrc/paged_split_q.cu",
         "replaces": "infinistore_tpu/ops/pallas_paged_attention.py:69",
         "launches": k4_launches, "max_abs_err": k4["err"], "ms": k4["ms"],
-        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "graph_ms": k4["graph_ms"], "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
         "bound_by": k4["bound_by"], "library_ms": None})
     train_launches = train_report["train"]["launches"]
     for name, key, src, line in (

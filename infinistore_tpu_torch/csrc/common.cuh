@@ -37,11 +37,4 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
     return __float2bfloat16(x);  // round to nearest even, as torch does
 }
 
-// Round through T and back: the bf16 kernels multiply P by V with P
-// rounded to bf16, as the TPU kernels do (p.astype(v.dtype)).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-    return to_float(from_float<T>(x));
-}
-
 }  // namespace istpu

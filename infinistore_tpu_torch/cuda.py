@@ -43,6 +43,7 @@ from .ops import kv_quant
 copy_counters = {
     "d2h_copies": 0, "d2h_bytes": 0,          # device->host DMAs
     "h2d_copies": 0, "h2d_bytes": 0,          # host->device DMAs
+    "h2d_gap_bytes": 0,  # gaps between strided blocks, copied along
     "staging_copies": 0, "staging_bytes": 0,  # extra host->host copies
 }
 
@@ -96,10 +97,15 @@ def _as_bytes(t):
     return t.reshape(-1).view(torch.uint8)
 
 
-def _runs(blocks, page_bytes, skip_fake):
-    """Group pages into runs whose blocks lie back to back in one pool:
-    [(first page, pages, pool_idx, byte offset)]. With ``skip_fake``
-    FAKE blocks (already stored by another writer) are left out."""
+def _runs(blocks, page_bytes, skip_fake, strided=False):
+    """Group pages into runs of consecutive pages that lie in one pool at
+    a constant stride: [(first page, pages, pool_idx, byte offset,
+    stride)]. The stride is ``page_bytes`` (blocks back to back) or, with
+    ``strided``, up to twice that: a page smaller than its allocation (an
+    int8 page of 16896 bytes in a 20 KB block) leaves a gap after each
+    block, which a read may copy along and drop (at least half of what
+    it copies is pages). With ``skip_fake`` FAKE blocks (already stored
+    by another writer) are left out."""
     idx = np.arange(len(blocks))
     if skip_fake:
         idx = idx[blocks["token"] != FAKE_TOKEN]
@@ -107,12 +113,21 @@ def _runs(blocks, page_bytes, skip_fake):
         return []
     pool = blocks["pool_idx"][idx].astype(np.int64)
     off = blocks["offset"][idx].astype(np.int64)
+    gap = off[1:] - off[:-1]
+    # join[i]: page i + 1 may follow page i in a run.
+    join = (idx[1:] == idx[:-1] + 1) & (pool[1:] == pool[:-1])
+    if strided:
+        join &= (gap >= page_bytes) & (gap <= 2 * page_bytes)
+    else:
+        join &= gap == page_bytes
     brk = np.ones(len(idx), dtype=bool)
-    brk[1:] = ((idx[1:] != idx[:-1] + 1) | (pool[1:] != pool[:-1])
-               | (off[1:] != off[:-1] + page_bytes))
+    brk[1:] = ~join
+    # A run keeps one stride: a new one starts where the gap changes.
+    brk[2:] |= join[:-1] & (gap[1:] != gap[:-1])
     starts = np.flatnonzero(brk)
     ends = np.append(starts[1:], len(idx))
-    return [(int(idx[s]), int(e - s), int(pool[s]), int(off[s]))
+    return [(int(idx[s]), int(e - s), int(pool[s]), int(off[s]),
+             int(gap[s]) if e - s > 1 else page_bytes)
             for s, e in zip(starts, ends)]
 
 
@@ -181,7 +196,7 @@ class CudaKVStore:
         cuda = src.is_cuda
         if cuda:
             self._register([r[2] for r in runs])
-        for first, count, pool_idx, off in runs:
+        for first, count, pool_idx, off, _ in runs:
             nbytes = count * page_bytes
             dst = self._pool_tensor(pool_idx)[off:off + nbytes]
             dst.copy_(src[first * page_bytes:first * page_bytes + nbytes],
@@ -193,19 +208,30 @@ class CudaKVStore:
             _wait_current_stream()
 
     def _copy_from_pool(self, dst, blocks, page_bytes):
-        """Pool blocks -> device (or CPU) bytes, synchronized."""
-        runs = _runs(blocks, page_bytes, skip_fake=False)
+        """Pool blocks -> device (or CPU) bytes, synchronized: one copy
+        per run of blocks at a constant stride (:func:`_runs`); a run
+        with gaps between its blocks is copied whole, gaps included, and
+        its pages are taken out of it on the device."""
+        runs = _runs(blocks, page_bytes, skip_fake=False, strided=True)
         cuda = dst.is_cuda
         if cuda:
             self._register([r[2] for r in runs])
-        for first, count, pool_idx, off in runs:
+        for first, count, pool_idx, off, stride in runs:
             nbytes = count * page_bytes
-            src = self._pool_tensor(pool_idx)[off:off + nbytes]
-            dst[first * page_bytes:first * page_bytes + nbytes].copy_(
-                src, non_blocking=cuda)
+            span = (count - 1) * stride + page_bytes
+            src = self._pool_tensor(pool_idx)[off:off + span]
+            out = dst[first * page_bytes:first * page_bytes + nbytes]
+            if stride == page_bytes:
+                out.copy_(src, non_blocking=cuda)
+            else:
+                buf = torch.empty(span, dtype=torch.uint8, device=dst.device)
+                buf.copy_(src, non_blocking=cuda)
+                out.view(count, page_bytes).copy_(
+                    buf.as_strided((count, page_bytes), (stride, 1)))
             if cuda:
                 copy_counters["h2d_copies"] += 1
                 copy_counters["h2d_bytes"] += nbytes
+                copy_counters["h2d_gap_bytes"] += span - nbytes
         if cuda:
             _wait_current_stream()
 

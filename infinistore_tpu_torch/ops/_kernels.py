@@ -51,10 +51,12 @@ _DECLS = {
     # n_splits, pages_per_split, stream
     "istpu_paged_decode": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _F, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k_q, k_s, v_q, v_s, page_table, seq_lens, out, is_bf16,
-    # B, H, KV, D, scale, N, P, max_pages, window, stream
-    "istpu_paged_decode_q": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                             _I, _I, _F, _I, _I, _I, _I, _P],
+    # q, k_q, k_s, v_q, v_s, page_table, seq_lens, out, ws_ml, ws_acc,
+    # is_bf16, B, H, KV, D, scale, N, P, max_pages, window, row_tile,
+    # n_splits, pages_per_split, stream
+    "istpu_paged_decode_q": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _I,
+                             _I, _P],
     # q, k_pages, v_pages, page_table, seq_lens, out, ws_ml, ws_acc,
     # is_bf16, B, m, H, KV, D, scale, N, P, max_pages, window, row_tile,
     # n_splits, pages_per_split, stream

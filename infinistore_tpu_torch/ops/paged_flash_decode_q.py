@@ -1,12 +1,15 @@
-"""Paged flash-decode attention over int8 pages: the CUDA kernel
-``csrc/paged_decode_q.cu`` (K4), its plain version and its dispatcher.
+"""Paged flash-decode attention over int8 pages (K4): the split-K CUDA
+kernel (``csrc/paged_split_q.cu`` over ``csrc/paged_split.cuh``, the
+kernel of K2 and K3 with int8 pages and their scales), its plain version
+and its dispatcher.
 
 Counterpart of ``infinistore_tpu/ops/pallas_paged_attention.py``
 (``paged_flash_decode_quantized`` / ``decode_attention_quantized``).
 Pages stay int8 with one f32 scale per (token, kv head)
-(``ops/kv_quant.py``); the kernel dequantizes right after each load and
-folds in float32 throughout (q, the dequantized pages, the softmax and
-P.V), as the TPU kernel does.
+(``ops/kv_quant.py``); the kernel computes the TPU kernel's float32 fold
+(q, the dequantized pages, the softmax and P.V, P not rounded to q's
+type) and casts the output to q's type. Its split plan is K2's
+(``ops/paged_split.py``, from shapes only).
 
 - :func:`paged_decode_quantized_plain` is the kernel's own function in
   plain PyTorch, its oracle on the card.
@@ -20,14 +23,12 @@ P.V), as the TPU kernel does.
 
 import torch
 
-from . import _kernels
+from . import _kernels, paged_split
 from .kv_quant import dequantize_kv_pages
 from .paged_attention import paged_decode_attention
 
 # Launches of the kernel (incremented only where it is launched).
 launches = 0
-
-_DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 
 
 def reset_launches():
@@ -35,18 +36,11 @@ def reset_launches():
     launches = 0
 
 
-def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
-                                 seq_lens, window=0):
-    """Launch the CUDA int8 paged decode kernel.
-
-    q: [batch, n_heads, hd] bf16 or float32; k_q/v_q: int8 [n_pages,
-    page, n_kv, hd]; k_s/v_s: float32 [n_pages, page, n_kv];
-    page_table: int32 [batch, max_pages] (padded arbitrarily: ids are
-    clamped into the pool); seq_lens: int32 [batch], tokens per sequence
-    including the current one. All on one CUDA device and contiguous;
-    hd a multiple of 8 up to 256, any GQA group. Returns [batch, n_heads,
-    hd] in q's dtype."""
-    global launches
+def check_args(q, k_q, k_s, v_q, v_s, page_table, seq_lens):
+    """What the kernel takes: one CUDA device, contiguous; q bf16 or
+    float32 and 16-byte aligned; int8 pages, 16-byte aligned, with
+    float32 scales [n_pages, page, n_kv]; the shape rule of
+    :func:`_kernels.check_head_shape`; int32 table and lengths."""
     if q.dim() != 3 or k_q.dim() != 4:
         raise ValueError("q must be [batch, n_heads, hd] and the pages "
                          "[n_pages, page, n_kv, hd]")
@@ -61,7 +55,7 @@ def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
             raise ValueError(f"{name} must be a CUDA tensor on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in paged_split._DTYPES:
         raise TypeError(f"q dtype {q.dtype} (need bf16 or f32)")
     if k_q.dtype != torch.int8 or v_q.dtype != torch.int8:
         raise TypeError("k_q and v_q must be int8")
@@ -70,29 +64,38 @@ def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
     if page_table.dtype != torch.int32 or seq_lens.dtype != torch.int32:
         raise TypeError("page_table and seq_lens must be int32")
     batch, n_heads, hd = q.shape
-    n_pages, page, n_kv, hd_k = k_q.shape
-    if v_q.shape != k_q.shape or hd_k != hd:
+    if v_q.shape != k_q.shape or k_q.shape[3] != hd:
         raise ValueError("page shapes do not agree with q")
     if k_s.shape != k_q.shape[:3] or v_s.shape != k_q.shape[:3]:
         raise ValueError("scales must be [n_pages, page, n_kv]")
-    if k_q.data_ptr() % 4 or v_q.data_ptr() % 4:
-        raise ValueError("int8 pages must start on a 4-byte boundary")
+    for name, t in (("q", q), ("k_q", k_q), ("v_q", v_q)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     if page_table.dim() != 2 or page_table.shape[0] != batch:
         raise ValueError("page_table must be [batch, max_pages]")
     if seq_lens.shape != (batch,):
         raise ValueError("seq_lens must be [batch]")
-    out = torch.empty_like(q)
-    if batch == 0:
-        return out
-    lib = _kernels.lib()
-    err = lib.istpu_paged_decode_q(
-        q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
-        v_s.data_ptr(), page_table.data_ptr(), seq_lens.data_ptr(),
-        out.data_ptr(), _DTYPES[q.dtype], batch, n_heads, n_kv, hd,
-        _kernels.softmax_scale(hd), n_pages, page, page_table.shape[1],
-        int(window), _kernels.stream_handle(dev),
-    )
-    _kernels.check(err, "paged_decode_q")
+
+
+def paged_flash_decode_quantized(q, k_q, k_s, v_q, v_s, page_table,
+                                 seq_lens, window=0):
+    """Launch the CUDA int8 paged decode kernel.
+
+    q: [batch, n_heads, hd] bf16 or float32; k_q/v_q: int8 [n_pages,
+    page, n_kv, hd]; k_s/v_s: float32 [n_pages, page, n_kv];
+    page_table: int32 [batch, max_pages] (padded arbitrarily: ids are
+    clamped into the pool); seq_lens: int32 [batch], tokens per sequence
+    including the current one. All on one CUDA device, contiguous, q and
+    the pages 16-byte aligned; hd a multiple of 8 up to 256, any GQA
+    group. Returns [batch, n_heads, hd] in q's dtype; a sequence with no
+    token gets zeros."""
+    global launches
+    check_args(q, k_q, k_s, v_q, v_s, page_table, seq_lens)
+    if q.shape[0] == 0:
+        return q.new_empty(q.shape)
+    out = paged_split.launch("istpu_paged_decode_q", q, k_q, v_q,
+                             page_table, seq_lens, window, 1,
+                             scales=(k_s, v_s))
     launches += 1
     return out
 

@@ -1,6 +1,7 @@
-"""The split-K paged attention kernel ``csrc/paged_split.cu`` from the
-host: its split plan, and the launch that K2 (:mod:`.paged_flash_decode`)
-and K3 (:mod:`.paged_flash_verify`) share.
+"""The split-K paged attention kernel (``csrc/paged_split.cuh``) from the
+host: its split plan, and the launch that K2 (:mod:`.paged_flash_decode`),
+K3 (:mod:`.paged_flash_verify`) and K4 (:mod:`.paged_flash_decode_q`,
+over int8 pages) share.
 
 A CTA of the kernel owns one (sequence, kv head, tile of query rows,
 split of the pages). :func:`split_plan` sizes the tiles and the splits
@@ -72,6 +73,16 @@ def split_plan(batch, n_kv, rows, max_pages, page, sms, window=0, m=1):
                      n_splits)
 
 
+def plan_of(q, k_pages, page_table, window, m, sms):
+    """The split plan of a launch from its tensors' shapes alone (no
+    tensor value is read): q [batch, (m,) n_heads, hd], pages [n_pages,
+    page, n_kv, hd], page_table [batch, max_pages]."""
+    n_kv = k_pages.shape[2]
+    return split_plan(q.shape[0], n_kv, m * (q.shape[-2] // n_kv),
+                      page_table.shape[1], k_pages.shape[1], sms,
+                      int(window), m)
+
+
 def check_args(name, q, k_pages, v_pages, page_table, seq_lens):
     """What both entry points take: one CUDA device, contiguous and
     16-byte aligned; q and the pages one dtype, bf16 or float32; the
@@ -104,17 +115,19 @@ def check_args(name, q, k_pages, v_pages, page_table, seq_lens):
         raise ValueError("seq_lens must be [batch]")
 
 
-def launch(entry, q, k_pages, v_pages, page_table, seq_lens, window, m):
+def launch(entry, q, k_pages, v_pages, page_table, seq_lens, window, m,
+           scales=None):
     """Launch the kernel through C entry point ``entry``
-    (``istpu_paged_decode``: q [batch, H, D], m = 1; or
+    (``istpu_paged_decode`` or, over int8 pages with ``scales`` = (k_s,
+    v_s), ``istpu_paged_decode_q``: q [batch, H, D], m = 1; or
     ``istpu_paged_verify``: q [batch, m, H, D]) into a new tensor of q's
     shape, and return it. The merge's workspace, with more than one
     split, comes from ``torch.empty``: the kernel allocates nothing."""
     batch, n_heads, hd = q.shape[0], q.shape[-2], q.shape[-1]
     n_pages, page, n_kv, _ = k_pages.shape
     max_pages = page_table.shape[1]
-    plan = split_plan(batch, n_kv, m * (n_heads // n_kv), max_pages, page,
-                      _kernels.sm_count(q.device), int(window), m)
+    plan = plan_of(q, k_pages, page_table, window, m,
+                   _kernels.sm_count(q.device))
     out = torch.empty_like(q)
     ws_ml = ws_acc = None
     if plan.n_splits > 1:
@@ -124,14 +137,17 @@ def launch(entry, q, k_pages, v_pages, page_table, seq_lens, window, m):
                          device=q.device)
         ws_ml = ws.data_ptr()
         ws_acc = ws_ml + 8 * parts
-    dims = (batch, n_heads, n_kv, hd) if entry == "istpu_paged_decode" \
+    pages = (k_pages.data_ptr(), v_pages.data_ptr()) if scales is None \
+        else (k_pages.data_ptr(), scales[0].data_ptr(), v_pages.data_ptr(),
+              scales[1].data_ptr())
+    dims = (batch, n_heads, n_kv, hd) if q.dim() == 3 \
         else (batch, m, n_heads, n_kv, hd)
     err = getattr(_kernels.lib(), entry)(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), seq_lens.data_ptr(), out.data_ptr(), ws_ml,
-        ws_acc, _DTYPES[q.dtype], *dims, _kernels.softmax_scale(hd),
-        n_pages, page, max_pages, int(window), plan.row_tile,
-        plan.n_splits, plan.pages_per_split, _kernels.stream_handle(q.device),
+        q.data_ptr(), *pages, page_table.data_ptr(), seq_lens.data_ptr(),
+        out.data_ptr(), ws_ml, ws_acc, _DTYPES[q.dtype], *dims,
+        _kernels.softmax_scale(hd), n_pages, page, max_pages, int(window),
+        plan.row_tile, plan.n_splits, plan.pages_per_split,
+        _kernels.stream_handle(q.device),
     )
     _kernels.check(err, entry)
     return out

@@ -230,6 +230,92 @@ def test_int8_page_bytes_cross_packages(port_server, ctype):
         conn.close()
 
 
+# ---- restores of strided blocks: one copy per run ---------------------------
+
+
+def _blocks(offsets, pools=None, fake=()):
+    from infinistore_tpu_torch._native import FAKE_TOKEN, REMOTE_BLOCK_DTYPE
+
+    b = np.zeros(len(offsets), dtype=REMOTE_BLOCK_DTYPE)
+    b["offset"] = offsets
+    b["pool_idx"] = 0 if pools is None else pools
+    b["token"] = 1
+    b["token"][list(fake)] = FAKE_TOKEN
+    return b
+
+
+def test_runs_join_blocks_at_a_constant_stride():
+    """_runs: a read joins consecutive blocks of one pool at a constant
+    stride of up to twice the page (an int8 page in a larger block) into
+    one run; a write joins only blocks back to back (it must not write
+    into the gaps)."""
+    page, block = 16896, 20480  # Llama-3.1-8B's int8 page, 5 x 4 KB
+    offs = [4096 + i * block for i in range(8)]
+    assert tcuda._runs(_blocks(offs), page, False, strided=True) == [
+        (0, 8, 0, 4096, block)]
+    assert tcuda._runs(_blocks(offs), page, False) == [
+        (i, 1, 0, o, page) for i, o in enumerate(offs)]
+    # Back to back, both ways; a stride past twice the page is not joined.
+    tight = [i * page for i in range(4)]
+    for strided in (False, True):
+        assert tcuda._runs(_blocks(tight), page, False, strided) == [
+            (0, 4, 0, 0, page)]
+    wide = [i * 2 * page + i for i in range(3)]
+    assert len(tcuda._runs(_blocks(wide), page, False, True)) == 3
+    # A run ends where the stride, the pool or the order changes.
+    mixed = [0, block, 2 * block, 2 * block + page, 2 * block + 2 * page,
+             0, block, 9 * block]
+    pools = [0, 0, 0, 0, 0, 1, 1, 1]
+    assert tcuda._runs(_blocks(mixed, pools), page, False, True) == [
+        (0, 3, 0, 0, block), (3, 2, 0, 2 * block + page, page),
+        (5, 2, 1, 0, block), (7, 1, 1, 9 * block, page)]
+    # FAKE blocks are skipped on writes: the run breaks around them.
+    assert tcuda._runs(_blocks(tight, fake=[1]), page, True) == [
+        (0, 1, 0, 0, page), (2, 2, 0, 2 * page, page)]
+
+
+def test_int8_restore_of_strided_blocks_round_trips(monkeypatch):
+    """Int8 pages at Llama-3.1-8B's geometry in a store of 4 KB units
+    (each 16896-byte page in a 20 KB block) restore byte-equal through
+    the port's server on SHM, in one copy of each run's span."""
+    srv = InfiniStoreServer(ServerConfig(
+        service_port=0, prealloc_size=0.0625, minimal_allocate_size=4))
+    srv.start()
+    conn = _connect(srv, TYPE_SHM)
+    store = tcuda.CudaKVStore(conn, device="cpu")
+    seen = []
+    real = tcuda._runs
+
+    def spy(blocks, page_bytes, skip_fake, strided=False):
+        runs = real(blocks, page_bytes, skip_fake, strided)
+        if strided:
+            seen.append(runs)
+        return runs
+
+    monkeypatch.setattr(tcuda, "_runs", spy)
+    try:
+        shape = (16, 8, 128)
+        pages = torch.from_numpy(_pages(np.random.default_rng(7), 24,
+                                        shape)).to(torch.bfloat16)
+        keys = _keys(24)
+        store.put_kv_pages_quantized(keys, pages, sync=True)
+        q, s = store.get_kv_pages_quantized_raw(keys, shape)
+        t_q, t_s = tq.quantize_kv_pages(pages)
+        assert torch.equal(q, t_q) and torch.equal(s, t_s)
+        (runs,) = seen
+        assert sum(r[1] for r in runs) == 24 and len(runs) < 24
+        assert any(r[1] > 1 and r[4] == 20480 for r in runs)
+        # Out of order, the same bytes.
+        order = [5, 4, 3, 20, 21, 22, 0]
+        q, s = store.get_kv_pages_quantized_raw([keys[i] for i in order],
+                                                shape)
+        assert torch.equal(q, t_q[order]) and torch.equal(s, t_s[order])
+    finally:
+        store.close()
+        conn.close()
+        srv.stop()
+
+
 # ---- K4's plain version and the dispatcher ---------------------------------
 
 

@@ -1,6 +1,8 @@
-"""The split-K paged attention kernel (csrc/paged_split.cu: K2 and K3)
-on the CPU, where it cannot run: its split plan (ops/paged_split.py, the
-very function that sets the grid) against the JAX package's page map and
+"""The split-K paged attention kernel (csrc/paged_split.cuh: K2 and K3;
+K4's int8 cases, on this file's mirror, are in
+test_torch_paged_split_q.py) on the CPU, where it cannot run: its split
+plan (ops/paged_split.py, the very function that sets the grid) against
+the JAX package's page map and
 masks, and a torch mirror of the kernel's split arithmetic (per-split
 partials, then the merge in split order) against the Pallas kernels in
 interpret mode; and, for fault F1's repair, the plain decode, verify,
@@ -212,8 +214,21 @@ def test_split_plan_reads_no_device_value():
     assert (empty.n_splits, empty.pages_per_split) == (1, 1)
 
 
+def p_times_v(p, v, p_mode):
+    """P' V in float32 as the kernel folds it: P' whole (``"f32"``: f32
+    q), as two bf16 parts hi = bf16(P') and lo = bf16(P' - hi) (``"hilo"``:
+    bf16 q over int8 pages), or rounded once to bf16 (``"once"``: K2's
+    rounding, which over int8 pages would be another function)."""
+    if p_mode == "hilo":
+        hi = p.bfloat16().float()
+        return hi @ v + (p - hi).bfloat16().float() @ v
+    if p_mode == "once":
+        return p.bfloat16().float() @ v
+    return p @ v
+
+
 def split_mirror(q, k_pages, v_pages, table, seq_lens, window, decode,
-                 sms=SMS):
+                 sms=SMS, scales=None, p_mode="f32"):
     """The kernel's function by its own split arithmetic, in float32:
     for each CTA (sequence, kv head, row tile, split) of the plan, the
     partial (m in log2 units, l, unnormalised acc) of its rows over the
@@ -221,7 +236,10 @@ def split_mirror(q, k_pages, v_pages, table, seq_lens, window, decode,
     position writes l = 0 only), then each row's partials merged in
     split order, skipping l = 0; a row no split kept is 0. Used by the
     tests only, never by the wrapper. q: [B, m, H, D] ([B, H, D] with
-    ``decode``)."""
+    ``decode``). With ``scales`` = (k_s, v_s) the pages are int8 (K4):
+    each token's logit takes its k scale, and P' = p v_s goes into P V
+    by ``p_mode`` (:func:`p_times_v`). Returns float32 rows (before any
+    cast to q's dtype) and the plan."""
     if decode:
         q = q[:, None]
     B, m, H, D = q.shape
@@ -254,11 +272,16 @@ def split_mirror(q, k_pages, v_pages, table, seq_lens, window, decode,
             a, z = row_range(r, R, group, base, window, t_end, s_lo, s_hi)
             keep = (pos >= a) & (pos < z)
             qr = q[b, r // group, kvh * group + r % group].float()
-            x = (k @ qr) * scale_log2
+            x = k @ qr
+            if scales is not None:
+                x = x * scales[0][pid, pos % P, kvh]
+            x = x * scale_log2
             mx = x[keep].max() if keep.any() else torch.tensor(-1e30)
             p = torch.where(keep, torch.exp2(x - mx), torch.zeros(()))
             ws_m[b, kvh, s, r], ws_l[b, kvh, s, r] = mx, p.sum()
-            ws_acc[b, kvh, s, r] = p @ v
+            if scales is not None:
+                p = p * scales[1][pid, pos % P, kvh]
+            ws_acc[b, kvh, s, r] = p_times_v(p, v, p_mode)
     out = torch.empty(B, m, H, D)
     for b, kvh, r in itertools.product(range(B), range(KV), range(R)):
         live = [s for s in range(NS) if ws_l[b, kvh, s, r] > 0]

@@ -18,9 +18,9 @@ chip_smoke.py cases on inputs made from the same seed: with ``--kernel
 prefill`` phase 2's FLASH_CASES, ``bwd`` phase 8's BWD_CASES (K5 and K6
 each timed alone), ``decode`` phase 3's DECODE_CASES, ``verify`` phase
 5's VERIFY_CASES, ``decode_q`` phase 3b's DECODE_Q_CASES (or those whose
-indices --cases lists). Prefill, the backward and K4 are timed with CUDA
+indices --cases lists). Prefill and the backward are timed with CUDA
 events over --iters launches (chip_smoke.cuda_ms: eager, the host's time
-per call included); decode and verify as device time
+per call included); decode, verify and decode_q as device time
 (chip_smoke.graph_ms: --iters launches in one CUDA graph), since their
 kernels are shorter than the host's time per call. ``--timing`` picks
 either for decode, verify and decode_q.
@@ -64,8 +64,8 @@ def tolerance(kernel, case):
 
 def timer(kernel, timing):
     """chip_smoke's timer for ``kernel`` under ``--timing``."""
-    if timing == "graph" or (timing is None
-                             and kernel in ("decode", "verify")):
+    if timing == "graph" or (timing is None and kernel in (
+            "decode", "verify", "decode_q")):
         return chip_smoke.graph_ms
     return chip_smoke.cuda_ms
 

@@ -4,9 +4,9 @@
     python3 tools/torch_kernel_faults.py [WORD]
 
 With WORD, only the faults whose name contains it are planted (for
-example ``decode_q:`` for K4's, ``bwd`` for K5's and K6's, ``split:``
-for the split-K paged kernel's, K2's and K3's), beside the unchanged
-sources.
+example ``decode_q:`` for K4's own, ``bwd`` for K5's and K6's,
+``split:`` for the split-K paged kernel's, which K2, K3 and K4 share),
+beside the unchanged sources.
 
 Needs one NVIDIA GPU and nvcc. For the unchanged kernel sources and for
 each fault in FAULTS, copies infinistore_tpu_torch/csrc into a temporary
@@ -112,56 +112,66 @@ FAULTS = (
     ("bwd dkv: hd-256 column half written at column 0", "flash_bwd_dkv.cu",
      "* KV + kvh) * D + c0 +",
      "* KV + kvh) * D + 0 * c0 +"),
-    # The split-K paged kernel (K2 and K3).
-    ("split: the last page of each split skipped", "paged_split.cu",
+    # The split-K paged kernel (K2, K3 and, over int8 pages, K4).
+    ("split: the last page of each split skipped", "paged_split.cuh",
      "const int s_hi = min(s_lo + a.pages_per_split * a.P, t_end);",
      "const int s_hi = min(s_lo + (a.pages_per_split - 1) * a.P, t_end);"),
     # An empty split's partial must count for nothing: written as m = 0,
     # l = 1 it joins the merge with its unwritten acc.
-    ("split: an empty split merged as m = 0, l = 1", "paged_split.cu",
+    ("split: an empty split merged as m = 0, l = 1", "paged_split.cuh",
      "r0 + i] = make_float2(kNegInf, 0.0f);",
      "r0 + i] = make_float2(0.0f, 1.0f);"),
     ("split: splits merged without rescaling to their common max",
-     "paged_split.cu",
+     "paged_split.cuh",
      "const float al = exp2f(M - m_new), f = exp2f(ml[j].x - m_new);",
      "const float al = 1.0f, f = 1.0f;"),
     ("split: decode's length offset off by one", "paged_split.cu",
      "B, 1, H, KV, D, N, P, max_pages, window, -1, 0.0f,",
      "B, 1, H, KV, D, N, P, max_pages, window, 0, 0.0f,"),
     # Columns at or past D (zero) stored over the next row's first ones.
-    ("split: a column past D stored", "paged_split.cu",
+    ("split: a column past D stored", "paged_split.cuh",
      "const int cols = a.D;",
      "const int cols = row + 1 < n_rows ? a.D + 16 : a.D;"),
     # Windowed splits cut only the pages the window spans: counted from
     # page 0 instead of the floor's page, a long sequence's live positions
     # lie past the last split.
-    ("split: windowed splits counted from page 0", "paged_split.cu",
+    ("split: windowed splits counted from page 0", "paged_split.cuh",
      "a.window > 0 ? max(base + 1 - a.window, 0) / a.P : 0;",
      "a.window > 0 ? 0 * max(base + 1 - a.window, 0) / a.P : 0;"),
-    ("split: stops after 2048 positions", "paged_split.cu",
+    ("split: stops after 2048 positions", "paged_split.cuh",
      "const int t_end = a.max_pages * a.P;",
      "const int t_end = min(a.max_pages * a.P, 2048);"),
-    ("split: window floor 16 positions high", "paged_split.cu",
+    ("split: window floor 16 positions high", "paged_split.cuh",
      "lo = max(window > 0 ? max(limit - window, 0) : 0, s_lo);",
      "lo = max(window > 0 ? max(limit - window + 16, 0) : 0, s_lo);"),
-    ("split: causal limit one token too far", "paged_split.cu",
+    # pos / P one too low where the multiply-high falls short.
+    ("split: a page index left uncorrected", "paged_split.cuh",
+     "        if (off >= a.P) {\n            ++page;",
+     "        if (off >= 2 * a.P) {\n            ++page;"),
+    ("split: causal limit one token too far", "paged_split.cuh",
      "const int limit = base + row / group + 1;",
      "const int limit = base + row / group + 2;"),
-    # Rows past the group in K4's last block of query rows land on the
-    # next kv head's or sequence's rows.
-    ("decode_q: a padded group row stored", "paged_decode.cuh",
-     "i < rows * HD;", "i < G * HD;"),
-    ("decode_q: V scaled by K's scales", "paged_decode_q.cu",
-     "vsc[c] = vs[scale_off + (size_t)t * KV];",
-     "vsc[c] = ks[scale_off + (size_t)t * KV];"),
-    ("decode_q: one scale per page (token 0's)", "paged_decode_q.cu",
-     "ksc[c] = ks[scale_off + (size_t)t * KV];\n"
-     "                    vsc[c] = vs[scale_off + (size_t)t * KV];",
-     "ksc[c] = ks[scale_off];\n"
-     "                    vsc[c] = vs[scale_off];"),
-    ("decode_q: P rounded to bf16 before P.V", "paged_decode_q.cu",
-     "const float pv = p * vsc[c];",
-     "const float pv = __bfloat162float(__float2bfloat16(p)) * vsc[c];"),
+    # K4's own: the int8 pages' scales, their widening and P' (a dropped
+    # lo of bf16 q's hi + lo hides under the bf16 gate; the CPU tests
+    # hold it).
+    ("decode_q: length offset off by one", "paged_split_q.cu",
+     "B, 1, H, KV, D, N, P, max_pages, window, -1, 0.0f,",
+     "B, 1, H, KV, D, N, P, max_pages, window, 0, 0.0f,"),
+    ("decode_q: V scaled by K's scales", "paged_split.cuh",
+     "(i < TK ? a.ks : a.vs) + off", "(i < TK ? a.ks : a.ks) + off"),
+    ("decode_q: one scale per page (token 0's)", "paged_split.cuh",
+     "off = pool_row(pos) * a.KV + kvh;",
+     "off = pool_row(pos) / a.P * a.P * a.KV + kvh;"),
+    ("decode_q: the scale of the wrong kv head", "paged_split.cuh",
+     "off = pool_row(pos) * a.KV + kvh;",
+     "off = pool_row(pos) * a.KV + (kvh + 1) % a.KV;"),
+    ("decode_q: P' rounded to bf16 in the f32 fold", "paged_split.cuh",
+     "if constexpr (I8) p[r] *= vscale;",
+     "if constexpr (I8) p[r] = __bfloat162float(__float2bfloat16("
+     "p[r] * vscale));"),
+    ("decode_q: int8 widened to bf16 from the wrong half", "paged_split.cuh",
+     "__float_as_uint(f[1]), 0x7632);",
+     "__float_as_uint(f[1]), 0x5410);"),
 )
 
 

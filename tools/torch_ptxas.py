@@ -9,7 +9,10 @@ infinistore_tpu_torch/csrc/*.cu with the flags of ops/_kernels.py plus
 line per kernel variant: registers a thread, spill stores and loads and
 the stack frame in bytes (an array the compiler could not keep in
 registers lives there), and any ptxas note that it serialised a
-kernel's wgmma. Then,
+kernel's wgmma. The split-K paged kernel prints as
+``paged_split_kernel<q type, hd, row tile / 16, int8 pages>``: its
+instantiations over q's type (paged_split.cu: K2, K3) and over int8
+pages (paged_split_q.cu: K4) each. Then,
 for each variant of the flash kernels (K1, K5, K6), the count of HGMMA
 (wgmma), UTMALDG (TMA load) and SYNCS (mbarrier) instructions in its
 SASS (``cuobjdump -sass`` of the built objects): the bf16 ``*_wgmma``

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Sweep the split plan's two constants (ops/paged_split.py: SPLIT_WAVES
-and SPLIT_MIN_TOKENS) over chip_smoke.py's K2 and K3 cases, on one NVIDIA
-GPU.
+and SPLIT_MIN_TOKENS) over chip_smoke.py's K2, K3 and K4 cases, on one
+NVIDIA GPU.
 
     python3 tools/torch_split_sweep.py [--waves 1,2,4]
         [--min-tokens 64,128,256] [--decode 1,2,3] [--verify 0,1]
-        [--iters 20] [--rounds 2]
+        [--decode-q 4,16] [--iters 20] [--rounds 2]
 
 For every (waves, min tokens) pair the plan's constants are set, its
 cache is cleared, and each picked case of phase 3's DECODE_CASES
-(``--decode``, by index) and phase 5's VERIFY_CASES (``--verify``) is
+(``--decode``, by index), phase 5's VERIFY_CASES (``--verify``) and phase
+3b's DECODE_Q_CASES (``--decode-q``; none by default) is
 launched once against its plain version (chip_smoke's tolerance) and
 timed as device time (chip_smoke.graph_ms: --iters launches in one CUDA
 graph). The pairs run --rounds times, in order and then reversed, so
@@ -43,6 +44,7 @@ def main():
     ap.add_argument("--min-tokens", default="64,128,256")
     ap.add_argument("--decode", default="1,2,3,4,8,10,12")
     ap.add_argument("--verify", default="0,1,2,3,4,11")
+    ap.add_argument("--decode-q", default="")
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=2)
     args = ap.parse_args()
@@ -55,6 +57,7 @@ def main():
     from infinistore_tpu_torch.ops import _kernels, paged_split
     from infinistore_tpu_torch.ops import paged_attention as pa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
 
     disable_tf32()
@@ -78,6 +81,14 @@ def main():
                        cs.verify_args(torch, c, gen), c[3], c[4], c[1],
                        pv.paged_flash_verify,
                        pa.multi_token_paged_attention))
+    for i in ints(args.decode_q):
+        c = cs.DECODE_Q_CASES[i]
+        gen = torch.Generator(device="cuda").manual_seed(cs.SEED + i)
+        args_q = cs.decode_q_args(torch, c, gen)
+        # The plan reads q, the pages (k_q) and the table.
+        picked.append((f"decode_q {i} {c[0]} {c[1]} w{c[3]}", args_q, 1,
+                       c[3], c[1], pq.paged_flash_decode_quantized,
+                       pq.paged_decode_quantized_plain))
 
     times = {(name, p): [] for name, *_ in picked for p in pairs}
     plans, ok, worst = {}, True, {}
@@ -97,11 +108,10 @@ def main():
                         rel = cs.rel_err(run(), plain(*a, window=win))
                         worst[key] = rel
                         ok = ok and rel <= cs.TOL_REL[dt]
-                        q, kp, table = a[0], a[1], a[3]
+                        q, kp, table = a[0], a[1], a[-2]
                         n_kv = kp.shape[2]
-                        plan = paged_split.split_plan(
-                            q.shape[0], n_kv, m * (q.shape[-2] // n_kv),
-                            table.shape[1], kp.shape[1], sms, win, m)
+                        plan = paged_split.plan_of(q, kp, table, win, m,
+                                                   sms)
                         plans[key] = (plan.n_splits * plan.row_tiles * n_kv
                                       * q.shape[0], plan.n_splits)
                     times[key].append(cs.graph_ms(torch, run, args.iters))
