@@ -72,6 +72,23 @@ Phases, in order; any failure exits non-zero before the result line:
    that regenerate them through int8 prefix hits, every request
    teacher-forced (delta measured over int8-restored pages) and a planted
    page-table fault caught.
+   6c. MoE at Mixtral-8x7B width (mistralai/Mixtral-8x7B-v0.1's
+   config.json through the port's moe_config_from_hf, cut to 16 of 32
+   layers: 32 layers of bf16 weights take 93.4 GB), after phase 6b's tree
+   is freed: at 2 layers a port tree turned into an HF Mixtral state dict
+   and loaded back through load_hf_moe (every leaf and one prefill's
+   logits equal); phase 4's main path through the MoE model (K1 and K2,
+   16 launches a model call), decode ms against the byte bound of
+   reading every weight, each expert's share of routed tokens; serving
+   (8 cold requests and 4 regenerated through prefix hits with
+   speculation, 4 through 512-token chunks and 4-step bursts: K1, K2,
+   K3), no token dropped (C = T), K3 held to its plain version on a
+   chunk step; every request teacher-forced by phase 6's rule as a
+   reading and, as the check, with the dense pass routed as the engine
+   routed each token (a planted page-table fault caught), and the
+   (layer, token) pairs whose top-2 differs between the engine and the
+   dense pass counted; then 4 training steps at 2 layers (K1, K5, K6;
+   the float32 router gets its grad).
 7. Exact parity at float32, Llama-3.1-8B widths, 4 layers: speculative,
    chunked + multi-step + preempting through the store, and a
    store-backed second round give the tokens of a plain store-less
@@ -91,12 +108,14 @@ Phases, in order; any failure exits non-zero before the result line:
    the kernels against the same Function on its plain leaves (f32 and
    bf16).
 10. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
-    K4's also carry graph_ms), the card line, and as the last line {"ok": true,
+    K4's also carry graph_ms), after the phases' JSON lines (phase 6c's
+    under "moe:"), the card line, and as the last line {"ok": true,
     "device": {...}}.
 """
 
 import collections
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -713,7 +732,9 @@ def phase_decode_q(torch, pq, pd, gen):
 # phase 4: the main path
 # ---------------------------------------------------------------------------
 
-def phase_main(torch, np, report, params):
+def phase_main(torch, np, report, params, cfg=None, model=None):
+    """Phase 4 at Llama-3.1-8B width, or the same path for another model
+    family (``model`` with its ``cfg``; the caller prints the title)."""
     from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
                                        InfinityConnection, ServerConfig,
                                        TYPE_SHM, TYPE_STREAM)
@@ -724,8 +745,9 @@ def phase_main(torch, np, report, params):
     from infinistore_tpu_torch.ops.paged_attention import (
         paged_decode_attention)
 
-    say("== phase 4: main path at Llama-3.1-8B width ==")
-    cfg = llama.LLAMA31_8B
+    if cfg is None:
+        say("== phase 4: main path at Llama-3.1-8B width ==")
+        cfg, model = llama.LLAMA31_8B, llama
     L, P = cfg.n_layers, cfg.page_size
     token_bytes = 2 * L * cfg.kv_page_bytes() // P
     pool_bytes = int(sum(PROMPTS) * token_bytes * 1.5)
@@ -772,7 +794,7 @@ def phase_main(torch, np, report, params):
         # measure steady state rather than first-call library set-up.
         with torch.no_grad():
             for prompt in prompts:
-                llama.prefill(params, cfg, prompt)
+                model.prefill(params, cfg, prompt)
                 n_prefills += 1
         pconn = connect(TYPE_SHM)
         check(pconn.shm_connected, "SHM path not active")
@@ -782,7 +804,7 @@ def phase_main(torch, np, report, params):
                 n = prompt.shape[1]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                logits, kvs = llama.prefill(params, cfg, prompt)
+                logits, kvs = model.prefill(params, cfg, prompt)
                 n_prefills += 1
                 torch.cuda.synchronize()
                 t_pf = time.perf_counter() - t0
@@ -866,7 +888,7 @@ def phase_main(torch, np, report, params):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(DECODE_STEPS):
-                logits, kpool, vpool = llama.decode_step(
+                logits, kpool, vpool = model.decode_step(
                     params, cfg, tok, lens, kpool, vpool, table)
                 n_steps += 1
                 tok = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -907,7 +929,7 @@ def phase_main(torch, np, report, params):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 prefix_kvs = llama.restore_prefix_kvs(store, cfg, sid0, hit)
-                tail, _ = llama.prefill_with_prefix(params, cfg, new_tail,
+                tail, _ = model.prefill_with_prefix(params, cfg, new_tail,
                                                     prefix_kvs)
                 n_prefills += 1
                 torch.cuda.synchronize()
@@ -915,7 +937,7 @@ def phase_main(torch, np, report, params):
                 del prefix_kvs
             for _ in range(2):
                 t0 = time.perf_counter()
-                full, _ = llama.prefill(params, cfg, full_tokens)
+                full, _ = model.prefill(params, cfg, full_tokens)
                 n_prefills += 1
                 torch.cuda.synchronize()
                 t_full = time.perf_counter() - t0
@@ -957,7 +979,7 @@ def phase_main(torch, np, report, params):
         kernel_attn = llama.decode_attention
         llama.decode_attention = both
         try:
-            llama.decode_step(params, cfg,
+            model.decode_step(params, cfg,
                               toks_store[:, -1].to(torch.int32).cuda(),
                               lens_end, k_pool, v_pool, table)
         finally:
@@ -1360,15 +1382,19 @@ def teacher_forced_gaps(torch, llama, params, cfg, pairs):
     return worst, exact / max(total, 1)
 
 
-def logit_noise(torch, llama, plain_prefill, params, cfg, tokens):
+def logit_noise(torch, llama, plain_prefill, params, cfg, tokens,
+                model=None):
     """Largest |logit| difference between the dense prefill through the
-    flash kernel and through the plain attention, on ``tokens``."""
+    flash kernel and through the plain attention, on ``tokens``.
+    ``model`` (default llama) runs the prefill; every family attends
+    through llama's flash_prefill."""
+    model = model or llama
     with torch.no_grad():
-        kernel_logits, _ = llama.prefill(params, cfg, tokens)
+        kernel_logits, _ = model.prefill(params, cfg, tokens)
         saved = llama.flash_prefill
         llama.flash_prefill = plain_prefill
         try:
-            plain_logits, _ = llama.prefill(params, cfg, tokens)
+            plain_logits, _ = model.prefill(params, cfg, tokens)
         finally:
             llama.flash_prefill = saved
     return (kernel_logits - plain_logits).abs().max().item()
@@ -2038,6 +2064,656 @@ def phase_int8(torch, np, params, report):
 
 
 # ---------------------------------------------------------------------------
+# phase 6c: MoE at Mixtral-8x7B width
+# ---------------------------------------------------------------------------
+
+# mistralai/Mixtral-8x7B-v0.1's config.json: the fields the bridge reads.
+MIXTRAL_8X7B = dict(
+    model_type="mixtral", vocab_size=32000, hidden_size=4096,
+    intermediate_size=14336, num_hidden_layers=32, num_attention_heads=32,
+    num_key_value_heads=8, num_local_experts=8, num_experts_per_tok=2,
+    rope_theta=1e6, max_position_embeddings=32768, rms_norm_eps=1e-5,
+    sliding_window=None, hidden_act="silu", rope_scaling=None,
+    tie_word_embeddings=False)
+MOE_LAYERS = 16       # 32 layers of bf16 weights take 93.4 GB of the 80
+MOE_SMALL_LAYERS = 2  # the bridge's round trip and training
+MOE_BRIDGE_TOKENS = 256
+MOE_B_PROMPTS = (2048, 1536, 1024, 512)  # engine B, chunked
+MOE_REGEN = (0, 2, 4, 6)                 # round-1 requests regenerated
+MOE_CHECK_PROMPT = 1024  # the chunk step held to the plain attention
+MOE_DIFF_SHOWN = 5
+MOE_FAULT_PROMPT = 6  # round 1's request whose slot the fault shifts
+
+
+def mixtral_config(hf, **cut):
+    """MIXTRAL_8X7B (with ``cut`` applied) through the port's bridge, as
+    an attribute namespace like a transformers config: bf16, page 16."""
+    ns = type("HFConfig", (), {**MIXTRAL_8X7B, **cut})
+    return ns, hf.moe_config_from_hf(ns, page_size=16, dtype="bfloat16")
+
+
+def moe_to_hf(params, cfg):
+    """The inverse of ``hf.moe_params_from_hf``: the tree as an HF-named
+    Mixtral state dict on its device ([out, in] projections, per-expert
+    w1 / w3 / w2)."""
+    t = lambda w: w.T.contiguous()  # noqa: E731
+    sd = {"model.embed_tokens.weight": params["embed"],
+          "model.norm.weight": params["final_ln"],
+          "lm_head.weight": t(params["lm_head"])}
+    for li, layer in enumerate(params["layers"]):
+        p = f"model.layers.{li}."
+        m = p + "block_sparse_moe."
+        sd[p + "input_layernorm.weight"] = layer["ln1"]
+        sd[p + "post_attention_layernorm.weight"] = layer["ln2"]
+        for ours, theirs in (("wq", "q_proj"), ("wk", "k_proj"),
+                             ("wv", "v_proj"), ("wo", "o_proj")):
+            sd[p + f"self_attn.{theirs}.weight"] = t(layer[ours])
+        sd[m + "gate.weight"] = t(layer["router"])
+        for ours, theirs in (("e_gate", "w1"), ("e_up", "w3"),
+                             ("e_down", "w2")):
+            for e in range(cfg.n_experts):
+                sd[m + f"experts.{e}.{theirs}.weight"] = t(layer[ours][e])
+    return sd
+
+
+def moe_bridge(torch, np, hf, moe, llama, report):
+    """At full width and 2 layers: a port tree -> HF state dict ->
+    ``load_hf_moe``; every leaf and one prefill's logits equal."""
+    t0 = time.perf_counter()
+    ns, cfg = mixtral_config(hf, num_hidden_layers=MOE_SMALL_LAYERS)
+    params = moe.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 11), cfg, "cuda")
+    sd = moe_to_hf(params, cfg)
+    cfg2, back = hf.load_hf_moe(sd, ns, page_size=16, dtype="bfloat16",
+                                device="cuda")
+    del sd
+    check(cfg2 == cfg, f"bridge config {cfg2} != {cfg}")
+    mine, theirs = llama.param_leaves(params), llama.param_leaves(back)
+    check(len(mine) == len(theirs) and all(
+        a.dtype == b.dtype and torch.equal(a, b)
+        for a, b in zip(mine, theirs)), "bridge round trip changed a leaf")
+    check(back["layers"][0]["router"].dtype == torch.float32,
+          "the bridge's router is not float32")
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 11).integers(
+        0, cfg.vocab_size, (1, MOE_BRIDGE_TOKENS)), dtype=torch.int32,
+        device="cuda")
+    with torch.no_grad():
+        la, _ = moe.prefill(params, cfg, tokens)
+        lb, _ = moe.prefill(back, cfg, tokens)
+    check(torch.equal(la, lb), "bridged tree's logits differ")
+    torch.cuda.synchronize()
+    say(f"bridge: {MOE_SMALL_LAYERS} layers at full width, "
+        f"{llama.param_bytes(params) / 1e9:.2f} GB: port tree -> HF "
+        f"Mixtral state dict -> load_hf_moe: {len(mine)} leaves equal, "
+        f"{MOE_BRIDGE_TOKENS}-token prefill logits equal ("
+        f"{time.perf_counter() - t0:.1f} s)")
+    report["bridge"] = dict(leaves=len(mine), equal=True)
+    del params, back, la, lb
+
+
+class RoutingTape:
+    """Routing recorded by context and replayed: while active it wraps
+    ``moe._route``. A model call run through :meth:`run` names each of its
+    routed tokens as (sequence, position, request id), or None for
+    padding, through a function read only at :meth:`commit` (a served
+    request's sequence is final then). Recorded, each layer's top-k
+    choice is kept under the token's request and context (the sequence up
+    to and including it; the latest record wins, as spec decoding
+    rewrites rejected positions), and under the context alone for the
+    first request that routed it (a request that restored those pages
+    from the store did not). Replayed for one request, every token with
+    a record routes to the recorded experts, the others by the router.
+    The bf16 paths of one model differ in rounding, and a token whose two
+    best experts are nearly tied flips between them and takes other
+    experts' outputs: replaying one path's routing in the other holds
+    them to each other on everything else."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe = torch, moe
+        self.calls, self.table, self.prefix = [], {}, {}
+        self.rows = None
+        # Every pass while active: its selected and dropped pairs, summed
+        # on the device (no sync per layer).
+        self.selected, self.dropped = [], []
+
+    def __enter__(self):
+        self.saved = self.moe._route
+        self.moe._route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.saved
+
+    def run(self, rows, fn, replay=None):
+        """Run model call ``fn`` with its tokens named by ``rows``;
+        replay the routing recorded for request ``replay`` (its records,
+        then anyone's) instead of recording, if given."""
+        self.rows, self.replay, self.experts, self.keys = (
+            rows, replay, [], None)
+        try:
+            return fn()
+        finally:
+            if replay is None:
+                self.calls.append((rows, self.experts))
+            self.rows = None
+
+    def key(self, seq, pos):
+        """The context of position ``pos`` of ``seq``: a chained hash of
+        seq[:pos + 1], computed once per sequence."""
+        hs = self.prefix.get(seq)
+        if hs is None:
+            h, hs = 0, []
+            for t in seq:
+                h = hash((h, t))
+                hs.append(h)
+            self.prefix[seq] = hs
+        return hs[pos]
+
+    def totals(self):
+        """(passes, selected pairs, dropped pairs) while active so far."""
+        return (len(self.selected),
+                int(self.torch.stack(self.selected).sum()),
+                int(self.torch.stack(self.dropped).sum()))
+
+    def _route(self, layer, h, cfg, valid=None, choice=None):
+        if self.rows is None or self.replay is None:
+            r = self.saved(layer, h, cfg, valid, choice)
+            self.selected.append(r.selected.sum())
+            self.dropped.append((r.selected & ~r.kept).sum())
+            if self.rows is not None:
+                self.experts.append(r.expert)
+            return r
+        li = len(self.experts)
+        self.experts.append(None)
+        if self.keys is None:
+            self.keys = [None if row is None else self.key(*row[:2])
+                         for row in self.rows()]
+        own = self.saved(layer, h, cfg, valid).expert
+        forced = own.cpu().numpy().copy()
+        for t, k in enumerate(self.keys):
+            rec = None if k is None else self.lookup(self.replay, k, li)
+            if rec is not None:
+                forced[t] = rec
+        return self.saved(layer, h, cfg, valid,
+                          self.torch.as_tensor(forced, device=h.device))
+
+    def commit(self):
+        """File every recorded call's choices under their contexts."""
+        for rows, experts in self.calls:
+            host = [e.cpu().numpy() for e in experts]
+            for t, row in enumerate(rows()):
+                if row is not None:
+                    seq, pos, rid = row
+                    k = self.key(seq, pos)
+                    for li, e in enumerate(host):
+                        self.table[(rid, k, li)] = e[t]
+                        self.table.setdefault((None, k, li), e[t])
+        self.calls = []
+
+    def lookup(self, rid, key, li):
+        rec = self.table.get((rid, key, li))
+        return self.table.get((None, key, li)) if rec is None else rec
+
+    def choices(self, rid, seq, pos, n_layers):
+        k = self.key(seq, pos)
+        return [self.lookup(rid, k, li) for li in range(n_layers)]
+
+
+class TapedModel(CountingModel):
+    """The MoE module for an engine, counting its calls (as
+    CountingModel) and running each through ``tape`` with its tokens
+    named: the admitted request's (set by :func:`taped`), or each slot's
+    row at its position. Sequences resolve through ``final``
+    (request id -> generated tokens) at commit."""
+
+    def __init__(self, module, tape, final):
+        super().__init__(module)
+        self.tape, self.final = tape, final
+        self.engine = self.admitting = None
+
+    def _row(self, work, pos):
+        rid = work.req.request_id
+        return (tuple(work.prompt) + tuple(self.final[rid]), pos, rid)
+
+    def __getattr__(self, name):
+        fn = super().__getattr__(name)
+        if name not in self.COUNTED:
+            return fn
+        return lambda *a, **kw: self.tape.run(self._rows(name, *a, **kw),
+                                              lambda: fn(*a, **kw))
+
+    def _rows(self, name, params, cfg, tokens, *a, **kw):
+        if name in ("prefill", "prefill_with_prefix"):
+            start = 0
+            if name == "prefill_with_prefix":
+                start = a[0][0][0].shape[1] + kw.get("pos0", 0)
+            work, n = self.admitting, tokens.shape[1]
+            return lambda: [self._row(work, start + j) for j in range(n)]
+        works = [None if s is None else s.work for s in self.engine.slots]
+        lens = a[0].clone()
+        m = 1 if tokens.dim() == 1 else tokens.shape[1]
+        valid = a[4] if len(a) > 4 else kw.get("valid_len")
+        valid = None if valid is None else valid.clone()
+
+        def rows():
+            ls = lens.tolist()
+            vs = [m] * len(ls) if valid is None else valid.tolist()
+            return [self._row(w, ls[i] + j)
+                    if w is not None and j < vs[i] and (m > 1 or ls[i] > 0)
+                    else None
+                    for i, w in enumerate(works) for j in range(m)]
+        return rows
+
+
+def taped(eng, model):
+    """Point ``model`` (a TapedModel) at ``eng``'s slots and admissions."""
+    model.engine = eng
+    admit = eng._do_admit_paged
+
+    def do_admit(slot_idx, work, *a, **kw):
+        model.admitting = work
+        return admit(slot_idx, work, *a, **kw)
+    eng._do_admit_paged = do_admit
+    return eng
+
+
+class PinnedPrefill:
+    """``prefill`` of ``moe`` routed as ``tape`` recorded request ``rid``
+    (teacher_forced_gaps' model)."""
+
+    def __init__(self, tape, moe, rid):
+        self.tape, self.moe, self.rid = tape, moe, rid
+
+    def prefill(self, params, cfg, toks):
+        seq = tuple(toks[0].tolist())
+        return self.tape.run(
+            lambda: [(seq, p, self.rid) for p in range(len(seq))],
+            lambda: self.moe.prefill(params, cfg, toks), replay=self.rid)
+
+
+def moe_teacher_forced(torch, serving, llama, moe, plain_prefill, params,
+                       cfg, finished, rids, tape, fault_prompt):
+    """Every finished request teacher-forced through one dense prefill,
+    by phase 6's rule (delta = DELTA_FACTOR x the kernel-vs-plain logit
+    noise) twice: as phase 6 runs it, and with each dense pass routed as
+    the engine routed the request's tokens (``tape``) and the noise
+    measured between two passes routed alike. A bf16 MoE at random
+    weights flips nearly-tied experts between any two paths, so the
+    first reads the flips (with the (layer, token) pairs whose top-2
+    differs) and the second, the check, holds the paged path (pages,
+    kernels, page tables) to the dense one. A planted page-table fault
+    must read above twice the pinned delta."""
+    L = cfg.n_layers
+
+    def noise(pinned):
+        seq = list(finished[0][0]) + list(finished[0][1])
+        toks = torch.tensor([seq], dtype=torch.int32, device="cuda")
+        if not pinned:
+            return logit_noise(torch, llama, plain_prefill, params, cfg,
+                               toks, model=moe)
+        own = RoutingTape(torch, moe)
+        rows = lambda: [(tuple(seq), p, "n") for p in range(len(seq))]  # noqa
+        with torch.no_grad(), own:
+            kernel, _ = own.run(rows, lambda: moe.prefill(params, cfg, toks))
+            own.commit()
+            saved = llama.flash_prefill
+            llama.flash_prefill = plain_prefill
+            try:
+                plain, _ = PinnedPrefill(own, moe, "n").prefill(params, cfg,
+                                                                toks)
+            finally:
+                llama.flash_prefill = saved
+        return (kernel - plain).abs().max().item()
+
+    class Recorded:  # a dense prefill recorded into ``dense``
+        def prefill(self, params, cfg, toks):
+            seq = tuple(toks[0].tolist())
+            return dense.run(
+                lambda: [(seq, p, self.rid) for p in range(len(seq))],
+                lambda: moe.prefill(params, cfg, toks))
+
+    dense = RoutingTape(torch, moe)
+    out = {}
+    free = []
+    with dense:
+        for rid, pair in zip(rids, finished):
+            rec = Recorded()
+            rec.rid = rid
+            free.append(teacher_forced_gaps(torch, rec, params, cfg, [pair]))
+    dense.commit()
+    with tape:
+        pinned = [teacher_forced_gaps(torch, PinnedPrefill(tape, moe, rid),
+                                      params, cfg, [pair])
+                  for rid, pair in zip(rids, finished)]
+    diffs = []
+    for r, (rid, (prompt, gen)) in enumerate(zip(rids, finished)):
+        seq = tuple(prompt) + tuple(gen)
+        for pos in range(len(prompt) - 1, len(seq) - 1):
+            a = tape.choices(rid, seq, pos, L)
+            b = dense.choices(rid, seq, pos, L)
+            check(all(x is not None for x in a),
+                  f"request {r}: no engine routing at position {pos}")
+            diffs += [(r, li, pos, sorted(x.tolist()), sorted(y.tolist()))
+                      for li, (x, y) in enumerate(zip(a, b))
+                      if sorted(x.tolist()) != sorted(y.tolist())]
+    n_pairs = L * sum(len(g) for _, g in finished)
+    for name, gaps, pinned_run in (("as phase 6", free, False),
+                                   ("routed as served", pinned, True)):
+        nz = noise(pinned_run)
+        delta = DELTA_FACTOR * nz
+        worst = max(g for g, _ in gaps)
+        exact = statistics.mean(e for _, e in gaps)
+        say(f"teacher-forced, {name}: {len(finished)} requests, largest "
+            f"gap {worst:.4f}, exact argmax share {exact:.4f}; delta "
+            f"{delta:.4f} = {DELTA_FACTOR:g} x logit noise {nz:.4f}; per "
+            f"request " + " ".join(f"{g:.3f}" for g, _ in gaps))
+        out["pinned" if pinned_run else "unpinned"] = dict(
+            worst_gap=worst, exact_share=exact, delta=delta,
+            logit_noise=nz)
+    worst_r = max(range(len(free)), key=lambda i: free[i][0])
+    shown = [d for d in diffs if d[0] == worst_r][:MOE_DIFF_SHOWN]
+    say(f"routing, engine vs dense pass: top-2 differs at {len(diffs)} of "
+        f"{n_pairs} (layer, token) pairs of the generated tokens' rows"
+        + "".join(f"; request {r} layer {li} token {pos}: served {a} "
+                  f"dense {b}" for r, li, pos, a, b in shown))
+    out["routing_diffs"] = len(diffs)
+    out["routing_pairs"] = n_pairs
+    delta = out["pinned"]["delta"]
+    check(out["pinned"]["worst_gap"] <= delta,
+          f"teacher-forced gap {out['pinned']['worst_gap']} > delta {delta}")
+
+    # The check bites: slot 0's page-table row shifted by one page.
+    ftape, ffinal = RoutingTape(torch, moe), {}
+    fmodel = TapedModel(moe, ftape, ffinal)
+    faulty = taped(shifted_row_engine(
+        serving, params, cfg, serving.ServingConfig(
+            max_slots=2, max_pages_per_seq=40, total_pages=81),
+        model=fmodel), fmodel)
+    with ftape:
+        fout = faulty.run([serving.Request("fault", fault_prompt,
+                                           max_new_tokens=16)])
+    ffinal.update(fout)
+    ftape.commit()
+    with ftape:
+        fgap, fexact = teacher_forced_gaps(
+            torch, PinnedPrefill(ftape, moe, "fault"), params, cfg,
+            [(fault_prompt, fout["fault"])])
+    ratio = fgap / delta if delta > 0 else float("inf")
+    say(f"planted fault (slot 0's page-table row shifted by one page), "
+        f"routed as served: largest gap {fgap:.4f} ({ratio:.1f} x delta), "
+        f"exact argmax share {fexact:.4f}")
+    check(fgap > 2 * delta, "the teacher-forced check missed a shifted "
+          "page-table row")
+    out["fault_gap"] = fgap
+    return out
+
+
+def phase_moe(torch, np, report):
+    from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                       InfinityConnection, ServerConfig,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import hf, llama, moe
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops.paged_attention import (
+        multi_token_paged_attention, prefill_attention)
+
+    say(f"== phase 6c: MoE at Mixtral-8x7B width (mistralai/Mixtral-8x7B-"
+        f"v0.1 config.json), {MOE_LAYERS} of 32 layers, bf16 ==")
+    moe_bridge(torch, np, hf, moe, llama, report)
+    torch.cuda.empty_cache()
+
+    _, full = mixtral_config(hf)
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    L, P = cfg.n_layers, cfg.page_size
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = moe.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 12), cfg, "cuda")
+    torch.cuda.synchronize()
+    w_bytes = llama.param_bytes(params)
+    per_layer = llama.param_bytes(params["layers"][0])
+    full_bytes = w_bytes + (full.n_layers - L) * per_layer
+    say(f"model: {sum(t.numel() for t in llama.param_leaves(params)) / 1e9:.2f}"
+        f" B params, {w_bytes / 1e9:.2f} GB bf16 (router float32) in "
+        f"{time.perf_counter() - t0:.1f} s; cut from 32 to {L} layers: 32 "
+        f"would take {full_bytes / 1e9:.1f} GB of the card's 80; "
+        f"capacity_factor {cfg.capacity_factor:g} (E / top_k: C = T, no "
+        f"drop); {cfg.n_experts} experts, top {cfg.top_k}, d_ff "
+        f"{cfg.d_ff}")
+    report["config"] = dict(layers=L, of=full.n_layers,
+                            weight_GB=w_bytes / 1e9,
+                            full_depth_GB=full_bytes / 1e9,
+                            capacity_factor=cfg.capacity_factor)
+    tape = RoutingTape(torch, moe)
+    try:
+        # -- the main path, as phase 4 runs it --
+        say(f"-- main path at Mixtral-8x7B width, {L} layers --")
+        main = {}
+        with tape:
+            phase_main(torch, np, main, params, cfg, moe)
+        launches = main["launches"]
+        say(f"main path launches per model call: flash_prefill "
+            f"{launches['flash_prefill']}, paged_decode "
+            f"{launches['paged_decode']} ({L} a call)")
+        # Decode at batch 4 runs every expert (C = 8 slots each), so a
+        # step reads every weight but the embedding table, plus the KV
+        # of the mean step's lengths.
+        token_kv = 2 * L * cfg.kv_page_bytes() // P
+        step_bytes = (w_bytes - llama.param_bytes(params["embed"])
+                      + sum(n + (DECODE_STEPS + 1) / 2 for n in PROMPTS)
+                      * token_kv)
+        decode_bound = step_bytes / HBM_BPS * 1e3
+        say(f"decode {main['decode_ms_per_step']:.2f} ms/step at batch "
+            f"{len(PROMPTS)} against its byte bound {decode_bound:.2f} ms "
+            f"({step_bytes / 1e9:.2f} GB a step at {HBM_BPS / 1e12:g} TB/s)"
+            f"; prefix hit {main['prefix_hit_ms']:.2f} ms against the full "
+            f"{PROMPTS[0] + HIT_NEW}-token prefill "
+            f"{main['full_prefill_ms']:.2f} ms")
+        main["decode_bound_ms"] = decode_bound
+        main["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        report["main"] = {k: v for k, v in main.items() if k != "k2"}
+
+        # Each expert's share of routed pairs on a 2048-token prefill.
+        prompt = torch.as_tensor(np.random.default_rng(SEED + 12).integers(
+            0, cfg.vocab_size, (1, PROMPTS[0])), dtype=torch.int32,
+            device="cuda")
+        with torch.no_grad(), RoutingTape(torch, moe) as shares:
+            shares.run(lambda: [], lambda: moe.prefill(params, cfg, prompt))
+        counts = torch.stack([torch.bincount(e.reshape(-1),
+                                             minlength=cfg.n_experts)
+                              for e in shares.calls[0][1]]).float()
+        share = (counts.sum(0) / counts.sum()).tolist()
+        per_layer_max = (counts.max(1).values / counts.sum(1)).max().item()
+        say(f"expert shares of routed pairs, {PROMPTS[0]}-token prefill, "
+            f"all {L} layers: " + " ".join(f"{x:.4f}" for x in share)
+            + f"; largest share in one layer {per_layer_max:.4f} (uniform "
+            f"{1 / cfg.n_experts:.4f})")
+        report["expert_share"] = dict(all_layers=share,
+                                      max_in_a_layer=per_layer_max)
+
+        # -- serving --
+        say(f"-- serving at Mixtral-8x7B width, {L} layers --")
+        rng = np.random.default_rng(SEED + 13)
+
+        def toks(n):
+            return [int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+
+        r1_prompts = [toks(n) for n in ROUND1]
+        b_prompts = [toks(n) for n in MOE_B_PROMPTS]
+        n_tokens = int(1.25 * (sum(ROUND1) + 8 * NEW_TOKENS
+                               + 4 * NEW_TOKENS + sum(MOE_B_PROMPTS)
+                               + 4 * NEW_TOKENS + 2048))
+        srv = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens)
+        conn = InfinityConnection(ClientConfig(
+            host_addr="127.0.0.1", service_port=srv.service_port,
+            connection_type=TYPE_SHM))
+        conn.connect()
+        check(conn.shm_connected, "SHM path not active")
+        store = tcuda.CudaKVStore(conn, "cuda")
+        final = {}
+        model_a, model_b = (TapedModel(moe, tape, final) for _ in range(2))
+        proposer = ContinuationProposer()
+        serve = {}
+        pages = -(-(max(ROUND1) + NEW_TOKENS + 8) // P)
+        try:
+            eng_a = taped(serving.ServingEngine(
+                params, cfg, serving.ServingConfig(
+                    max_slots=8, spec_k=4, max_pages_per_seq=pages,
+                    total_pages=8 * pages + 1),
+                store=store, proposer=proposer, model=model_a), model_a)
+            eng_b = taped(serving.ServingEngine(
+                params, cfg, serving.ServingConfig(
+                    max_slots=4, prefill_chunk=512, host_steps=4,
+                    max_pages_per_seq=pages, total_pages=4 * pages + 1),
+                store=store, model=model_b), model_b)
+            fa.reset_launches()
+            pd.reset_launches()
+            pv.reset_launches()
+            finished, rids = [], []
+            with tape:
+                reqs = [serving.Request(f"r1_{i}", p,
+                                        max_new_tokens=NEW_TOKENS)
+                        for i, p in enumerate(r1_prompts)]
+                out1 = run_leg(torch, eng_a, "round1", reqs, serve)
+                finished += [(r.prompt, out1[r.request_id]) for r in reqs]
+                rids += [r.request_id for r in reqs]
+                reqs = []
+                for i in MOE_REGEN:
+                    proposer.add(r1_prompts[i], out1[f"r1_{i}"])
+                    reqs.append(serving.Request(f"regen_{i}", r1_prompts[i],
+                                                max_new_tokens=NEW_TOKENS))
+                out2 = run_leg(torch, eng_a, "regenerate", reqs, serve)
+                finished += [(r.prompt, out2[r.request_id]) for r in reqs]
+                rids += [r.request_id for r in reqs]
+                reqs = [serving.Request(f"b_{i}", p,
+                                        max_new_tokens=NEW_TOKENS)
+                        for i, p in enumerate(b_prompts)]
+                outb = run_leg(torch, eng_b, "chunked", reqs, serve)
+                finished += [(r.prompt, outb[r.request_id]) for r in reqs]
+                rids += [r.request_id for r in reqs]
+            torch.cuda.synchronize()
+            calls = dict(model_a.calls + model_b.calls)
+            k1, k2, k3 = fa.launches, pd.launches, pv.launches
+            n_pf = (calls.get("prefill", 0)
+                    + calls.get("prefill_with_prefix", 0))
+            say(f"serving launches: flash_prefill {k1} (= {L} x {n_pf} "
+                f"prefills), paged_decode {k2} (= {L} x "
+                f"{calls.get('decode_step', 0)} decode steps), paged_verify "
+                f"{k3} (= {L} x {calls.get('verify_step', 0)} verify "
+                f"steps)")
+            check(k1 == L * n_pf and k1 > 0, "MoE flash prefill launches")
+            check(k2 == L * calls.get("decode_step", 0) and k2 > 0,
+                  "MoE paged decode launches")
+            check(k3 == L * calls.get("verify_step", 0) and k3 > 0,
+                  "MoE paged verify launches")
+            serve["launches"] = {"flash_prefill": k1, "paged_decode": k2,
+                                 "paged_verify": k3}
+            tot = {k: eng_a.stats[k] + eng_b.stats[k] for k in eng_a.stats}
+            for key in ("prefix_hit_pages", "spec_accepted", "chunk_steps",
+                        "burst_steps"):
+                check(tot[key] > 0, f"MoE serving never exercised {key}")
+            passes, selected, dropped = tape.totals()
+            say(f"routing over the main path and serving: {passes} passes, "
+                f"{selected} selected (token, expert) pairs, {dropped} "
+                f"dropped")
+            check(dropped == 0, f"{dropped} pairs dropped at C = T")
+            report["routing"] = dict(passes=passes, selected=selected,
+                                     dropped=dropped)
+            for out in (out1, out2, outb):
+                final.update(out)
+            tape.commit()
+
+            # ---- checks outside the counted run ----
+            eng_b.submit(serving.Request("check_chunk",
+                                         toks(MOE_CHECK_PROMPT),
+                                         max_new_tokens=4))
+            chunk_rel = layer_checked_step(
+                torch, llama, pv, multi_token_paged_attention, eng_b,
+                cfg.window)
+            eng_b.run()
+            worst = max(chunk_rel)
+            say(f"chunk step, K3 vs plain attention in each of "
+                f"{len(chunk_rel)} layers: worst rel err {worst:.3e} (tol "
+                f"{TOL_REL['bfloat16']:g})")
+            check(len(chunk_rel) == L and worst <= TOL_REL["bfloat16"],
+                  "MoE chunk step: paged verify kernel vs plain")
+            serve["teacher_forced"] = moe_teacher_forced(
+                torch, serving, llama, moe, prefill_attention, params, cfg,
+                finished, rids, tape, r1_prompts[MOE_FAULT_PROMPT])
+            report["serving"] = serve
+            del eng_a, eng_b
+        finally:
+            store.close()
+            conn.close()
+            srv.stop()
+        report["peak_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+        say(f"peak allocated {report['peak_GiB']:.2f} GiB")
+    finally:
+        del params
+
+
+def phase_moe_train(torch, np, report):
+    """Phase 6c's training: 4 AdamW steps at Mixtral-8x7B width, 2
+    layers, bf16, on one 2049-token batch: the loss falls, every leaf
+    gets a finite grad, and K1, K5 and K6 launch once per layer per
+    step."""
+    from infinistore_tpu_torch.models import hf, llama, moe
+    from infinistore_tpu_torch.ops import flash_attention as fa
+
+    _, cfg = mixtral_config(hf, num_hidden_layers=MOE_SMALL_LAYERS)
+    L = cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    params = moe.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 14), cfg, "cuda")
+    opt = llama.adamw(params, TRAIN_LR)
+    leaves = llama.param_leaves(params)
+    tokens = train_batch(torch, np, cfg, SEED + 14)
+    steps = []
+    fa.reset_launches()
+    for i in range(TRAIN_STEPS):
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = moe.train_step(params, opt, cfg, tokens)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = [a - b for a, b in zip(
+            (fa.launches, fa.dq_launches, fa.dkv_launches), before)]
+        steps.append(dict(loss=loss.item(), wall_ms=wall * 1e3,
+                          launches=launched))
+        check(launched == [L] * 3, f"MoE step {i + 1} launched K1/K5/K6 "
+              f"{launched} times, not {L} each")
+        check(np.isfinite(steps[-1]["loss"]), f"MoE step {i + 1} loss")
+        if i == 0:
+            missing = [j for j, t in enumerate(leaves)
+                       if t.grad is None
+                       or not bool(torch.isfinite(t.grad).all())]
+            check(not missing, f"MoE step 1: leaves {missing} have no "
+                  "finite grad")
+            router = params["layers"][0]["router"].grad
+            check(router.dtype == torch.float32
+                  and router.abs().max().item() > 0,
+                  "the float32 router got no grad")
+    losses = [s["loss"] for s in steps]
+    check(losses[-1] < losses[0], f"MoE loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"MoE training, {L} layers at full width, bf16: losses "
+        f"{[round(x, 5) for x in losses]}; wall ms "
+        f"{[round(s['wall_ms'], 1) for s in steps]}; every leaf (router "
+        f"float32) has a finite grad; K1/K5/K6 {L} each a step; peak "
+        f"{peak:.2f} GiB")
+    report["train"] = dict(losses=losses,
+                           wall_ms=[s["wall_ms"] for s in steps],
+                           peak_GiB=peak)
+    del params, opt, leaves, loss
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 7: exact parity at float32
 # ---------------------------------------------------------------------------
 
@@ -2577,6 +3253,13 @@ def main():
                             int8_report)
         del params
         torch.cuda.empty_cache()
+        moe_report = {}
+        timed("moe", phase_moe, torch, np, moe_report)
+        # The engines and their taped models hold the 16-layer tree in
+        # reference cycles: collect them before the next tree.
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed("moe training", phase_moe_train, torch, np, moe_report)
         timed("f32 parity", phase_f32, torch, np, serve_report)
         bwd = timed("backward", phase_bwd, torch, fa, gen)
         train_report = {}
@@ -2640,6 +3323,7 @@ def main():
     say("main path: " + json.dumps(main_path))
     say("serving: " + json.dumps(serve_report))
     say("int8: " + json.dumps(int8_report))
+    say("moe: " + json.dumps(moe_report))
     say("training: " + json.dumps(train_report))
     say("backward at the training shape: " + json.dumps(
         {dt: ({"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}

@@ -340,12 +340,14 @@ def _logits(params, x):
 
 
 def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
-                   pos0=0):
+                   pos0=0, ffn=None):
     """The one decoder-stack loop shared by dense prefill and prefix-
     cached prefill. With ``prefix_kvs`` (per-layer (k, v), each
     [batch, P, n_kv, hd], post-RoPE) positions shift by P and each layer
     attends over prefix + suffix KV (the rectangular causal diagonal);
-    ``pos0`` shifts every absolute rope position."""
+    ``pos0`` shifts every absolute rope position. ``ffn(layer, x)``
+    replaces the dense MLP: another family's feed-forward block
+    (``models.moe`` passes its routed experts)."""
     disable_tf32()
     b, s = tokens.shape
     prefix_len = 0 if prefix_kvs is None else prefix_kvs[0][0].shape[1]
@@ -365,7 +367,7 @@ def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
                              v_full.contiguous(), causal=True,
                              window=cfg.window)
         x = x + _attn_out(layer, attn.reshape(b, s, -1))
-        x = x + _mlp(layer, x, cfg)
+        x = x + (_mlp(layer, x, cfg) if ffn is None else ffn(layer, x))
         kvs.append((k, v))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x), kvs
@@ -400,7 +402,7 @@ def prefill_with_prefix(params, cfg: LlamaConfig, tokens, prefix_kvs,
 
 @torch.no_grad()
 def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
-                page_table):
+                page_table, ffn=None):
     """One decode step over paged KV.
 
     token:      [batch] int — current input token
@@ -410,7 +412,8 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
 
     The new token's KV is scattered into its page IN PLACE: ``k_pages``
     and ``v_pages`` are updated and returned (the JAX version returns new
-    arrays). Attention covers seq_lens + 1 tokens. Returns (logits
+    arrays). Attention covers seq_lens + 1 tokens. ``ffn(layer, x)``
+    replaces the dense MLP, as in :func:`_forward_stack`. Returns (logits
     [batch, vocab] float32, k_pages, v_pages)."""
     disable_tf32()
     b = token.shape[0]
@@ -438,14 +441,14 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
         attn = decode_attention(q[:, 0].contiguous(), kp, vp, page_table,
                                 lens, window=cfg.window)
         x = x + _attn_out(layer, attn.reshape(b, 1, -1))
-        x = x + _mlp(layer, x, cfg)
+        x = x + (_mlp(layer, x, cfg) if ffn is None else ffn(layer, x))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x[:, 0]), k_pages, v_pages
 
 
 @torch.no_grad()
 def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
-                v_pages, page_table, valid_len=None):
+                v_pages, page_table, valid_len=None, ffn=None):
     """m-token decode over paged KV: speculative decoding's verify step
     and the chunked-prefill inner step. Consumes m tokens per sequence in
     one pass and returns next-token logits at every one of the m
@@ -462,8 +465,9 @@ def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
 
     The m tokens' KV is scattered into the pages IN PLACE: ``k_pages``
     and ``v_pages`` are updated and returned (the JAX version returns new
-    arrays). A position past the page table is dropped. Returns (logits
-    [batch, m, vocab] float32, k_pages, v_pages)."""
+    arrays). A position past the page table is dropped. ``ffn(layer,
+    x)`` replaces the dense MLP, as in :func:`_forward_stack`. Returns
+    (logits [batch, m, vocab] float32, k_pages, v_pages)."""
     disable_tf32()
     b, m = tokens.shape
     n_pages = k_pages.shape[1]
@@ -494,7 +498,7 @@ def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
         attn = verify_attention(q.contiguous(), kp, vp, page_table, lens,
                                 window=cfg.window)
         x = x + _attn_out(layer, attn.reshape(b, m, -1))
-        x = x + _mlp(layer, x, cfg)
+        x = x + (_mlp(layer, x, cfg) if ffn is None else ffn(layer, x))
     x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x), k_pages, v_pages
 

@@ -56,7 +56,7 @@ import torch
 
 from ._device import resolve_device
 from .lib import InfiniStoreKeyNotFound
-from .models import llama
+from .models import llama, moe  # noqa: F401 (moe: the annotation)
 
 
 def content_page_digests(tokens, page_size, n_pages, namespace=""):
@@ -281,9 +281,13 @@ def _checksum(x):
 
 
 class ServingEngine:
-    """Continuous-batching engine over the store for the port's Llama
-    (``model`` is the module exposing prefill / prefill_with_prefix /
-    decode_step / verify_step over the shared KV page contract).
+    """Continuous-batching engine over the store for any model family of
+    the port that exposes prefill / prefill_with_prefix / decode_step /
+    verify_step over the shared KV page contract: ``model=llama`` with a
+    ``LlamaConfig`` (the default) or ``model=moe`` with a ``MoEConfig``.
+    The engine reads only the config fields both share; decode steps
+    advance live rows only, so the MoE family's validity mask keeps idle
+    slots out of expert capacity.
 
     ``store`` is a :class:`~infinistore_tpu_torch.cuda.CudaKVStore` on
     the engine's device (or None for store-less serving). The pools live
@@ -292,7 +296,8 @@ class ServingEngine:
     temperature/top-k sampling via Request(temperature=..., top_k=...,
     seed=...)."""
 
-    def __init__(self, params, cfg: llama.LlamaConfig, sconfig=None,
+    def __init__(self, params, cfg: "llama.LlamaConfig | moe.MoEConfig",
+                 sconfig=None,
                  store=None, proposer=None, model=llama, device="cuda"):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:

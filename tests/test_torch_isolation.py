@@ -14,15 +14,19 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "infinistore_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "ml_dtypes", "infinistore_tpu")
+# The card's machine has no transformers: the HF bridge must not need it.
+BLOCKED_WITH_HF = BLOCKED + ("transformers",)
 
 
 def test_port_imports_and_runs_with_jax_blocked():
     """In a fresh interpreter (this one has JAX loaded already), block
     the JAX world with a meta-path finder, import every module of the
-    port and run a tiny CPU forward, decode step and training step."""
+    port and run a tiny CPU forward, decode step and training step, of
+    the Llama family and of the MoE family; transformers is blocked too
+    (the HF bridge takes a config namespace and a state dict)."""
     script = textwrap.dedent(f"""
-        import importlib.abc, sys
-        BLOCKED = {BLOCKED!r}
+        import importlib.abc, sys, types
+        BLOCKED = {BLOCKED_WITH_HF!r}
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path, target=None):
@@ -67,6 +71,28 @@ def test_port_imports_and_runs_with_jax_blocked():
             torch.randn(1, cfg.n_heads, cfg.head_dim), kq, ks, kq, ks,
             table, torch.tensor([5], dtype=torch.int32))
         assert torch.isfinite(att).all()
+        from infinistore_tpu_torch.models import hf, moe
+        mcfg = moe.MoEConfig(vocab_size=64, d_model=32, n_layers=1,
+                             n_heads=2, n_kv_heads=1, d_ff=32, n_experts=4,
+                             page_size=4, dtype="float32")
+        mp = moe.init_params(torch.Generator().manual_seed(1), mcfg, "cpu")
+        ml, _, aux = moe.forward_dense(mp, mcfg, tok)
+        assert ml.shape == (1, 6, 64) and torch.isfinite(aux)
+        mg, _, _ = moe.decode_step(mp, mcfg, tok[:, 0], torch.tensor(
+            [5], dtype=torch.int32), kp, kp.clone(), table)
+        assert torch.isfinite(mg).all()
+        mopt = llama.adamw(mp, 1e-3)
+        mloss = moe.train_step(mp, mopt, mcfg, tok)
+        assert torch.isfinite(mloss)
+        assert mp["layers"][0]["router"].grad is not None
+        hcfg = types.SimpleNamespace(
+            vocab_size=64, hidden_size=32, intermediate_size=32,
+            num_hidden_layers=1, num_attention_heads=2,
+            num_key_value_heads=1, num_local_experts=4,
+            num_experts_per_tok=2, rope_theta=1e4,
+            max_position_embeddings=64, rms_norm_eps=1e-5,
+            sliding_window=None, hidden_act="silu")
+        assert hf.moe_config_from_hf(hcfg).capacity_factor == 2.0
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ISOLATED_OK")
@@ -93,7 +119,7 @@ def test_no_source_imports_jax_or_the_jax_package():
     for mod in ("serving.py", "serving_http.py", "example/serve.py",
                 "ops/paged_flash_verify.py", "ops/flash_attention.py",
                 "ops/kv_quant.py", "ops/paged_flash_decode_q.py",
-                "models/llama.py"):
+                "models/llama.py", "models/moe.py", "models/hf.py"):
         assert os.path.join(PKG, mod) in paths, mod
     for path in paths:
         with open(path) as f:
@@ -106,7 +132,7 @@ def test_no_source_imports_jax_or_the_jax_package():
             else:
                 continue
             for n in names:
-                if n.split(".")[0] in BLOCKED:
+                if n.split(".")[0] in BLOCKED_WITH_HF:
                     offenders.append(f"{path}: {n}")
     assert not offenders, offenders
 
@@ -114,7 +140,7 @@ def test_no_source_imports_jax_or_the_jax_package():
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     from infinistore_tpu_torch import cuda, serving
     from infinistore_tpu_torch.example import demo_prefill, serve
-    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.models import hf, llama, moe
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = llama.LlamaConfig()
@@ -132,6 +158,12 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         serving.ServingEngine({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.run("127.0.0.1", 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        moe.init_params(torch.Generator(), moe.MoEConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hf.params_from_hf({}, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        hf.moe_params_from_hf({}, moe.MoEConfig())
 
 
 def test_int8_kernel_wrapper_refuses_cpu_tensors():
