@@ -60,6 +60,23 @@ Phases, in order; any failure exits non-zero before the result line:
    K3 is held to its plain version per layer on one speculative and one
    chunk step; every finished request is teacher-forced through one
    dense prefill, and a planted page-table fault shows that check bites.
+   6d. The sharded store tier at Llama-3.1-8B width, on the same model:
+   three port servers behind a static-hash ShardedConnection over
+   STREAM (shards stand for remote hosts: every byte takes the staged
+   path); phase 4's 2048-token prompt's KV pages (32 layers, k and v,
+   256 MiB) through CudaKVStore over it, byte-equal on the card and
+   spread over every shard, GB/s beside phase 4's SHM numbers, and the
+   pinned staging allocation timed alone; engine A's configuration over
+   the sharded store (4 cold requests, 4 regenerated through prefix hits
+   across shards, then shard 1 stopped and the 4 regenerated again:
+   every request finishes, fewer hit pages, no store error, the health
+   counters; K1, K2 and K3 launches; every request teacher-forced);
+   profile_window around a 2048-token prefix hit restored from one SHM
+   server (op deltas, store span time by op, store spans and CUDA
+   kernel events in the merged trace, the restore split into pin, H2D
+   copies and release); benchmark.run at BASELINE.json config 2's shape
+   (16 MB in 4 KB blocks) on SHM and STREAM; warm_up with CUDA primed
+   and example/client.py on cuda.
    6b. int8 at Llama-3.1-8B width, on phase 4's bf16 model: a 2048-token
    prompt's KV put int8 on SHM (16896-byte pages, no staging copy) and
    taken back raw (GB/s and H2D copies beside the same pages' bf16
@@ -109,19 +126,21 @@ Phases, in order; any failure exits non-zero before the result line:
    bf16).
 10. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
     K4's also carry graph_ms), after the phases' JSON lines (phase 6c's
-    under "moe:"), the card line, and as the last line {"ok": true,
-    "device": {...}}.
+    under "moe:", phase 6d's under "sharded:"), the card line, and as
+    the last line {"ok": true, "device": {...}}.
 """
 
 import collections
 import dataclasses
 import gc
+import gzip
 import json
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -1414,11 +1433,12 @@ def shifted_row_engine(serving, *a, **kw):
 
 
 def start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens,
-                min_alloc_kb=None):
+                min_alloc_kb=None, **server_kw):
     """A store server whose pool holds ``n_tokens`` tokens of KV at
     ``cfg``'s geometry and dtype (growing if it must), after checking
     /dev/shm. Blocks are allocated in units of ``min_alloc_kb`` KB
-    (default: one page of ``cfg``'s dtype)."""
+    (default: one page of ``cfg``'s dtype); ``server_kw`` go to its
+    ServerConfig."""
     token_bytes = 2 * cfg.n_layers * cfg.kv_page_bytes() // cfg.page_size
     pool_bytes = n_tokens * token_bytes
     shm_free = shutil.disk_usage("/dev/shm").free
@@ -1429,7 +1449,7 @@ def start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens,
     srv = InfiniStoreServer(ServerConfig(
         service_port=0, prealloc_size=pool_bytes / 2**30,
         minimal_allocate_size=min_alloc_kb or cfg.kv_page_bytes() // 1024,
-        auto_increase=True, extend_size=1,
+        auto_increase=True, extend_size=1, **server_kw,
     ))
     srv.start()
     return srv
@@ -1621,6 +1641,384 @@ def phase_serving(torch, np, params, report):
         store.close()
         conn.close()
         srv.stop()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the sharded store tier at Llama-3.1-8B width
+# ---------------------------------------------------------------------------
+
+SHARDS = 3
+SHARD_PROMPTS = (2048, 1536, 1024, 512)  # engine A's cold requests
+SHARD_NEW = 32
+SHARD_DEAD = 1                           # the shard stopped mid-service
+# BASELINE.json config 2: 16 MB in 4 KB blocks (4096 keys).
+BENCH_SHAPE = dict(size_mb=16, block_size_kb=4, steps=32)
+
+
+def shard_fleet(InfiniStoreServer, ServerConfig, cfg, n_tokens):
+    """SHARDS port servers, each pool sized for ``n_tokens`` of KV."""
+    fleet = []
+    try:
+        for _ in range(SHARDS):
+            fleet.append(start_store(InfiniStoreServer, ServerConfig, cfg,
+                                     n_tokens))
+    except BaseException:
+        for srv in fleet:
+            srv.stop()
+        raise
+    return fleet
+
+
+def pinned_alloc_s(torch, nbytes):
+    """Seconds to get one pinned host buffer of ``nbytes``."""
+    t0 = time.perf_counter()
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dt = time.perf_counter() - t0
+    del buf
+    return dt
+
+
+def sharded_pages(torch, llama, tcuda, params, cfg, store, fleet, prompt,
+                  main_report, report):
+    """(b): one prompt's KV pages, every layer, through CudaKVStore over
+    the sharded connection: offload, two restores byte-equal, spread
+    over every shard, GB/s beside phase 4's SHM numbers, and the share
+    of a restore spent allocating its pinned staging buffer."""
+    P, L = cfg.page_size, cfg.n_layers
+    n = prompt.shape[1]
+    sid = f"shard_{uuid.uuid4()}"
+    with torch.no_grad():
+        _, kvs = llama.prefill(params, cfg, prompt)
+    keys, pages = [], []
+    for li, (k, v) in enumerate(kvs):
+        kp, vp = llama.kv_to_pages(cfg, k, v)
+        keys += llama.page_keys(sid, li, "k", n // P)
+        keys += llama.page_keys(sid, li, "v", n // P)
+        pages += [kp[0], vp[0]]
+    del kvs
+    pages = torch.cat(pages)
+    nbytes = pages.numel() * pages.element_size()
+    tcuda.reset_copy_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    store.put_kv_pages(keys, pages, sync=True)
+    t_off = time.perf_counter() - t0
+    lens = [srv.kvmap_len() for srv in fleet]
+    check(sum(lens) == len(keys) and all(n_k > 0 for n_k in lens),
+          f"pages not spread over every shard: kvmap_len {lens}")
+    restores = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = store.get_kv_pages(keys, cfg.kv_page_shape(), cfg.torch_dtype)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        check(torch.equal(back.view(torch.int16), pages.view(torch.int16)),
+              "sharded restore differs from the pages put")
+        del back
+    # The staged read asks for a fresh pinned buffer of the whole
+    # restore on every call, which PyTorch's caching host allocator
+    # serves: that request alone as the restores found it (warm), and
+    # after the allocator's cache is emptied (cold: cudaHostAlloc).
+    pin_s = [pinned_alloc_s(torch, nbytes)]
+    empty_host_cache = (getattr(torch._C, "_host_emptyCache", None)
+                        or getattr(torch._C, "_accelerator_emptyHostCache",
+                                   None))
+    if empty_host_cache is not None:
+        empty_host_cache()
+        pin_s.append(pinned_alloc_s(torch, nbytes))
+    counters = dict(tcuda.copy_counters)
+    say(f"sharded pages: {len(keys)} pages ({nbytes / 2**20:.0f} MiB, "
+        f"{n} tokens x {L} layers x k/v) over {SHARDS} shards "
+        f"(kvmap_len {lens}), STREAM staged; offload {t_off * 1e3:.2f} ms "
+        f"{nbytes / t_off / 1e9:.2f} GB/s (phase 4, SHM: "
+        f"{main_report.get(f'offload_{n}_GBps', 0):.2f}); restore "
+        f"{restores[0] * 1e3:.2f}, {restores[1] * 1e3:.2f} ms, "
+        f"{nbytes / restores[0] / 1e9:.2f}, {nbytes / restores[1] / 1e9:.2f} "
+        f"GB/s (phase 4, SHM: {main_report.get('restore_GBps', 0):.2f}), "
+        f"byte-equal; pinned staging buffer warm {pin_s[0] * 1e3:.3f} ms "
+        f"({pin_s[0] / restores[1]:.5f} of a restore), cold "
+        f"{pin_s[1] * 1e3 if len(pin_s) > 1 else 'not measured'} ms; "
+        f"copies {json.dumps(counters)}")
+    report["pages"] = dict(
+        pages=len(keys), bytes=nbytes, kvmap_len=lens,
+        offload_GBps=nbytes / t_off / 1e9,
+        restore_GBps=[nbytes / t / 1e9 for t in restores],
+        shm_offload_GBps=main_report.get(f"offload_{n}_GBps"),
+        shm_restore_GBps=main_report.get("restore_GBps"),
+        pinned_alloc_ms_warm_cold=[t * 1e3 for t in pin_s],
+        pinned_alloc_share=pin_s[0] / restores[1], copies=counters)
+    return sid, keys, pages
+
+
+def shard_engine_legs(torch, np, serving, llama, params, cfg, store, conn,
+                      fleet, report):
+    """(c) and (d): engine A's configuration over the sharded store: 4
+    cold requests, 4 regenerated through prefix hits across shards,
+    then shard SHARD_DEAD stopped and the same 4 regenerated again.
+    Launches counted over the three legs; every request teacher-forced
+    by phase 6's rule."""
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops.paged_attention import prefill_attention
+
+    L = cfg.n_layers
+    rng = np.random.default_rng(SEED + 64)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in SHARD_PROMPTS]
+    model = CountingModel(llama)
+    proposer = ContinuationProposer()
+    eng = serving.ServingEngine(
+        params, cfg, serving.ServingConfig(
+            max_slots=8, spec_k=4, max_pages_per_seq=160,
+            total_pages=8 * 160 + 1),
+        store=store, proposer=proposer, model=model)
+    fa.reset_launches()
+    pd.reset_launches()
+    pv.reset_launches()
+    finished = []
+    cold = [serving.Request(f"s_cold_{i}", p, max_new_tokens=SHARD_NEW)
+            for i, p in enumerate(prompts)]
+    out = run_leg(torch, eng, "cold", cold, report)
+    finished += [(r.prompt, out[r.request_id]) for r in cold]
+    for r in cold:
+        proposer.add(r.prompt, out[r.request_id])
+
+    def regen(tag):
+        return [serving.Request(f"s_{tag}_{i}", p, max_new_tokens=SHARD_NEW)
+                for i, p in enumerate(prompts)]
+
+    hit = regen("hit")
+    out = run_leg(torch, eng, "hit", hit, report)
+    finished += [(r.prompt, out[r.request_id]) for r in hit]
+    check(report["hit"]["prefix_hit_pages"] > 0,
+          "regenerated requests found no prefix across the shards")
+    fleet[SHARD_DEAD].stop()
+    errors = eng.stats["store_errors"]
+    dead = regen("dead")
+    out = run_leg(torch, eng, "after_kill", dead, report)
+    finished += [(r.prompt, out[r.request_id]) for r in dead]
+    torch.cuda.synchronize()
+    calls = dict(model.calls)
+    k1, k2, k3 = fa.launches, pd.launches, pv.launches
+    n_pf = calls.get("prefill", 0) + calls.get("prefill_with_prefix", 0)
+    health = {k: v for k, v in conn.health.items()}
+    say(f"sharded serving launches: flash_prefill {k1} (= {L} x {n_pf} "
+        f"prefills), paged_decode {k2} (= {L} x "
+        f"{calls.get('decode_step', 0)} decode steps), paged_verify {k3} "
+        f"(= {L} x {calls.get('verify_step', 0)} verify steps); after "
+        f"shard {SHARD_DEAD} stopped: health {json.dumps(health)}, "
+        f"degraded {conn.degraded}, engine store_errors "
+        f"{eng.stats['store_errors'] - errors}, restore_misses "
+        f"{eng.stats['restore_misses']}")
+    check(k1 == L * n_pf and k1 > 0, "flash prefill launch count")
+    check(k2 == L * calls.get("decode_step", 0) and k2 > 0,
+          "paged decode launch count")
+    check(k3 == L * calls.get("verify_step", 0) and k3 > 0,
+          "paged verify launch count")
+    report["launches"] = {"flash_prefill": k1, "paged_decode": k2,
+                          "paged_verify": k3}
+    report["health"] = health
+    report["store_errors_after_kill"] = eng.stats["store_errors"] - errors
+    report["restore_misses"] = eng.stats["restore_misses"]
+    check(all(len(toks) == SHARD_NEW for _, toks in finished),
+          "a request over the sharded store did not finish")
+    check(conn.degraded[SHARD_DEAD] and health["shard_failures"] >= 1,
+          "the stopped shard was not marked down")
+    check(report["after_kill"]["prefix_hit_pages"]
+          < report["hit"]["prefix_hit_pages"],
+          "hit pages did not fall after the shard stopped")
+    check(eng.stats["store_errors"] == errors,
+          "a dead shard surfaced as a store error")
+    noise = logit_noise(
+        torch, llama, prefill_attention, params, cfg,
+        torch.tensor([finished[0][0] + finished[0][1]], dtype=torch.int32,
+                     device="cuda"))
+    delta = DELTA_FACTOR * noise
+    worst, exact = teacher_forced_gaps(torch, llama, params, cfg, finished)
+    say(f"sharded teacher-forced check of {len(finished)} requests: "
+        f"largest gap {worst:.4f}, exact argmax share {exact:.4f}; delta "
+        f"{delta:.4f} = {DELTA_FACTOR:g} x logit noise {noise:.4f}")
+    check(worst <= delta, f"teacher-forced gap {worst} > delta {delta}")
+    report["teacher_forced"] = dict(requests=len(finished), worst_gap=worst,
+                                    exact_share=exact, delta=delta)
+    del eng
+
+
+def shm_restore_window(torch, llama, tcuda, profile_window, params, cfg,
+                       srv, store, conn, sid, keys, pages, report):
+    """(e): a prefix-hit restore of the (b) prefix from one SHM server,
+    as phase 4 restores it (restore + the new tail's prefill), inside
+    profile_window with the store's spans and the torch timeline merged;
+    then the same restore split into pin, H2D copies and release."""
+    P, n_pages = cfg.page_size, pages.shape[0] // (2 * cfg.n_layers)
+    store.put_kv_pages(keys, pages, sync=True)
+    rng = torch.Generator(device="cuda").manual_seed(SEED + 65)
+    tail_tokens = torch.randint(0, cfg.vocab_size, (1, HIT_NEW),
+                                device="cuda", generator=rng,
+                                dtype=torch.int32)
+
+    def hit():
+        with torch.no_grad():
+            prefix_kvs = llama.restore_prefix_kvs(store, cfg, sid, n_pages)
+            tail, _ = llama.prefill_with_prefix(params, cfg, tail_tokens,
+                                                prefix_kvs)
+        torch.cuda.synchronize()
+        return tail
+
+    hit()  # warms the shapes, as phase 4's first hit does
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with profile_window(srv, trace_dir=trace_dir, trace=True) as w:
+            t0 = time.perf_counter()
+            hit()
+            t_hit = time.perf_counter() - t0
+        with gzip.open(w.trace_path, "rt") as f:
+            doc = json.load(f)
+    spans = collections.defaultdict(float)
+    for ev in w.store_trace["traceEvents"]:
+        if ev.get("ph") == "X":
+            spans[ev["name"]] += ev.get("dur", 0) / 1e3
+    merged = doc["traceEvents"]
+    # Cross-check of the measured offset: Kineto stamps wall-clock µs
+    # less the file's baseTimeNanoseconds.
+    wall_minus_mono = (time.time_ns() - time.monotonic_ns()) / 1e3
+    base_us = doc.get("baseTimeNanoseconds", 0) / 1e3
+    n_store = sum(1 for e in merged if e.get("pid") == 1
+                  and e.get("ph") == "X")
+    kern = [e for e in merged if e.get("cat") == "kernel"]
+    copies = [e for e in merged if e.get("cat") == "gpu_memcpy"]
+    say(f"profile_window around a {n_pages * P}-token prefix hit on one SHM "
+        f"server ({t_hit * 1e3:.2f} ms): op_deltas "
+        f"{json.dumps(w.op_deltas)}; store span ms by op "
+        f"{json.dumps({k: round(v, 4) for k, v in spans.items()})}; merged "
+        f"file: {n_store} store spans, {len(kern)} CUDA kernel events "
+        f"({sum(e.get('dur', 0) for e in kern) / 1e3:.2f} ms), "
+        f"{len(copies)} memcpy events "
+        f"({sum(e.get('dur', 0) for e in copies) / 1e3:.2f} ms); torch "
+        f"clock - store clock {w.clock_offset_us:.1f} us +- "
+        f"{w.clock_offset_err_us:.1f} (wall - monotonic - base "
+        f"{wall_minus_mono - base_us:.1f})")
+    check(n_store > 0 and len(kern) > 0,
+          "the merged trace lacks store spans or CUDA kernel events")
+    check(w.op_deltas.get("PIN", 0) >= 1, "no PIN in the window")
+    # The restore split: pin RPC, H2D copies (synchronized), release.
+    page_bytes = pages[0].numel() * pages.element_size()
+    out = torch.empty(len(keys) * page_bytes, dtype=torch.uint8,
+                      device="cuda")
+    t0 = time.perf_counter()
+    lease, blocks = conn.pin(keys)
+    t1 = time.perf_counter()
+    store._copy_from_pool(out, blocks, page_bytes)
+    t2 = time.perf_counter()
+    conn.release(lease)
+    t3 = time.perf_counter()
+    check(torch.equal(out, tcuda._as_bytes(pages)),
+          "split SHM restore differs from the pages put")
+    split = dict(pin_ms=(t1 - t0) * 1e3, copy_ms=(t2 - t1) * 1e3,
+                 release_ms=(t3 - t2) * 1e3,
+                 copy_GBps=out.numel() / (t2 - t1) / 1e9)
+    say(f"SHM restore of {len(keys)} pages split: pin {split['pin_ms']:.2f} "
+        f"ms, H2D copies + sync {split['copy_ms']:.2f} ms "
+        f"({split['copy_GBps']:.2f} GB/s), release "
+        f"{split['release_ms']:.2f} ms")
+    report["profile"] = dict(
+        hit_ms=t_hit * 1e3, op_deltas=w.op_deltas,
+        store_span_ms=dict(spans), store_spans=n_store,
+        kernel_events=len(kern), memcpy_events=len(copies),
+        clock_offset_us=w.clock_offset_us,
+        clock_offset_err_us=w.clock_offset_err_us,
+        wall_offset_us=wall_minus_mono - base_us, split=split)
+
+
+def phase_sharded(torch, np, params, main_report, report):
+    """Phase 6d: the sharded store tier at Llama-3.1-8B width, on the
+    bf16 model phases 4 and 6 use."""
+    from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                       InfinityConnection, ServerConfig,
+                                       TYPE_SHM, TYPE_STREAM)
+    from infinistore_tpu_torch import benchmark, serving, warmup
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch.example import client
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.sharded import ShardedConnection
+    from infinistore_tpu_torch.utils import profile_window
+
+    say(f"== phase 6d: the sharded store ({SHARDS} shards) at Llama-3.1-8B "
+        f"width ==")
+    cfg = llama.LLAMA31_8B
+    rng = np.random.default_rng(SEED)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, PROMPTS[0])),
+                             dtype=torch.int32, device="cuda")
+    # Every shard's pool holds the whole leg's KV: the pages of (b), the
+    # cold requests' prompts and outputs, a quarter more for spare.
+    n_tokens = int(1.25 * (PROMPTS[0] + sum(SHARD_PROMPTS)
+                           + 2 * len(SHARD_PROMPTS) * SHARD_NEW))
+    fleet = shard_fleet(InfiniStoreServer, ServerConfig, cfg, n_tokens)
+    conn = ShardedConnection([ClientConfig(
+        host_addr="127.0.0.1", service_port=srv.service_port,
+        connection_type=TYPE_STREAM) for srv in fleet])
+    store = srv = sconn = sstore = None
+    try:
+        conn.connect()
+        check(not conn.shm_connected, "a sharded connection took SHM")
+        store = tcuda.CudaKVStore(conn, "cuda")
+        sid, keys, pages = sharded_pages(torch, llama, tcuda, params, cfg,
+                                         store, fleet, prompt, main_report,
+                                         report)
+        shard_engine_legs(torch, np, serving, llama, params, cfg, store,
+                          conn, fleet, report)
+        # (e)-(g) on one SHM server of their own.
+        srv = start_store(InfiniStoreServer, ServerConfig, cfg,
+                          2 * PROMPTS[0], min_alloc_kb=4, trace=True)
+        sconn = InfinityConnection(ClientConfig(
+            host_addr="127.0.0.1", service_port=srv.service_port,
+            connection_type=TYPE_SHM))
+        sconn.connect()
+        check(sconn.shm_connected, "SHM path not active")
+        sstore = tcuda.CudaKVStore(sconn, "cuda")
+        shm_restore_window(torch, llama, tcuda, profile_window, params, cfg,
+                           srv, sstore, sconn, sid, keys, pages, report)
+        del pages
+        sstore.close()
+        sconn.close()
+        srv.stop()
+        sstore = sconn = None
+        # (f) and (g) on a server without tracing, as users run one.
+        srv = InfiniStoreServer(ServerConfig(
+            service_port=0, prealloc_size=0.25, minimal_allocate_size=4))
+        srv.start()
+        bench = {}
+        for path, ctype in (("shm", TYPE_SHM), ("stream", TYPE_STREAM)):
+            bench[path] = benchmark.run(service_port=srv.service_port,
+                                        connection_type=ctype,
+                                        **BENCH_SHAPE)
+            say(f"benchmark ({path}, {BENCH_SHAPE['size_mb']} MB in "
+                f"{BENCH_SHAPE['block_size_kb']} KB blocks, verified): put "
+                f"{bench[path]['put_GBps']} GB/s, get "
+                f"{bench[path]['get_GBps']} GB/s, p50 read "
+                f"{bench[path]['p50_read_latency_us']} us")
+        report["benchmark"] = bench
+        check(warmup.warm_up(srv.service_port, prime_cuda=True),
+              "warm_up(prime_cuda=True) failed")
+        for ctype in (TYPE_SHM, TYPE_STREAM):
+            client.run("127.0.0.1", srv.service_port, ctype, "cuda")
+        say("warmup (CUDA primed) and example/client.py on cuda, SHM and "
+            "STREAM: OK")
+    finally:
+        if sstore is not None:
+            sstore.close()
+        if sconn is not None:
+            sconn.close()
+        if srv is not None:
+            srv.stop()
+        if store is not None:
+            store.close()
+        conn.close()
+        for s in fleet:
+            s.stop()
     torch.cuda.empty_cache()
 
 
@@ -3248,6 +3646,9 @@ def main():
                    multi_token_paged_attention, gen)
         serve_report = {}
         timed("serving", phase_serving, torch, np, params, serve_report)
+        shard_report = {}
+        timed("sharded", phase_sharded, torch, np, params, report,
+              shard_report)
         int8_report = {}
         k4_launches = timed("int8", phase_int8, torch, np, params,
                             int8_report)
@@ -3322,6 +3723,7 @@ def main():
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))
     say("serving: " + json.dumps(serve_report))
+    say("sharded: " + json.dumps(shard_report))
     say("int8: " + json.dumps(int8_report))
     say("moe: " + json.dumps(moe_report))
     say("training: " + json.dumps(train_report))

@@ -1,0 +1,158 @@
+"""Throughput benchmark (C15 parity; the port of
+``infinistore_tpu/benchmark.py``, through the port's client).
+
+Parity target: reference ``infinistore/benchmark.py`` — put/get throughput
+in MB/s with ``--size`` MB split into ``--block-size`` KB blocks written in
+``--steps`` batches simulating model layers, uuid keys, and a final
+data-equality assert (benchmark.py:112-210). Extended with path selection
+(SHM/STREAM) and a ``--json`` machine-readable output.
+
+    python -m infinistore_tpu_torch.benchmark --service-port 22345 \
+        --size 16 --block-size 4 --path stream --json
+"""
+
+import argparse
+import json
+import sys
+import time
+import uuid
+
+import numpy as np
+
+from .config import ClientConfig, TYPE_AUTO, TYPE_SHM, TYPE_STREAM
+from .lib import InfinityConnection
+
+
+def run(
+    host="127.0.0.1",
+    service_port=22345,
+    size_mb=128,
+    block_size_kb=32,
+    steps=32,
+    iters=1,
+    connection_type=TYPE_AUTO,
+    verify=True,
+    use_async=False,
+):
+    conn = InfinityConnection(
+        ClientConfig(
+            host_addr=host,
+            service_port=service_port,
+            connection_type=connection_type,
+        )
+    )
+    conn.connect()
+    try:
+        return _run_conn(conn, size_mb, block_size_kb, steps, iters, verify,
+                         use_async)
+    finally:
+        conn.close()
+
+
+def _run_conn(conn, size_mb, block_size_kb, steps, iters, verify, use_async):
+    total_bytes = size_mb << 20
+    block_bytes = block_size_kb << 10
+    nblocks = total_bytes // block_bytes
+    if nblocks == 0:
+        raise ValueError("size too small for block size")
+    blocks_per_step = max(1, nblocks // steps)
+    src = np.random.default_rng(7).integers(
+        0, 255, total_bytes, dtype=np.uint8
+    )
+    page = block_bytes  # elements == bytes for uint8
+
+    put_times, get_times = [], []
+    all_keys = []
+    for it in range(iters):
+        keys = [f"bench_{uuid.uuid4()}" for _ in range(nblocks)]
+        all_keys.append(keys)
+        t0 = time.perf_counter()
+        for s in range(0, nblocks, blocks_per_step):
+            chunk = keys[s : s + blocks_per_step]
+            offsets = [
+                (s + j) * block_bytes for j in range(len(chunk))
+            ]
+            rblocks = conn.allocate(chunk, block_bytes)
+            conn.write_cache(src, offsets, page, rblocks)
+        conn.sync()
+        put_times.append(time.perf_counter() - t0)
+
+        dst = np.zeros_like(src)
+        t0 = time.perf_counter()
+        for s in range(0, nblocks, blocks_per_step):
+            chunk = keys[s : s + blocks_per_step]
+            pairs = [
+                (k, (s + j) * block_bytes) for j, k in enumerate(chunk)
+            ]
+            conn.read_cache(dst, pairs, page)
+        conn.sync()
+        get_times.append(time.perf_counter() - t0)
+
+        if verify and not np.array_equal(src, dst):
+            raise RuntimeError("data verification failed")
+
+    put_mbps = size_mb * iters / sum(put_times)
+    get_mbps = size_mb * iters / sum(get_times)
+
+    # p50 single-block read latency.
+    lat_dst = np.zeros(block_bytes, dtype=np.uint8)
+    lats = []
+    probe_keys = all_keys[-1][: min(100, nblocks)]
+    for k in probe_keys:
+        t0 = time.perf_counter()
+        conn.read_cache(lat_dst, [(k, 0)], page)
+        lats.append(time.perf_counter() - t0)
+    p50_us = float(np.percentile(np.array(lats) * 1e6, 50))
+
+    return {
+        "path": "SHM" if conn.shm_connected else "STREAM",
+        "size_mb": size_mb,
+        "block_size_kb": block_size_kb,
+        "steps": steps,
+        "iters": iters,
+        "put_MBps": round(put_mbps, 1),
+        "get_MBps": round(get_mbps, 1),
+        "put_GBps": round(put_mbps / 1024, 3),
+        "get_GBps": round(get_mbps / 1024, 3),
+        "p50_read_latency_us": round(p50_us, 1),
+    }
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="infinistore-tpu benchmark")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--service-port", type=int, default=22345)
+    p.add_argument("--size", type=int, default=128, help="total MB")
+    p.add_argument("--block-size", type=int, default=32, help="block KB")
+    p.add_argument("--steps", type=int, default=32)
+    p.add_argument("--iters", type=int, default=1)
+    p.add_argument("--path", choices=["auto", "shm", "stream"], default="auto")
+    p.add_argument("--no-verify", action="store_true")
+    p.add_argument("--json", action="store_true")
+    args = p.parse_args(argv)
+    ctype = {"auto": TYPE_AUTO, "shm": TYPE_SHM, "stream": TYPE_STREAM}[
+        args.path
+    ]
+    result = run(
+        host=args.host,
+        service_port=args.service_port,
+        size_mb=args.size,
+        block_size_kb=args.block_size,
+        steps=args.steps,
+        iters=args.iters,
+        connection_type=ctype,
+        verify=not args.no_verify,
+    )
+    if args.json:
+        print(json.dumps(result))
+    else:
+        print(
+            f"[{result['path']}] put {result['put_MBps']} MB/s | "
+            f"get {result['get_MBps']} MB/s | "
+            f"p50 read {result['p50_read_latency_us']} µs"
+        )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

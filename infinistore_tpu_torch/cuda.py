@@ -17,6 +17,13 @@ memory and the pool blocks, with no host staging.
   they appear) and unregistered on ``close``.
 - **STREAM** (remote server): bytes go through a pinned staging buffer
   and ``write_cache`` / ``read_cache``.
+- **sharded** (a :class:`~infinistore_tpu_torch.sharded.ShardedConnection`,
+  the counterpart of ``tpu.py:189-202``): shards stand for remote hosts,
+  so every byte takes the staged STREAM path (``shm_connected`` is always
+  False there); writes carry the key list, which routes them, and a
+  failed write's rollback goes through ``abort_for_keys``. A page goes
+  to its key's primary shard only (``allocate`` + ``write_cache`` are
+  primary-routed, as in the JAX package).
 - **int8 pages** (``put_kv_pages_quantized`` / ``get_kv_pages_quantized``):
   quantized and packed on the device (``ops/kv_quant.py``), then the same
   copies as raw pages, on both paths.
@@ -131,11 +138,18 @@ def _runs(blocks, page_bytes, skip_fake, strided=False):
             for s, e in zip(starts, ends)]
 
 
-def _abort_uncommitted(conn, blocks):
+def _abort_uncommitted(conn, blocks, keys=None):
     """Best-effort rollback of an allocate whose write failed: tokens
     left uncommitted would dedup-poison the keys for every client. A
     dead connection cannot send the abort, but then the server's
-    dead-connection cleanup aborts them."""
+    dead-connection cleanup aborts them. A sharded connection needs
+    ``keys`` to route the aborts (tokens alone name no shard)."""
+    if keys is not None and hasattr(conn, "abort_for_keys"):
+        try:
+            conn.abort_for_keys(keys, blocks)
+        except Exception:
+            pass
+        return
     toks = blocks["token"][
         (blocks["status"] == OK) & (blocks["token"] != FAKE_TOKEN)
     ]
@@ -147,12 +161,16 @@ def _abort_uncommitted(conn, blocks):
 
 
 class CudaKVStore:
-    """KV-page interface over an :class:`InfinityConnection`, with
+    """KV-page interface over an :class:`InfinityConnection` or a
+    :class:`~infinistore_tpu_torch.sharded.ShardedConnection`, with
     tensors on ``device`` (the card unless ``device="cpu"``)."""
 
     def __init__(self, conn: InfinityConnection, device="cuda"):
         self.conn = conn
         self.device = resolve_device(device)
+        # A sharded connection routes by key: writes carry the key list
+        # and rollbacks go through abort_for_keys.
+        self._sharded = hasattr(conn, "shard_of")
         self._registered = {}  # pool_idx -> base address pinned by us
         if self.device.type == "cuda" and conn.shm_connected:
             self.pin_pools()
@@ -248,18 +266,22 @@ class CudaKVStore:
         copy_counters["d2h_bytes"] += src.numel()
         return host
 
-    def _write_pages(self, src, blocks, page_bytes):
+    def _write_pages(self, src, blocks, page_bytes, keys):
         """Write n pages of ``src`` (flat uint8) into allocated
-        ``blocks``: straight into the pool and commit (SHM), or a
-        pipelined ``write_cache`` (STREAM, visible after ``sync``)."""
+        ``blocks`` (page i under ``keys[i]``): straight into the pool and
+        commit (SHM), or a pipelined ``write_cache`` (STREAM and sharded,
+        visible after ``sync``)."""
         n = len(blocks)
         if self.conn.shm_connected:
             self._copy_into_pool(src, blocks, page_bytes)
             self.conn.commit(blocks["token"][blocks["status"] == OK])
             return
-        self.conn.write_cache(self._host_bytes(src).numpy(),
-                              [i * page_bytes for i in range(n)],
-                              page_bytes, blocks)
+        args = (self._host_bytes(src).numpy(),
+                [i * page_bytes for i in range(n)], page_bytes, blocks)
+        if self._sharded:
+            self.conn.write_cache(*args, keys)
+        else:
+            self.conn.write_cache(*args)
 
     # -- generic arrays --------------------------------------------------
 
@@ -282,9 +304,9 @@ class CudaKVStore:
             blocks = self.conn.allocate(keys, nbytes)
             for i, (k, src) in enumerate(group):
                 try:
-                    self._write_pages(src, blocks[i:i + 1], nbytes)
+                    self._write_pages(src, blocks[i:i + 1], nbytes, [k])
                 except BaseException:
-                    _abort_uncommitted(self.conn, blocks[i:])
+                    _abort_uncommitted(self.conn, blocks[i:], keys[i:])
                     raise
         if sync:
             self.conn.sync()
@@ -307,9 +329,9 @@ class CudaKVStore:
         page_bytes = src.numel() // max(n, 1)
         blocks = self.conn.allocate(keys, page_bytes)
         try:
-            self._write_pages(src, blocks, page_bytes)
+            self._write_pages(src, blocks, page_bytes, keys)
         except BaseException:
-            _abort_uncommitted(self.conn, blocks)
+            _abort_uncommitted(self.conn, blocks, keys)
             raise
         if sync:
             self.conn.sync()
@@ -368,9 +390,9 @@ class CudaKVStore:
         packed = kv_quant.pack_pages(*kv_quant.quantize_kv_pages(pages))
         blocks = self.conn.allocate(keys, block)
         try:
-            self._write_pages(packed.reshape(-1), blocks, block)
+            self._write_pages(packed.reshape(-1), blocks, block, keys)
         except BaseException:
-            _abort_uncommitted(self.conn, blocks)
+            _abort_uncommitted(self.conn, blocks, keys)
             raise
         if sync:
             self.conn.sync()

@@ -2,8 +2,9 @@
 
 Parity target: reference ``infinistore/server.py`` (C13 in SURVEY.md §2):
 argparse flags, a FastAPI/uvicorn manage plane with ``POST /purge``,
-``GET /kvmap_len`` and ``POST /selftest/{port}``, and OOM-score
-protection (the reference's optional warmup subprocess is not ported).
+``GET /kvmap_len`` and ``POST /selftest/{port}``, optional warmup
+subprocess (``--warmup``: ``python -m infinistore_tpu_torch.warmup``),
+and OOM-score protection.
 FastAPI/uvicorn are not available in this environment, so the manage
 plane is a stdlib ThreadingHTTPServer with the same endpoints
 (+ ``GET /stats`` and ``GET /health`` beyond parity).
@@ -1702,6 +1703,8 @@ def parse_args(argv=None):
                         "at the sustainable rate) that, sustained in "
                         "both windows, fires the slo_burn watchdog "
                         "verdict (event + diagnostic bundle)")
+    p.add_argument("--warmup", action="store_true",
+                   help="run a warmup round-trip after startup")
     p.add_argument("--snapshot-path", default="",
                    help="snapshot file for warm restarts: loaded at "
                         "startup when present, written by POST "
@@ -1785,6 +1788,13 @@ def main(argv=None):
 
     if not args.no_oom_protect:
         prevent_oom()
+    if args.warmup:
+        import subprocess
+
+        subprocess.Popen(
+            [sys.executable, "-m", "infinistore_tpu_torch.warmup",
+             "--service-port", str(server.service_port)]
+        )
 
     slo = SLOTracker(
         server,

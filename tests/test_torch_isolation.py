@@ -23,7 +23,9 @@ def test_port_imports_and_runs_with_jax_blocked():
     the JAX world with a meta-path finder, import every module of the
     port and run a tiny CPU forward, decode step and training step, of
     the Llama family and of the MoE family; transformers is blocked too
-    (the HF bridge takes a config namespace and a state dict)."""
+    (the HF bridge takes a config namespace and a state dict). The store
+    surface (sharded client, warmup, benchmark, profiling, example
+    clients) imports too, and routes a key as the static hash says."""
     script = textwrap.dedent(f"""
         import importlib.abc, sys, types
         BLOCKED = {BLOCKED_WITH_HF!r}
@@ -93,6 +95,14 @@ def test_port_imports_and_runs_with_jax_blocked():
             max_position_embeddings=64, rms_norm_eps=1e-5,
             sliding_window=None, hidden_act="silu")
         assert hf.moe_config_from_hf(hcfg).capacity_factor == 2.0
+        import zlib
+        from infinistore_tpu_torch import benchmark, sharded, warmup
+        from infinistore_tpu_torch.utils import profiling, profile_window
+        from infinistore_tpu_torch.example import client, client_async
+        assert sharded._shard_of("k", 3) == zlib.crc32(b"k") % 3
+        with profile_window() as w:
+            pass
+        assert not w.op_deltas
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ISOLATED_OK")
@@ -119,7 +129,10 @@ def test_no_source_imports_jax_or_the_jax_package():
     for mod in ("serving.py", "serving_http.py", "example/serve.py",
                 "ops/paged_flash_verify.py", "ops/flash_attention.py",
                 "ops/kv_quant.py", "ops/paged_flash_decode_q.py",
-                "models/llama.py", "models/moe.py", "models/hf.py"):
+                "models/llama.py", "models/moe.py", "models/hf.py",
+                "sharded.py", "warmup.py", "benchmark.py",
+                "utils/profiling.py", "example/client.py",
+                "example/client_async.py"):
         assert os.path.join(PKG, mod) in paths, mod
     for path in paths:
         with open(path) as f:
