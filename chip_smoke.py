@@ -124,10 +124,32 @@ Phases, in order; any failure exits non-zero before the result line:
    once per layer. Then, at 2 layers, the loss and every leaf's grad with
    the kernels against the same Function on its plain leaves (f32 and
    bf16).
-10. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
-    K4's also carry graph_ms), after the phases' JSON lines (phase 6c's
-    under "moe:", phase 6d's under "sharded:"), the card line, and as
-    the last line {"ok": true, "device": {...}}.
+10. Tensor parallel, over the (dp, tp) mesh of parallel/mesh.py:
+    (a) decode_attention_tp and decode_attention_quantized_tp at
+    Llama-3.1-8B's heads in one process, cut into 2 and 8 head slices:
+    one K2 / K4 launch per slice, each slice against the full launch and
+    the plain version, a slice's launch time beside the full one's;
+    then two ranks in processes of their own, time-sharing the card over
+    gloo (one card: NCCL takes a card per rank): (b) the tp = 2 engine
+    at full Llama-3.1-8B width, bf16 (each rank builds the tree from the
+    seed, shards it, and only rank 0 keeps the whole tree, for the
+    noise reading), 4 cold requests and 4 that regenerate them
+    through prefix hits in the port's SHM store: TTFT, decode ms/step
+    and the gloo all-reduce's ms per call (two ranks time-sharing one
+    card, not a multi-GPU reading), K1/K2 launches per rank, the
+    offloaded pages against a single-process engine's under the same
+    keys (two planted faults read against the same bound), every
+    request teacher-forced through a dense single-process prefill by
+    phase 6's rule, and the tp model's logit noise held to 2x the
+    kernel's; (c) at f32, 4 layers, the tp = 2 engine's plain, speculative
+    and chunked tokens equal the single-process engine's; (d) one FSDP
+    training step at dp = 2 (2 layers, f32): the loss and every leaf's
+    grad against the single-process step.
+11. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
+    K4's also carry graph_ms; tp_launches: launches on phase 10's path),
+    after the phases' JSON lines (phase 6c's under "moe:", phase 6d's
+    under "sharded:", phase 10's under "tensor parallel:"), the card
+    line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import collections
@@ -1245,9 +1267,10 @@ class ContinuationProposer:
         return []
 
 
-def run_leg(torch, eng, name, reqs, report):
-    """Serve ``reqs`` to completion on ``eng``; print and record the
-    leg's numbers. Returns {request_id: tokens}."""
+def run_leg(torch, eng, name, reqs, report, verbose=True):
+    """Serve ``reqs`` to completion on ``eng``; print (unless not
+    ``verbose``) and record the leg's numbers. Returns {request_id:
+    tokens}."""
     times = collections.defaultdict(list)
 
     def on_token(rid, _tok):
@@ -1276,6 +1299,9 @@ def run_leg(torch, eng, name, reqs, report):
                                     "offloaded_pages", "spec_proposed",
                                     "spec_accepted", "preemptions",
                                     "chunk_steps", "burst_steps")})
+    if not verbose:
+        report[name] = leg
+        return out
     say(f"serving {name}: {len(reqs)} requests, {n_prompt} prompt + "
         f"{n_gen} generated tokens in {wall:.2f} s, {n_gen / wall:.1f} "
         f"generated tok/s; TTFT p50 {leg['ttft_ms_p50']:.1f} max "
@@ -3581,6 +3607,580 @@ def phase_train(torch, np, fa, report):
     report["train"]["parity"] = parity
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor parallel
+# ---------------------------------------------------------------------------
+
+TP_SLICES = (2, 8)   # (a): K2 / K4 cut into tp head slices, one process
+TP_RANKS = 2         # (b)-(d): two ranks time-sharing the card over gloo
+TP_PROMPTS = (2048, 1536, 1024, 512)
+TP_NEW = 32
+TP_NOISE_TOKENS = 1024
+FSDP_LAYERS = 2
+FSDP_ROWS, FSDP_TOKENS = 2, 257  # one row per dp rank
+# The gloo all-reduce timed at the row-parallel outputs' shapes: a
+# batch-4 decode step and a 2048-token prefill.
+COLLECTIVE_SHAPES = {"decode": (4, 1, 4096), "prefill": (1, 2048, 4096)}
+COLLECTIVE_CALLS = 20
+# The tp engine's offloaded pages against the single-process engine's
+# under the same keys, relative L2 per page (bf16). Layer 0's pages are
+# byte-equal (the same columns of the same products); every later layer
+# sits behind row-parallel all-reduces that regroup bf16 sums, and the
+# difference grows with depth: the worst page of a sound run reads 0.047
+# (layer 31) on an H100. Two faults are planted on the tp pages and read
+# against the same bound, both per page, at their weakest: rank 1's half
+# of the kv heads taken from the previous layer's page (a stale shard)
+# and the kv heads rolled by one (heads out of order). The bound sits
+# between the sound worst and the weaker fault's weakest page (PERF.md
+# section 6 has both readings).
+TP_PAGE_TOL = 0.1
+# The tp model's own logit noise (its dense prefill against the
+# single-process one) may be at most this multiple of the kernel's
+# (flash against plain attention); it is checked, not added to delta.
+TP_NOISE_FACTOR = 2.0
+
+
+def tp_decode_slices(torch, pd, pq, gen, report):
+    """(a) decode_attention_tp / decode_attention_quantized_tp at
+    Llama-3.1-8B's heads (32 q, 8 kv, hd 128; phase 3's main-path
+    batch), every tp slice in this process: each slice's K2 / K4 launch
+    against the full launch and the plain version, one launch per
+    slice, and each slice's kernel time beside the full launch's."""
+    from infinistore_tpu_torch.ops.paged_attention import (
+        paged_decode_attention)
+
+    say("(a) TP decode: K2 and K4 on tp head slices in one process")
+    tol = TOL_REL["bfloat16"]
+    case = DecodeCase("main path", "bfloat16", 0, MAIN_DECODE_LENS, 32, 8,
+                      128)
+    qcase = ("main path", "bfloat16", MAIN_DECODE_LENS, 0, 128, 4, 8)
+    out = {}
+    for name, mod, wrapper, kernel, plain, args, n_pages in (
+            ("paged_decode", pd, pd.decode_attention_tp,
+             pd.paged_flash_decode, paged_decode_attention,
+             decode_args(torch, case, gen), 2),
+            ("paged_decode_q", pq, pq.decode_attention_quantized_tp,
+             pq.paged_flash_decode_quantized,
+             pq.paged_decode_quantized_plain,
+             decode_q_args(torch, qcase, gen), 4)):
+        full = kernel(*args)
+        ref = plain(*args)
+        full_ms = cuda_ms(torch, lambda: kernel(*args), 50)
+        for tp in TP_SLICES:
+            mod.reset_launches()
+            got = wrapper(tp, *args)
+            torch.cuda.synchronize()
+            launches = mod.launches
+            H, KV = args[0].shape[1], args[1].shape[2]
+            hq, hk = H // tp, KV // tp
+            vs_full, vs_plain, slice_ms = [], [], []
+            for r in range(tp):
+                rows = slice(r * hq, (r + 1) * hq)
+                vs_full.append(rel_err(got[:, rows], full[:, rows]))
+                vs_plain.append(rel_err(got[:, rows], ref[:, rows]))
+            # The rank-local launch alone, on slice 0's own tensors.
+            q0 = args[0][:, :hq].contiguous()
+            pages0 = [a[:, :, :hk].contiguous() for a in args[1:1 + n_pages]]
+            rest = args[1 + n_pages:]
+            slice_ms = cuda_ms(torch, lambda: kernel(q0, *pages0, *rest), 50)
+            say(f"  {name} tp {tp}: {launches} launches ({H // tp} q / "
+                f"{hk} kv heads each); worst slice rel err vs the full "
+                f"launch {max(vs_full):.3e}, vs plain {max(vs_plain):.3e} "
+                f"(tol {tol:g}); one slice's launch {slice_ms:.4f} ms, the "
+                f"full launch {full_ms:.4f} ms")
+            check(launches == tp, f"{name} tp {tp}: {launches} launches, "
+                  f"not one per slice")
+            check(max(vs_full) <= tol and max(vs_plain) <= tol,
+                  f"{name} tp {tp} slices disagree")
+            out[f"{name}_tp{tp}"] = dict(
+                launches=launches, worst_vs_full=max(vs_full),
+                worst_vs_plain=max(vs_plain), slice_ms=slice_ms,
+                full_ms=full_ms)
+    report["decode_slices"] = out
+
+
+def tp_collective_ms(torch, ctx):
+    """Host ms per gloo all-reduce (TensorParallel.reduce) at the
+    row-parallel outputs' decode and prefill shapes."""
+    out = {}
+    for name, shape in COLLECTIVE_SHAPES.items():
+        x = torch.randn(shape, device="cuda").to(torch.bfloat16)
+        for _ in range(3):
+            ctx.reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COLLECTIVE_CALLS):
+            ctx.reduce(x)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / COLLECTIVE_CALLS * 1e3
+    return out
+
+
+def recording_store(tcuda, conn):
+    """A CudaKVStore on the card that records the keys it puts."""
+    class Recording(tcuda.CudaKVStore):
+        def __init__(self, conn):
+            super().__init__(conn, "cuda")
+            self.put_keys = []
+
+        def put_kv_pages(self, keys, pages, sync=False):
+            self.put_keys.extend(keys)
+            return super().put_kv_pages(keys, pages, sync=sync)
+    return Recording(conn)
+
+
+def tp_rank(rank, dev, store_port, f32_modes, f32_ref):
+    """One rank of phase 10's legs (b)-(d); runs in a process of its own,
+    the two ranks sharing the card over gloo. Returns what the parent
+    checks: tokens, leg readings, launch counts, rank 0's put keys."""
+    import numpy as np
+    import torch
+
+    from infinistore_tpu_torch import (ClientConfig, InfinityConnection,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.parallel import mesh as pmesh
+
+    lead = rank == 0
+    out = {}
+
+    def stage(msg):
+        say(f"  [rank {rank}] {msg} ({time.perf_counter() - t_rank:.1f} s)")
+
+    t_rank = time.perf_counter()
+    mesh = pmesh.make_mesh(pmesh.MeshConfig(dp=1, tp=TP_RANKS), "cuda",
+                           backend="gloo")
+    ctx = pmesh.TensorParallel(mesh)
+    out["collective_ms"] = tp_collective_ms(torch, ctx)
+    stage("collectives timed")
+
+    # ---- (b) the tp engine at full Llama-3.1-8B width, bf16 ----
+    cfg = llama.LLAMA31_8B
+    L = cfg.n_layers
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab_size, n)]
+               for n in TP_PROMPTS]
+    full = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 10), cfg, "cuda")
+    shards = pmesh.shard_params(mesh, full)
+    if not lead:  # rank 0 keeps the whole tree for the noise reading
+        full = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    conn = InfinityConnection(ClientConfig(
+        host_addr="127.0.0.1", service_port=store_port,
+        connection_type=TYPE_SHM))
+    conn.connect()
+    check(conn.shm_connected, "SHM path not active")
+
+    store = recording_store(tcuda, conn)
+    model = CountingModel(llama)
+    stage("8B tree built, store connected")
+    try:
+        eng = serving.ServingEngine(
+            shards, cfg, serving.ServingConfig(
+                max_slots=4, max_pages_per_seq=160, total_pages=4 * 160 + 1),
+            store=store, model=model, mesh=mesh)
+        # The tp arithmetic's logit noise: a dense prefill through the tp
+        # model against the single-process one, on a fixed sequence.
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            (1, TP_NOISE_TOKENS)),
+                               dtype=torch.int32, device="cuda")
+        with torch.no_grad():
+            tp_logits, _ = llama.prefill(eng.params, cfg, toks, tp=ctx)
+            if lead:
+                one_logits, _ = llama.prefill(full, cfg, toks)
+                out["tp_logit_noise"] = (
+                    tp_logits - one_logits).abs().max().item()
+                del one_logits
+        del tp_logits, full, shards
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["memory_GiB"] = torch.cuda.memory_allocated() / 2**30
+        stage(f"engine on its shard ({out['memory_GiB']:.1f} GiB), "
+              f"logit noise measured")
+
+        fa.reset_launches()
+        pd.reset_launches()
+        pv.reset_launches()
+        model.calls.clear()
+        legs = {}
+        cold = run_leg(torch, eng, "tp_cold", [
+            serving.Request(f"c{i}", p, max_new_tokens=TP_NEW)
+            for i, p in enumerate(prompts)], legs, verbose=False)
+        cold_keys = list(store.put_keys)
+        stage("cold leg served")
+        regen = run_leg(torch, eng, "tp_regen", [
+            serving.Request(f"g{i}", p, max_new_tokens=TP_NEW)
+            for i, p in enumerate(prompts)], legs, verbose=False)
+        torch.cuda.synchronize()
+        out.update(legs=legs, cold=cold, regen=regen, cold_keys=cold_keys,
+                   prompts=prompts, calls=dict(model.calls),
+                   launches={"flash_prefill": fa.launches,
+                             "paged_decode": pd.launches,
+                             "paged_verify": pv.launches},
+                   stats=dict(eng.stats), pool_heads=eng.k_pages.shape[3])
+        del eng
+    finally:
+        store.close()
+        conn.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) exact tokens at float32, 4 layers ----
+    fcfg = dataclasses.replace(llama.LLAMA31_8B, n_layers=F32_LAYERS,
+                               dtype="float32")
+    fparams = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 7), fcfg, "cuda")
+    frng = np.random.default_rng(SEED + 7)
+    fprompts = [[int(t) for t in frng.integers(0, fcfg.vocab_size, n)]
+                for n in F32_PROMPTS]
+    oracle = ContinuationProposer()
+    for p, o in zip(fprompts, f32_ref):
+        oracle.add(p, o)
+    fshards = pmesh.shard_params(mesh, fparams)
+    del fparams
+    f32 = {}
+    fa.reset_launches()
+    pd.reset_launches()
+    pv.reset_launches()
+    for name, sc in f32_modes.items():
+        eng = serving.ServingEngine(fshards, fcfg,
+                                    serving.ServingConfig(**sc), mesh=mesh,
+                                    proposer=oracle)
+        done = eng.run([serving.Request(f"f{i}", p, max_new_tokens=F32_NEW)
+                        for i, p in enumerate(fprompts)])
+        f32[name] = ([done[f"f{i}"] for i in range(len(fprompts))],
+                     dict(eng.stats))
+        del eng
+    out["f32"] = f32
+    stage("f32 engines served")
+    out["f32_launches"] = {"flash_prefill": fa.launches,
+                           "paged_decode": pd.launches,
+                           "paged_verify": pv.launches}
+    del fshards
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) FSDP training: dp = 2 on the same two ranks ----
+    dmesh = pmesh.make_mesh(pmesh.MeshConfig(dp=TP_RANKS, tp=1), "cuda",
+                            backend="gloo")
+    dctx = pmesh.TensorParallel(dmesh)
+    tcfg = dataclasses.replace(llama.LLAMA31_8B, n_layers=FSDP_LAYERS,
+                               dtype="float32")
+    tfull = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(SEED + 12), tcfg, "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(SEED + 12).integers(
+        0, tcfg.vocab_size, (FSDP_ROWS, FSDP_TOKENS)), dtype=torch.int32,
+        device="cuda")
+    sharded = pmesh.shard_params(dmesh, tfull,
+                                 pmesh.fsdp_param_shardings(dmesh, tfull))
+    opt = llama.adamw(sharded, TRAIN_LR)
+    fa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = llama.train_step(sharded, opt, tcfg, pmesh.local_shard(
+        dmesh, tokens, pmesh.data_sharding(dmesh)), tp=dctx).item()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    launched = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    grads = [pmesh.full_tensor(leaf.grad)
+             for leaf in llama.param_leaves(sharded)]
+    del opt, sharded
+    gc.collect()
+    fsdp = dict(loss=loss, step_ms=step_ms, launches=launched)
+    if lead:
+        # The single-process step's loss and grads on the whole batch.
+        leaves = llama.trainable(tfull)
+        ref = llama.loss_fn(tfull, tcfg, tokens)
+        ref_grads = torch.autograd.grad(ref, leaves)
+        rels = [leaf_rel(a, b) for a, b in zip(grads, ref_grads)]
+        fsdp.update(ref_loss=ref.item(), worst_leaf_rel=max(rels),
+                    worst_leaf=rels.index(max(rels)), n_leaves=len(rels))
+    out["fsdp"] = fsdp
+    stage("FSDP step checked")
+    return out
+
+
+def phase_tp(torch, np, pd, pq, gen, report):
+    """Phase 10 (see the module docstring)."""
+    from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                       InfinityConnection, ServerConfig,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.ops.paged_attention import prefill_attention
+    from infinistore_tpu_torch.parallel.launch import run_ranks
+
+    say("== phase 10: tensor parallel ==")
+    tp_decode_slices(torch, pd, pq, gen, report)
+
+    cfg = llama.LLAMA31_8B
+    L, P = cfg.n_layers, cfg.page_size
+    n_tokens = int(1.25 * 2 * (sum(TP_PROMPTS) + len(TP_PROMPTS) * TP_NEW))
+    srv_tp = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens)
+    srv_one = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens)
+    ample = dict(max_slots=4, max_pages_per_seq=160, total_pages=4 * 160 + 1)
+    need = sum(-(-n // P) for n in F32_PROMPTS)
+    f32_modes = {
+        "plain": ample,
+        "spec": dict(ample, spec_k=4),
+        "chunk": dict(max_slots=4, prefill_chunk=256, host_steps=4,
+                      max_pages_per_seq=160, total_pages=need + 5)}
+    try:
+        # (c)'s reference: the single-process f32 engine's tokens (the
+        # tp ranks' speculative leg drafts them, as phase 7's does).
+        fcfg = dataclasses.replace(cfg, n_layers=F32_LAYERS, dtype="float32")
+        fparams = llama.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED + 7), fcfg,
+            "cuda")
+        frng = np.random.default_rng(SEED + 7)
+        fprompts = [[int(t) for t in frng.integers(0, fcfg.vocab_size, n)]
+                    for n in F32_PROMPTS]
+        ref = serving.ServingEngine(fparams, fcfg, serving.ServingConfig(
+            **ample)).run([serving.Request(f"f{i}", p, max_new_tokens=F32_NEW)
+                           for i, p in enumerate(fprompts)])
+        f32_ref = [ref[f"f{i}"] for i in range(len(fprompts))]
+        del fparams, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        say(f"(b)-(d): {TP_RANKS} ranks in processes of their own, "
+            f"time-sharing the one card over gloo")
+        t0 = time.perf_counter()
+        ranks = run_ranks(tp_rank, TP_RANKS,
+                          (srv_tp.service_port, f32_modes, f32_ref),
+                          device="cuda", backend="gloo", timeout=900)
+        say(f"ranks done in {time.perf_counter() - t0:.1f} s")
+        lead = ranks[0]
+        for r in ranks[1:]:
+            check(r["cold"] == lead["cold"] and r["regen"] == lead["regen"],
+                  "tp ranks emitted different tokens")
+            check(not r["cold_keys"], "a tp rank other than 0 put pages")
+        cms = lead["collective_ms"]
+        say(f"(b) gloo all-reduce, host ms per call (two ranks time-sharing "
+            f"one card, staged through host memory): decode "
+            f"{COLLECTIVE_SHAPES['decode']} {cms['decode']:.3f} ms, prefill "
+            f"{COLLECTIVE_SHAPES['prefill']} {cms['prefill']:.3f} ms")
+        for name in ("tp_cold", "tp_regen"):
+            leg = lead["legs"][name]
+            say(f"(b) {name} (tp = 2, two ranks time-sharing one card): "
+                f"{leg['requests']} requests, TTFT p50 "
+                f"{leg['ttft_ms_p50']:.1f} max {leg['ttft_ms_max']:.1f} ms, "
+                f"decode {leg['itl_ms_mean']:.2f} ms/step (mean "
+                f"inter-token), {leg['gen_tok_s']:.1f} generated tok/s; "
+                f"prefix_hit_pages {leg['prefix_hit_pages']} offloaded "
+                f"{leg['offloaded_pages']}")
+        check(lead["legs"]["tp_regen"]["prefix_hit_pages"] > 0,
+              "the tp regenerate leg never hit")
+        check(lead["stats"]["store_errors"] == 0, "tp engine store errors")
+        check(lead["pool_heads"] == cfg.n_kv_heads // TP_RANKS,
+              "tp pool heads")
+        calls = lead["calls"]
+        n_pf = calls.get("prefill", 0) + calls.get("prefill_with_prefix", 0)
+        per_rank = [r["launches"] for r in ranks]
+        say(f"(b) launches per rank: {per_rank} over {L} layers x "
+            f"{n_pf} prefills, {calls.get('decode_step', 0)} decode steps, "
+            f"{calls.get('verify_step', 0)} verify steps")
+        for r in ranks:
+            k = r["launches"]
+            check(k["flash_prefill"] == L * n_pf and n_pf > 0,
+                  "tp flash prefill launch count")
+            check(k["paged_decode"] == L * calls.get("decode_step", 0)
+                  and k["paged_decode"] > 0, "tp paged decode launch count")
+            check(k["paged_verify"] == L * calls.get("verify_step", 0),
+                  "tp paged verify launch count")
+
+        # The single-process engine on the same cold requests, its own
+        # store; then the same keys' pages from both stores.
+        params = llama.init_params(
+            torch.Generator(device="cuda").manual_seed(SEED + 10), cfg,
+            "cuda")
+        conns = {}
+        for name, srv in (("tp", srv_tp), ("one", srv_one)):
+            c = InfinityConnection(ClientConfig(
+                host_addr="127.0.0.1", service_port=srv.service_port,
+                connection_type=TYPE_SHM))
+            c.connect()
+            conns[name] = (c, recording_store(tcuda, c))
+        try:
+            one_legs = {}
+            one = serving.ServingEngine(
+                params, cfg, serving.ServingConfig(**ample),
+                store=conns["one"][1])
+            one_out = run_leg(torch, one, "one_cold", [
+                serving.Request(f"c{i}", p, max_new_tokens=TP_NEW)
+                for i, p in enumerate(lead["prompts"])], one_legs)
+            del one
+            put_one = set(conns["one"][1].put_keys)
+            common = [k for k in lead["cold_keys"] if k in put_one]
+            check(len(common) >= L * 2 * sum(n // P for n in TP_PROMPTS),
+                  "the tp engine's prompt pages are not under the "
+                  "single-process engine's keys")
+            same_tokens = sum(lead["cold"][f"c{i}"] == one_out[f"c{i}"]
+                              for i in range(len(TP_PROMPTS)))
+            worst = collections.defaultdict(float)
+            equal = collections.Counter()
+            # The planted faults' weakest pages: rank 1's kv heads from
+            # the previous layer's page (layers >= 1), heads rolled by one.
+            stale = rolled = float("inf")
+            half = cfg.n_kv_heads // TP_RANKS
+
+            def layer_of(key):
+                return int(key.split("/L")[1].split("/")[0])
+
+            def rel(x, y):  # relative L2 of each page of a batch
+                x, y = x.float().flatten(1), y.float().flatten(1)
+                return ((x - y).norm(dim=1)
+                        / y.norm(dim=1).clamp_min(1e-30)).tolist()
+
+            def fetch(name, keys):
+                return conns[name][1].get_kv_pages(
+                    keys, cfg.kv_page_shape(), cfg.torch_dtype)
+
+            for s in range(0, len(common), 1024):
+                keys = common[s:s + 1024]
+                layers = [layer_of(k) for k in keys]
+                a, b = fetch("tp", keys), fetch("one", keys)
+                same = (a.view(torch.int16) == b.view(torch.int16)).flatten(
+                    1).all(dim=1).tolist()
+                for li, eq, r in zip(layers, same, rel(a, b)):
+                    equal[li] += bool(eq)
+                    worst[li] = max(worst[li], r)
+                rolled = min(rolled, min(rel(a.roll(1, dims=-2), b)))
+                deep = [i for i, li in enumerate(layers) if li > 0]
+                if deep:
+                    prev = fetch("tp", [keys[i].replace(
+                        f"/L{layers[i]}/", f"/L{layers[i] - 1}/", 1)
+                        for i in deep])
+                    bad = a[deep].clone()
+                    bad[..., half:, :] = prev[..., half:, :]
+                    stale = min(stale, min(rel(bad, b[deep])))
+                del a, b
+            per_layer = len(common) // L
+            say(f"(b) offloaded pages under the same keys: {len(common)} "
+                f"pages ({same_tokens} of {len(TP_PROMPTS)} requests gave "
+                f"the single-process tokens); byte-equal per layer "
+                f"{[equal[li] for li in range(L)]} of {per_layer}; worst "
+                f"rel L2 layer 0 {worst[0]:.3e}, layer {L - 1} "
+                f"{worst[L - 1]:.3e}, all {max(worst.values()):.3e} (tol "
+                f"{TP_PAGE_TOL:g}); planted faults at their weakest page: "
+                f"rank 1's heads from the previous layer {stale:.3f}, kv "
+                f"heads rolled by one {rolled:.3f}")
+            check(equal[0] == per_layer, "tp layer-0 pages are not "
+                  "byte-equal to the single-process engine's")
+            check(max(worst.values()) <= TP_PAGE_TOL,
+                  "tp pages differ from the single-process engine's")
+            check(stale > 2 * TP_PAGE_TOL, "the page check missed rank "
+                  "1's heads taken from the previous layer")
+            check(rolled > 2 * TP_PAGE_TOL, "the page check missed kv "
+                  "heads out of order")
+            report["pages"] = dict(
+                common=len(common), byte_equal_per_layer=[
+                    equal[li] for li in range(L)], per_layer=per_layer,
+                worst_rel_per_layer=[worst[li] for li in range(L)],
+                same_token_requests=same_tokens,
+                fault_rel=dict(stale_shard=stale, rolled_heads=rolled))
+            report["one_cold"] = one_legs["one_cold"]
+        finally:
+            for c, st in conns.values():
+                st.close()
+                c.close()
+
+        # Teacher-forced check of every tp request, by phase 6's rule;
+        # the tp model's own logit noise is held to the kernel's.
+        finished = [(p, lead[leg][f"{tag}{i}"])
+                    for leg, tag in (("cold", "c"), ("regen", "g"))
+                    for i, p in enumerate(lead["prompts"])]
+        noise = logit_noise(
+            torch, llama, prefill_attention, params, cfg,
+            torch.tensor([finished[0][0] + finished[0][1]],
+                         dtype=torch.int32, device="cuda"))
+        delta = DELTA_FACTOR * noise
+        tp_noise = lead["tp_logit_noise"]
+        gap, exact = teacher_forced_gaps(torch, llama, params, cfg, finished)
+        say(f"(b) teacher-forced check of {len(finished)} tp requests: "
+            f"largest gap {gap:.4f}, exact argmax share {exact:.4f}; delta "
+            f"{delta:.4f} = {DELTA_FACTOR:g} x kernel noise {noise:.4f}; "
+            f"tp logit noise {tp_noise:.4f} (at most "
+            f"{TP_NOISE_FACTOR:g} x the kernel noise)")
+        check(gap <= delta, f"tp teacher-forced gap {gap} > delta {delta}")
+        check(tp_noise <= TP_NOISE_FACTOR * noise,
+              f"tp logit noise {tp_noise} > {TP_NOISE_FACTOR:g} x kernel "
+              f"noise {noise}")
+        report["tp_engine"] = dict(
+            legs=lead["legs"], collective_ms=cms, launches=per_rank,
+            teacher_forced=dict(worst_gap=gap, exact_share=exact,
+                                delta=delta, kernel_noise=noise,
+                                tp_noise=tp_noise),
+            rank_memory_GiB=[r["memory_GiB"] for r in ranks])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the f32 tp engines against the single-process engine.
+        for name in f32_modes:
+            toks, stats = lead["f32"][name]
+            same = toks == f32_ref
+            say(f"(c) f32 tp engine, {name}: "
+                f"{'the single-process tokens' if same else 'DIFFERENT'}"
+                f"; stats {json.dumps({k: v for k, v in stats.items() if v})}")
+            check(all(r["f32"][name][0] == f32_ref for r in ranks),
+                  f"f32 tp {name} tokens differ from the single-process "
+                  f"engine's")
+        check(lead["f32"]["spec"][1]["spec_accepted"] > 0,
+              "f32 tp spec accepted nothing")
+        check(lead["f32"]["chunk"][1]["chunk_steps"] > 0,
+              "f32 tp chunk leg never chunked")
+        ck = lead["f32_launches"]
+        check(ck["paged_verify"] > 0, "K3 launch count in the f32 tp "
+              "engines: 0")
+        report["f32"] = {name: lead["f32"][name][1] for name in f32_modes}
+
+        # (d) FSDP.
+        fs = lead["fsdp"]
+        fsdp_err = abs(fs["loss"] - fs["ref_loss"])
+        say(f"(d) FSDP at dp = {TP_RANKS} over gloo, {FSDP_LAYERS} layers "
+            f"f32: loss {fs['loss']:.6f} vs single-process "
+            f"{fs['ref_loss']:.6f} (fsdp_err {fsdp_err:.1e}); worst leaf "
+            f"grad rel L2 {fs['worst_leaf_rel']:.3e} (leaf "
+            f"{fs['worst_leaf']} of {fs['n_leaves']}, tol "
+            f"{TRAIN_TOL['float32']:g}); step {fs['step_ms']:.1f} ms; "
+            f"launches K1/K5/K6 per rank "
+            f"{[r['fsdp']['launches'] for r in ranks]}")
+        check(fsdp_err <= TRAIN_TOL["float32"] * abs(fs["ref_loss"]),
+              f"fsdp loss differs: {fsdp_err}")
+        check(fs["worst_leaf_rel"] <= TRAIN_TOL["float32"],
+              f"fsdp grads differ: {fs['worst_leaf_rel']}")
+        for r in ranks:
+            check(list(r["fsdp"]["launches"]) == [FSDP_LAYERS] * 3,
+                  "fsdp step launches")
+        report["fsdp"] = dict(fs, fsdp_err=fsdp_err)
+        # Rank 0's launches on this phase's path, per kernel: the bf16
+        # and f32 engines, the FSDP step, the K4 slices of (a).
+        eng_b, eng_c = lead["launches"], lead["f32_launches"]
+        k1, k5, k6 = fs["launches"]
+        report["tp_launches"] = {
+            "flash_prefill": eng_b["flash_prefill"]
+            + eng_c["flash_prefill"] + k1,
+            "paged_decode": eng_b["paged_decode"] + eng_c["paged_decode"],
+            "paged_verify": eng_b["paged_verify"] + eng_c["paged_verify"],
+            "paged_decode_q": sum(
+                v["launches"] for k, v in report["decode_slices"].items()
+                if k.startswith("paged_decode_q")),
+            "flash_bwd_dq": k5, "flash_bwd_dkv": k6}
+    finally:
+        srv_tp.stop()
+        srv_one.stop()
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -3665,6 +4265,9 @@ def main():
         bwd = timed("backward", phase_bwd, torch, fa, gen)
         train_report = {}
         timed("training", phase_train, torch, np, fa, train_report)
+        tp_report = {}
+        timed("tensor parallel", phase_tp, torch, np, pd, pq, gen,
+              tp_report)
     except SmokeError as e:
         say(f"FAIL: {e}")
         return 1
@@ -3719,6 +4322,8 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    for row in kernels:
+        row["tp_launches"] = tp_report["tp_launches"][row["name"]]
     main_path = {k: v for k, v in report.items()
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))
@@ -3727,6 +4332,7 @@ def main():
     say("int8: " + json.dumps(int8_report))
     say("moe: " + json.dumps(moe_report))
     say("training: " + json.dumps(train_report))
+    say("tensor parallel: " + json.dumps(tp_report))
     say("backward at the training shape: " + json.dumps(
         {dt: ({"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}
               if dt != "sdpa_rounds" else r) for dt, r in bwd.items()}))

@@ -24,6 +24,13 @@ the semantics of the JAX package, whose XLA fuses that convert into the
 matmul's operand fetch; a GEMM that dequantizes its tiles is not written
 yet. Training over int8 leaves is not supported (:func:`trainable`
 raises), as in the JAX package.
+
+Tensor parallelism: every model call takes an optional ``tp`` (a
+``parallel.mesh.TensorParallel``) and then computes this rank's heads
+and ffn columns of a Megatron-sharded tree, with the collectives
+explicit (the JAX package lets GSPMD insert them); KV and pages hold
+this rank's kv heads. ``tp=None`` is the single-device path. int8
+leaves and a routed FFN (the MoE) under tp raise.
 """
 
 import functools
@@ -289,19 +296,30 @@ def _proj(h, layer, w, b_, shape=None):
     return out if shape is None else out.reshape(shape)
 
 
-def _qkv(layer, x, cfg, positions):
+def _qkv(layer, x, cfg, positions, tp=None):
+    """q, k, v of this rank's heads (all heads without ``tp``)."""
     b, s = x.shape[0], x.shape[1]
     h = rms_norm(x, layer["ln1"], cfg.norm_eps, cfg.norm_plus_one)
-    q = _proj(h, layer, "wq", "bq", (b, s, cfg.n_heads, cfg.head_dim))
-    k = _proj(h, layer, "wk", "bk", (b, s, cfg.n_kv_heads, cfg.head_dim))
-    v = _proj(h, layer, "wv", "bv", (b, s, cfg.n_kv_heads, cfg.head_dim))
+    n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
+    if tp is not None:
+        h = tp.enter(h)
+        n_heads, n_kv = n_heads // tp.tp, n_kv // tp.tp
+    q = _proj(h, layer, "wq", "bq", (b, s, n_heads, cfg.head_dim))
+    k = _proj(h, layer, "wk", "bk", (b, s, n_kv, cfg.head_dim))
+    v = _proj(h, layer, "wv", "bv", (b, s, n_kv, cfg.head_dim))
     q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
     k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     return q, k, v
 
 
-def _attn_out(layer, attn_flat):
-    return _proj(attn_flat, layer, "wo", "bo")
+def _attn_out(layer, attn_flat, tp=None):
+    """The attention output projection; under ``tp`` row-parallel: the
+    partial products are summed over tp, then ``bo`` is added once."""
+    if tp is None:
+        return _proj(attn_flat, layer, "wo", "bo")
+    out = tp.reduce(_matmul(attn_flat, layer["wo"]))
+    bias = layer.get("bo")
+    return out if bias is None else out + bias
 
 
 def _act(cfg, x):
@@ -312,16 +330,24 @@ def _act(cfg, x):
     return F.gelu(x, approximate="tanh")
 
 
-def _mlp(layer, x, cfg):
+def _mlp(layer, x, cfg, tp=None):
+    """SwiGLU MLP; under ``tp`` gate/up column- and down row-parallel."""
     h = rms_norm(x, layer["ln2"], cfg.norm_eps, cfg.norm_plus_one)
+    if tp is not None:
+        h = tp.enter(h)
     gated = _act(cfg, _matmul(h, layer["w_gate"])) * _matmul(h, layer["w_up"])
-    return _matmul(gated, layer["w_down"])
+    out = _matmul(gated, layer["w_down"])
+    return out if tp is None else tp.reduce(out)
 
 
-def _embed(params, tokens, cfg=None):
+def _embed(params, tokens, cfg=None, tp=None):
     """Token embedding gather; an int8 embedding gathers its int8 rows
     and their per-row scales (the scale leaf carries the compute
-    dtype)."""
+    dtype). Under ``tp`` each rank gathers its d_model columns and the
+    rows are all-gathered."""
+    if tp is not None:
+        return _scale_embed(
+            tp.gather(tp.local(params["embed"])[tokens.long()]), cfg)
     e = params["embed"]
     if isinstance(e, dict):
         idx = tokens.long()
@@ -329,34 +355,64 @@ def _embed(params, tokens, cfg=None):
         out = e["int8"][idx].to(row_scale.dtype) * row_scale[..., None]
     else:
         out = e[tokens.long()]
+    return _scale_embed(out, cfg)
+
+
+def _scale_embed(out, cfg):
     if cfg is not None and cfg.embed_scale != 1.0:
         out = out * torch.tensor(cfg.embed_scale, dtype=out.dtype)
     return out
 
 
-def _logits(params, x):
-    """Final projection to vocab, float32 output."""
-    return _matmul(x, params["lm_head"]).float()
+def _logits(params, x, tp=None):
+    """Final projection to vocab, float32 output; under ``tp`` each rank
+    projects onto its vocab columns and the columns are all-gathered
+    (in the compute dtype, then widened, as the single-device path)."""
+    if tp is None:
+        return _matmul(x, params["lm_head"]).float()
+    return tp.gather(tp.enter(x) @ tp.local(params["lm_head"])).float()
+
+
+def _tp_begin(params, cfg, tp, ffn=None):
+    """Checks of a tensor-parallel call; returns the final norm's leaf."""
+    if tp is None:
+        return params["final_ln"]
+    tp.check(cfg)
+    if ffn is not None:
+        raise NotImplementedError(
+            "a routed FFN (MoE) under tensor parallelism is not supported")
+    return tp.local(params["final_ln"])
+
+
+def _layers(params, tp):
+    """The layers' leaves as the model computes on them: tp-local (and
+    gathered over dp where FSDP shards them) one layer at a time."""
+    for layer in params["layers"]:
+        yield layer if tp is None else tp.layer(layer)
 
 
 def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
-                   pos0=0, ffn=None):
+                   pos0=0, ffn=None, tp=None):
     """The one decoder-stack loop shared by dense prefill and prefix-
     cached prefill. With ``prefix_kvs`` (per-layer (k, v), each
     [batch, P, n_kv, hd], post-RoPE) positions shift by P and each layer
     attends over prefix + suffix KV (the rectangular causal diagonal);
     ``pos0`` shifts every absolute rope position. ``ffn(layer, x)``
     replaces the dense MLP: another family's feed-forward block
-    (``models.moe`` passes its routed experts)."""
+    (``models.moe`` passes its routed experts). ``tp``, a
+    ``parallel.mesh.TensorParallel``, runs the stack Megatron-sharded:
+    each rank computes its heads and ffn columns (KV of its kv heads)
+    and the logits are gathered whole on every rank."""
     disable_tf32()
+    final_ln = _tp_begin(params, cfg, tp, ffn)
     b, s = tokens.shape
     prefix_len = 0 if prefix_kvs is None else prefix_kvs[0][0].shape[1]
-    x = _embed(params, tokens, cfg)
+    x = _embed(params, tokens, cfg, tp)
     positions = (pos0 + prefix_len
                  + torch.arange(s, device=tokens.device))[None].expand(b, s)
     kvs = []
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = _qkv(layer, x, cfg, positions)
+    for li, layer in enumerate(_layers(params, tp)):
+        q, k, v = _qkv(layer, x, cfg, positions, tp)
         if prefix_kvs is None:
             k_full, v_full = k, v
         else:
@@ -366,29 +422,29 @@ def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
         attn = flash_prefill(q.contiguous(), k_full.contiguous(),
                              v_full.contiguous(), causal=True,
                              window=cfg.window)
-        x = x + _attn_out(layer, attn.reshape(b, s, -1))
-        x = x + (_mlp(layer, x, cfg) if ffn is None else ffn(layer, x))
+        x = x + _attn_out(layer, attn.reshape(b, s, -1), tp)
+        x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
         kvs.append((k, v))
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
-    return _logits(params, x), kvs
+    x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
+    return _logits(params, x, tp), kvs
 
 
-def forward_dense(params, cfg: LlamaConfig, tokens):
+def forward_dense(params, cfg: LlamaConfig, tokens, tp=None):
     """Dense causal forward (training and prefill compute): tokens
     [batch, seq] -> (logits [batch, seq, vocab] float32, per-layer (k, v)
     [batch, seq, n_kv, hd]). Differentiable when the leaves require
-    grad."""
-    return _forward_stack(params, cfg, tokens)
+    grad. Under ``tp`` the KV is this rank's kv heads'."""
+    return _forward_stack(params, cfg, tokens, tp=tp)
 
 
-def prefill(params, cfg: LlamaConfig, tokens):
+def prefill(params, cfg: LlamaConfig, tokens, tp=None):
     """tokens [batch, seq] -> (logits [batch, seq, vocab] float32,
     per-layer (k, v) [batch, seq, n_kv, hd]) — the KV to page out."""
-    return forward_dense(params, cfg, tokens)
+    return forward_dense(params, cfg, tokens, tp=tp)
 
 
 def prefill_with_prefix(params, cfg: LlamaConfig, tokens, prefix_kvs,
-                        pos0=0):
+                        pos0=0, tp=None):
     """Suffix prefill over a cached prefix — the store's cache-hit path.
 
     tokens: [batch, s_new], the tokens that are not cached; prefix_kvs:
@@ -397,12 +453,12 @@ def prefill_with_prefix(params, cfg: LlamaConfig, tokens, prefix_kvs,
     through the QKV/MLP matmuls; attention covers prefix + suffix.
     Returns (logits [batch, s_new, vocab] float32, per-layer suffix
     (k, v))."""
-    return _forward_stack(params, cfg, tokens, prefix_kvs, pos0=pos0)
+    return _forward_stack(params, cfg, tokens, prefix_kvs, pos0=pos0, tp=tp)
 
 
 @torch.no_grad()
 def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
-                page_table, ffn=None):
+                page_table, ffn=None, tp=None):
     """One decode step over paged KV.
 
     token:      [batch] int — current input token
@@ -413,12 +469,15 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
     The new token's KV is scattered into its page IN PLACE: ``k_pages``
     and ``v_pages`` are updated and returned (the JAX version returns new
     arrays). Attention covers seq_lens + 1 tokens. ``ffn(layer, x)``
-    replaces the dense MLP, as in :func:`_forward_stack`. Returns (logits
-    [batch, vocab] float32, k_pages, v_pages)."""
+    replaces the dense MLP, as in :func:`_forward_stack`. Under ``tp``
+    the pages hold this rank's kv heads and each rank's attention is the
+    rank-local launch over them. Returns (logits [batch, vocab] float32,
+    k_pages, v_pages)."""
     disable_tf32()
+    final_ln = _tp_begin(params, cfg, tp, ffn)
     b = token.shape[0]
     n_pages = k_pages.shape[1]
-    x = _embed(params, token[:, None], cfg)  # [b, 1, d]
+    x = _embed(params, token[:, None], cfg, tp)  # [b, 1, d]
     positions = seq_lens[:, None]
     page_idx = (seq_lens // cfg.page_size).long()
     in_table = page_idx < page_table.shape[1]
@@ -434,21 +493,21 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
     entries, rows = drop_mode_rows(target_page[:, None], slot[:, None],
                                    n_pages, cfg.page_size)
 
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = _qkv(layer, x, cfg, positions)
+    for li, layer in enumerate(_layers(params, tp)):
+        q, k, v = _qkv(layer, x, cfg, positions, tp)
         kp = scatter_rows(k_pages[li], k, entries, rows)
         vp = scatter_rows(v_pages[li], v, entries, rows)
         attn = decode_attention(q[:, 0].contiguous(), kp, vp, page_table,
                                 lens, window=cfg.window)
-        x = x + _attn_out(layer, attn.reshape(b, 1, -1))
-        x = x + (_mlp(layer, x, cfg) if ffn is None else ffn(layer, x))
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
-    return _logits(params, x[:, 0]), k_pages, v_pages
+        x = x + _attn_out(layer, attn.reshape(b, 1, -1), tp)
+        x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
+    x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
+    return _logits(params, x[:, 0], tp), k_pages, v_pages
 
 
 @torch.no_grad()
 def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
-                v_pages, page_table, valid_len=None, ffn=None):
+                v_pages, page_table, valid_len=None, ffn=None, tp=None):
     """m-token decode over paged KV: speculative decoding's verify step
     and the chunked-prefill inner step. Consumes m tokens per sequence in
     one pass and returns next-token logits at every one of the m
@@ -466,13 +525,16 @@ def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
     The m tokens' KV is scattered into the pages IN PLACE: ``k_pages``
     and ``v_pages`` are updated and returned (the JAX version returns new
     arrays). A position past the page table is dropped. ``ffn(layer,
-    x)`` replaces the dense MLP, as in :func:`_forward_stack`. Returns
-    (logits [batch, m, vocab] float32, k_pages, v_pages)."""
+    x)`` replaces the dense MLP, as in :func:`_forward_stack`. Under
+    ``tp`` the pages hold this rank's kv heads, as in
+    :func:`decode_step`. Returns (logits [batch, m, vocab] float32,
+    k_pages, v_pages)."""
     disable_tf32()
+    final_ln = _tp_begin(params, cfg, tp, ffn)
     b, m = tokens.shape
     n_pages = k_pages.shape[1]
     page = cfg.page_size
-    x = _embed(params, tokens, cfg)  # [b, m, d]
+    x = _embed(params, tokens, cfg, tp)  # [b, m, d]
     cols = torch.arange(m, device=tokens.device)
     positions = seq_lens.long()[:, None] + cols[None, :]
     page_idx = positions // page
@@ -491,16 +553,16 @@ def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
     entries, rows = drop_mode_rows(target_page, slot, n_pages, page)
     lens = seq_lens.to(torch.int32)
 
-    for li, layer in enumerate(params["layers"]):
-        q, k, v = _qkv(layer, x, cfg, positions)
+    for li, layer in enumerate(_layers(params, tp)):
+        q, k, v = _qkv(layer, x, cfg, positions, tp)
         kp = scatter_rows(k_pages[li], k, entries, rows)
         vp = scatter_rows(v_pages[li], v, entries, rows)
         attn = verify_attention(q.contiguous(), kp, vp, page_table, lens,
                                 window=cfg.window)
-        x = x + _attn_out(layer, attn.reshape(b, m, -1))
-        x = x + (_mlp(layer, x, cfg) if ffn is None else ffn(layer, x))
-    x = rms_norm(x, params["final_ln"], cfg.norm_eps, cfg.norm_plus_one)
-    return _logits(params, x), k_pages, v_pages
+        x = x + _attn_out(layer, attn.reshape(b, m, -1), tp)
+        x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
+    x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
+    return _logits(params, x, tp), k_pages, v_pages
 
 
 # ---------------------------------------------------------------------------
@@ -514,10 +576,10 @@ def token_nll(logits, targets):
     return -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
 
 
-def loss_fn(params, cfg: LlamaConfig, tokens):
+def loss_fn(params, cfg: LlamaConfig, tokens, tp=None):
     """Next-token cross-entropy (float32 accumulation) of tokens [batch,
-    seq + 1]."""
-    logits, _ = forward_dense(params, cfg, tokens[:, :-1])
+    seq + 1] (under ``tp`` this rank's rows: the mean over them)."""
+    logits, _ = forward_dense(params, cfg, tokens[:, :-1], tp=tp)
     return token_nll(logits, tokens[:, 1:])
 
 
@@ -554,18 +616,31 @@ def adamw(params, lr):
                              eps=1e-8, weight_decay=1e-4)
 
 
-def train_step(params, optimizer, cfg, tokens, loss=None):
+def train_step(params, optimizer, cfg, tokens, loss=None, tp=None):
     """One optimizer step: zero the grads, forward, backward, step. The
     ONE optimizer-step implementation for all model families — pass
     ``loss`` (called as loss(params, cfg, tokens)) to train another. The
     leaves of ``params`` are updated IN PLACE (the JAX version returns
-    new ones). Returns the loss (detached, before the step)."""
+    new ones). Returns the loss (detached, before the step).
+
+    Under ``tp`` (a ``parallel.mesh.TensorParallel``; ``params`` the
+    DTensors of ``shard_params``, ``tokens`` this rank's dp rows) the
+    step follows the global mean loss, as ``jax.jit`` over dp-sharded
+    tokens does: each rank differentiates its own mean over dp, the grads are
+    summed over dp (reduce-scattered in the backward for FSDP leaves),
+    and the global loss is returned."""
     loss_f = loss_fn if loss is None else loss
     optimizer.zero_grad(set_to_none=True)
-    value = loss_f(params, cfg, tokens)
-    value.backward()
+    if tp is None:
+        value = loss_f(params, cfg, tokens)
+        value.backward()
+        optimizer.step()
+        return value.detach()
+    value = loss_f(params, cfg, tokens, tp=tp)
+    (value / tp.dp).backward()
+    tp.reduce_grads(params)
     optimizer.step()
-    return value.detach()
+    return tp.dp_mean(value.detach())
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 ``csrc/paged_split.cu`` at m = 1, and its dispatcher.
 
 Counterpart of ``infinistore_tpu/ops/pallas_paged_attention.py``
-(``paged_flash_decode`` / ``decode_attention``). The plain version is
+(``paged_flash_decode`` / ``decode_attention`` / ``decode_attention_tp``).
+The plain version is
 ``paged_attention.paged_decode_attention``; :func:`decode_attention`
 takes it for CPU tensors only. A CUDA tensor launches the kernel or
 raises — there is no fallback.
@@ -54,3 +55,21 @@ def decode_attention(q, k_pages, v_pages, page_table, seq_lens, window=0):
         return paged_decode_attention(q, k_pages, v_pages, page_table,
                                       seq_lens, window=window)
     raise ValueError(f"decode_attention: unsupported device {q.device}")
+
+
+def decode_attention_tp(tp, q, k_pages, v_pages, page_table, seq_lens,
+                        window=0):
+    """:func:`decode_attention` under tensor parallelism, every one of
+    the ``tp`` ranks' slices in this process: kv heads cut into tp
+    slices, q heads with them (each slice keeps its kv heads' whole GQA
+    group), the table and lengths whole. Decode attention is
+    head-parallel, so there is no collective: each slice launches K2 on
+    its heads (the plain version for CPU tensors), as each device of the
+    JAX wrapper's ``shard_map`` does on its own heads, and the outputs
+    are joined on heads (see ``parallel.mesh.head_parallel``). A rank
+    that holds only its own heads calls :func:`decode_attention` on
+    them. Requires n_kv_heads % tp == 0."""
+    from ..parallel.mesh import head_parallel
+
+    return head_parallel(decode_attention, tp, q, (k_pages, v_pages),
+                         (page_table, seq_lens), window=window)

@@ -4,7 +4,8 @@ kernel of K2 and K3 with int8 pages and their scales), its plain version
 and its dispatcher.
 
 Counterpart of ``infinistore_tpu/ops/pallas_paged_attention.py``
-(``paged_flash_decode_quantized`` / ``decode_attention_quantized``).
+(``paged_flash_decode_quantized`` / ``decode_attention_quantized`` /
+``decode_attention_quantized_tp``).
 Pages stay int8 with one f32 scale per (token, kv head)
 (``ops/kv_quant.py``); the kernel computes the TPU kernel's float32 fold
 (q, the dequantized pages, the softmax and P.V, P not rounded to q's
@@ -142,3 +143,17 @@ def decode_attention_quantized(q, k_q, k_s, v_q, v_s, page_table, seq_lens,
                                       window=window)
     raise ValueError(
         f"decode_attention_quantized: unsupported device {q.device}")
+
+
+def decode_attention_quantized_tp(tp, q, k_q, k_s, v_q, v_s, page_table,
+                                  seq_lens, window=0):
+    """Int8 variant of ``paged_flash_decode.decode_attention_tp``: the
+    int8 pages and their per-(token, kv head) scales [n_pages, page,
+    n_kv] are both cut on the kv-head dim, and each of the ``tp`` slices
+    launches K4 on its heads (the CPU route for CPU tensors), with no
+    collective."""
+    from ..parallel.mesh import head_parallel
+
+    return head_parallel(decode_attention_quantized, tp, q,
+                         (k_q, k_s, v_q, v_s), (page_table, seq_lens),
+                         window=window)

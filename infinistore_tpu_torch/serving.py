@@ -45,6 +45,15 @@ Where it differs from the JAX engine, and why:
 - A multi-step burst is a Python loop of ``decode_step`` with the tokens
   kept on the device and one device-to-host copy per burst (the JAX
   engine fuses it with ``lax.scan``).
+- Tensor parallelism (``mesh=``): the JAX engine runs unchanged on
+  Megatron-sharded weights and XLA inserts the collectives. Here every
+  rank of the mesh's tp dim runs an engine over its shard of the weights
+  and a pool of its kv heads, and ``models/llama.py`` makes the
+  collectives explicit. The gathered logits are the same on every rank,
+  so every rank schedules and samples alike; each store call's outcome
+  is agreed over tp before it steers anything. The store sees whole
+  pages under the single-device keys: heads are gathered before rank 0
+  puts, and each rank keeps its heads' slice of a restored page.
 """
 
 import hashlib
@@ -53,6 +62,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ._device import resolve_device
 from .lib import InfiniStoreKeyNotFound
@@ -222,12 +232,12 @@ class _LazyHost:
 
 
 @torch.no_grad()
-def _admit_fused(params, cfg, tokens, model=llama):
+def _admit_fused(params, cfg, tokens, model=llama, **kw):
     """Cold admission: prefill ``tokens`` [1, s] and page its KV out
     (without grad, whether or not the leaves require it). Returns (the
     last position's logits row [vocab] float32, k and v pages [L, n,
     page, kv, hd], the tail page zero-padded)."""
-    logits, kvs = model.prefill(params, cfg, tokens)
+    logits, kvs = model.prefill(params, cfg, tokens, **kw)
     return (logits[0, -1],) + _stack_pages(cfg, kvs)
 
 
@@ -240,12 +250,12 @@ def _stack_pages(cfg, kvs):
 
 
 def _decode_fused(params, cfg, token, seq_lens, k_pages, v_pages, rows,
-                  model=llama):
+                  model=llama, **kw):
     """One decode step with the pools updated in place: model forward +
     device argmax + seq_lens advance. Returns (logits, next tokens,
     next lens)."""
     logits, _, _ = model.decode_step(params, cfg, token, seq_lens, k_pages,
-                                     v_pages, rows)
+                                     v_pages, rows, **kw)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
     # Advance only live rows: inactive slots (lens == 0) stay at 0
     # across steady-state reuse.
@@ -253,7 +263,7 @@ def _decode_fused(params, cfg, token, seq_lens, k_pages, v_pages, rows,
 
 
 def _decode_scan(params, cfg, token, seq_lens, k_pages, v_pages, rows,
-                 n_steps, model=llama):
+                 n_steps, model=llama, **kw):
     """``n_steps`` greedy decode steps with the tokens kept on the
     device: the same tokens as n_steps single fused steps (each is one
     ``decode_step``). Returns (tokens [batch, n_steps], next lens)."""
@@ -261,22 +271,90 @@ def _decode_scan(params, cfg, token, seq_lens, k_pages, v_pages, rows,
     for _ in range(n_steps):
         _, token, seq_lens = _decode_fused(params, cfg, token, seq_lens,
                                            k_pages, v_pages, rows,
-                                           model=model)
+                                           model=model, **kw)
         toks.append(token)
     return torch.stack(toks, dim=1), seq_lens
 
 
-def _checksum(x):
-    """Position-weighted float32 sum of a tensor's elements (weights
-    i % 251 + 1), in slices so no leaf-sized weight tensor is built."""
-    f = x.reshape(-1)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    step = 1 << 24
-    for s in range(0, f.numel(), step):
-        part = f[s:s + step].float()
-        w = (torch.arange(s, s + part.numel(), device=x.device) % 251
-             + 1).float()
-        total += torch.sum(part * w)
+# The weights checksum's modulus (a prime): sums of integers taken
+# modulo it do not depend on their order.
+_CHECKSUM_P = 2**31 - 1
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+@torch.no_grad()
+def weights_fingerprint(params):
+    """Cheap checkpoint identity for the store-key namespace: sha256
+    over every leaf's (shape, dtype) plus a position-weighted checksum
+    per leaf (position weights, so two checkpoints that are element
+    permutations of each other differ; see :func:`_checksum`). The
+    checksum is an integer sum over the elements' bits, which no
+    summation order changes, so it is the same on the CPU and on the
+    card, and a tensor-parallel engine's shards (the DTensors of
+    ``parallel.mesh.shard_params``, every leaf one) give the whole
+    tree's fingerprint: each rank sums its blocks at their offsets in
+    the whole leaf and the sums are added over the mesh (every rank of
+    the mesh calls this). The JAX engine's fingerprint is another
+    function, so the same checkpoint fingerprints differently in the two
+    packages: that is a cache miss, never a cross-hit."""
+    leaves = llama.param_leaves(params)
+    sharded = [isinstance(x, DTensor) for x in leaves]
+    if any(sharded) and not all(sharded):
+        raise ValueError("a tree of DTensors and plain tensors")
+    h = hashlib.sha256()
+    sums = []
+    for leaf in leaves:
+        dtype = str(leaf.dtype).replace("torch.", "")
+        h.update(str((tuple(leaf.shape), dtype)).encode())
+        if isinstance(leaf, DTensor):
+            from .parallel.mesh import block_of
+            block, offsets, counts = block_of(leaf)
+            sums.append(_checksum(block, leaf.shape, offsets) if counts
+                        else torch.zeros((), dtype=torch.int64,
+                                         device=block.device))
+        else:
+            sums.append(_checksum(leaf))
+    sums = torch.stack(sums)
+    if all(sharded) and leaves:
+        import torch.distributed as dist
+        mesh = leaves[0].device_mesh
+        for i in range(mesh.ndim):
+            dist.all_reduce(sums, group=mesh.get_group(i))
+        sums %= _CHECKSUM_P
+    h.update(sums.cpu().numpy().astype(np.int64).tobytes())
+    return h.hexdigest()[:16]
+
+
+def _checksum(x, shape=None, offsets=None):
+    """Position-weighted sum, modulo a prime, of a tensor's element bits
+    (read as integers of the element's width): the element at flat index
+    i of the whole tensor weighs i % 251 + 1. ``x`` is the block of a
+    whole tensor of ``shape`` at ``offsets`` (by default the whole
+    tensor itself). Summed in slices of rows, so no leaf-sized weight
+    tensor is built. Returns an int64 scalar on x's device."""
+    x = x.reshape(1) if x.dim() == 0 else x
+    shape = tuple(x.shape) if shape is None else tuple(shape) or (1,)
+    offsets = offsets or (0,) * x.dim()
+    strides = [1] * len(shape)
+    for d in range(len(shape) - 2, -1, -1):
+        strides[d] = strides[d + 1] * shape[d + 1]
+
+    def pos(d, lo, n):  # dim d's term of the flat index, modulo 251
+        return (torch.arange(lo, lo + n, device=x.device)
+                * strides[d]) % 251
+
+    tail = torch.zeros((), dtype=torch.int64, device=x.device)
+    for d in range(1, x.dim()):
+        tail = tail.unsqueeze(-1) + pos(d, offsets[d], x.shape[d])
+    bits = x.contiguous().view(_BITS[x.element_size()])
+    rows = max(1, (1 << 22) // max(1, tail.numel()))
+    total = torch.zeros((), dtype=torch.int64, device=x.device)
+    for r in range(0, x.shape[0], rows):
+        part = bits[r:r + rows].to(torch.int64) % _CHECKSUM_P
+        head = pos(0, offsets[0] + r, part.shape[0]).view(
+            -1, *[1] * (x.dim() - 1))
+        w = (head + tail) % 251 + 1
+        total = (total + torch.sum(part * w)) % _CHECKSUM_P
     return total
 
 
@@ -294,28 +372,57 @@ class ServingEngine:
     on ``device`` (the card unless ``device="cpu"``); ``params`` must be
     there too. Decoding is greedy by default; per-request seeded
     temperature/top-k sampling via Request(temperature=..., top_k=...,
-    seed=...)."""
+    seed=...).
+
+    ``mesh``, a (dp, tp) DeviceMesh of ``parallel.mesh.make_mesh``, makes
+    this engine one tp rank of a Megatron-sharded engine (Llama family
+    only): ``params`` is then this rank's shard of the tree, the
+    DTensors of ``parallel.mesh.shard_params(mesh, whole)`` (no rank
+    needs the whole tree once it is sharded), and the pool holds
+    n_kv_heads / tp heads. Every tp rank must run the same requests in
+    the same order, each with a store of its own or all without."""
 
     def __init__(self, params, cfg: "llama.LlamaConfig | moe.MoEConfig",
                  sconfig=None,
-                 store=None, proposer=None, model=llama, device="cuda"):
+                 store=None, proposer=None, model=llama, device="cuda",
+                 mesh=None):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.sc = sconfig or ServingConfig()
-        for leaf in llama.param_leaves(params):
+        leaves = llama.param_leaves(params)
+        for leaf in leaves:
+            if isinstance(leaf, DTensor):
+                leaf = leaf.to_local()
             if leaf.device != self.device:
                 raise ValueError(
                     f"params lie on {leaf.device}, the engine on "
                     f"{self.device}")
-        self.params = params
+        self.tp = None
+        self._mkw = {}  # the model calls' tp argument
+        n_kv = cfg.n_kv_heads
+        if mesh is not None:
+            from .parallel.mesh import TensorParallel
+            if hasattr(cfg, "n_experts"):
+                raise NotImplementedError(
+                    "a routed FFN (MoE) under tensor parallelism is not "
+                    "supported")
+            self.tp = TensorParallel(mesh)
+            self.tp.check(cfg)
+            if not all(isinstance(x, DTensor) and x.device_mesh == mesh
+                       for x in leaves):
+                raise ValueError("under a mesh, params are this rank's "
+                                 "shards: parallel.mesh.shard_params(mesh, "
+                                 "params)")
+            self._mkw = {"tp": self.tp}
+            n_kv //= self.tp.tp
         self.cfg = cfg
         self.model = model
         self.store = store
         self.proposer = proposer if proposer is not None \
             else prompt_lookup_propose
         shape = (cfg.n_layers, self.sc.total_pages, cfg.page_size,
-                 cfg.n_kv_heads, cfg.head_dim)
+                 n_kv, cfg.head_dim)
         self.k_pages = torch.zeros(shape, dtype=cfg.torch_dtype,
                                    device=self.device)
         self.v_pages = torch.zeros_like(self.k_pages)
@@ -350,7 +457,10 @@ class ServingEngine:
         # keeps two checkpoints of one geometry from cross-hitting.
         model_id = self.sc.model_id
         if store is not None and model_id == "default":
-            model_id = f"wf{self._weights_fingerprint()}"
+            model_id = f"wf{weights_fingerprint(params)}"
+        if self.tp is not None:
+            params = self.tp.local_tree(params)
+        self.params = params
         wire = "q8" if self.sc.quantized_store else cfg.dtype
         self._ns = (
             f"{model_id}/p{cfg.page_size}/l{cfg.n_layers}"
@@ -362,24 +472,6 @@ class ServingEngine:
         elif store is not None:
             self._get_pages = store.get_kv_pages
             self._put_pages = store.put_kv_pages
-
-    @torch.no_grad()
-    def _weights_fingerprint(self):
-        """Cheap checkpoint identity for the store-key namespace: sha256
-        over every leaf's (shape, dtype) plus a position-weighted float32
-        checksum per leaf (position weights, so two checkpoints that are
-        element permutations of each other differ). The checksum's
-        reduction order is not the JAX engine's, so the same checkpoint
-        may fingerprint differently in the two packages: that is a cache
-        miss, never a cross-hit."""
-        leaves = llama.param_leaves(self.params)
-        h = hashlib.sha256()
-        for leaf in leaves:
-            dtype = str(leaf.dtype).replace("torch.", "")
-            h.update(str((tuple(leaf.shape), dtype)).encode())
-        sums = torch.stack([_checksum(x) for x in leaves])
-        h.update(sums.cpu().numpy().astype(np.float32).tobytes())
-        return h.hexdigest()[:16]
 
     def _digests(self, tokens, n_pages):
         return content_page_digests(
@@ -445,9 +537,17 @@ class ServingEngine:
         self.k_pages.index_copy_(1, idx, k_new.to(self.k_pages.dtype))
         self.v_pages.index_copy_(1, idx, v_new.to(self.v_pages.dtype))
 
+    def _agree(self, value, largest=False):
+        """A store call's outcome as every tp rank sees it (the smallest,
+        or the largest, of the ranks'); the value itself without tp."""
+        return value if self.tp is None else self.tp.agree(value, largest)
+
     def _store_failed(self, what, exc):
         """First store failure downgrades to store-less serving: the
-        cache accelerates, it must never fail a request."""
+        cache accelerates, it must never fail a request. Under tp,
+        ``exc`` is None where another rank's call failed."""
+        if exc is None:
+            exc = RuntimeError("another tp rank's store call failed")
         self._store_ok = False
         self.stats["store_errors"] += 1
         logging.getLogger("infinistore_tpu_torch.serving").warning(
@@ -465,16 +565,20 @@ class ServingEngine:
         if cap == 0:
             return 0, []
         digests = self._digests(work.prompt, cap)
+        err = None
         try:
             hit = self.store.cached_prefix_len(
                 content_page_keys(work.prompt, self.cfg.page_size, cap, 0,
                                   "k", digests=digests)
             )
         except Exception as e:
-            self._store_failed("probe", e)
+            hit, err = -1, e
+        hit = self._agree(hit)
+        if hit < 0:
+            self._store_failed("probe", err)
             return 0, []
         hit = min(hit, cap)
-        if hit > 0:
+        if hit > 0 and (self.tp is None or self.tp.leader):
             self._prefetch_chain(work.prompt, hit, digests[:hit])
         return hit, digests[:hit]
 
@@ -568,7 +672,9 @@ class ServingEngine:
         kp = vp = None
         if hit > 0:
             # Restore the in-window hit pages with one batched store
-            # call; the digests come from the probe.
+            # call; the digests come from the probe. Outcome: 0 restored,
+            # 1 evicted, 2 failed (agreed over tp: the worst counts).
+            outcome, err = 0, None
             try:
                 kp, vp = llama.restore_prefix_pages(
                     self.store, cfg,
@@ -579,16 +685,24 @@ class ServingEngine:
                     getter=self._get_pages,
                 )
             except InfiniStoreKeyNotFound:
+                outcome = 1
+            except Exception as e:
+                outcome, err = 2, e
+            outcome = self._agree(outcome, largest=True)
+            if outcome == 1:
                 # Evicted between probe and restore: a miss for this
                 # admission only; the store stays in use.
                 self.stats["restore_misses"] += 1
                 hit = 0
-            except Exception as e:
-                self._store_failed("restore", e)
+            elif outcome == 2:
+                self._store_failed("restore", err)
                 hit = 0
             else:
                 kp = kp.to(self.device)
                 vp = vp.to(self.device)
+                if self.tp is not None:
+                    # Whole pages from the store; this rank's kv heads.
+                    kp, vp = self.tp.head_slice(kp), self.tp.head_slice(vp)
                 if self.sc.prefill_chunk == 0:
                     # Contiguous form for the one-shot suffix prefill;
                     # the chunked path attends straight over the pages.
@@ -657,14 +771,14 @@ class ServingEngine:
             # Cold admission: prefill, page out, pool write, last row.
             # Dead prompt pages [0, skip) have no pool page.
             row_dev, kp_s, vp_s = _admit_fused(self.params, cfg, toks,
-                                               model=self.model)
+                                               model=self.model, **self._mkw)
             self._pool_write(ids, kp_s[:, skip:], vp_s[:, skip:])
         else:
             # pos0 anchors the trimmed prefix's absolute rope positions.
             with torch.no_grad():
                 logits, kvs = self.model.prefill_with_prefix(
                     self.params, cfg, toks, prefix_kvs,
-                    pos0=first_live * page,
+                    pos0=first_live * page, **self._mkw,
                 )
             # Page out the suffix KV into the pool: a hit implies
             # skip = first_live <= hit, so every suffix page has an id.
@@ -748,7 +862,9 @@ class ServingEngine:
         and not [0, cached_pages) (the store has them) nor [0, released)
         (offloaded when they left the window). One batched put over
         every (layer, kind), then ``conn.sync()``: the pages are durable
-        in the store before their pool pages can be reused."""
+        in the store before their pool pages can be reused. Under tp the
+        kv heads are gathered and tp rank 0 puts the whole pages; the
+        ranks' agreement on the outcome waits for its sync."""
         if (self.store is None or not self._store_ok
                 or not slot.work.req.cache):
             return
@@ -760,6 +876,7 @@ class ServingEngine:
         if n_full <= lo:
             return
         new_digests = self._slot_digests(slot, n_full)[lo:]
+        err = None
         try:
             sel = torch.as_tensor(slot.page_ids[lo:n_full], dtype=torch.long,
                                   device=self.device)
@@ -770,12 +887,18 @@ class ServingEngine:
                                                   digests=new_digests))
             pages = torch.stack([self.k_pages.index_select(1, sel),
                                  self.v_pages.index_select(1, sel)], dim=1)
-            self._put_pages(keys, pages.reshape(-1, *cfg.kv_page_shape()))
-            self.store.conn.sync()
+            if self.tp is not None:
+                pages = self.tp.gather_heads(pages)
+            if self.tp is None or self.tp.leader:
+                self._put_pages(keys,
+                                pages.reshape(-1, *cfg.kv_page_shape()))
+                self.store.conn.sync()
         except Exception as e:
+            err = e
+        if self._agree(int(err is not None), largest=True):
             # The output does not depend on the offload; losing it only
             # costs future cache hits.
-            self._store_failed("offload", e)
+            self._store_failed("offload", err)
             return
         self.stats["offloaded_pages"] += n_full - lo
 
@@ -928,6 +1051,7 @@ class ServingEngine:
             toks_dev, lens_next = _decode_scan(
                 self.params, self.cfg, token_dev, lens_dev,
                 self.k_pages, self.v_pages, rows_dev, k, model=self.model,
+                **self._mkw,
             )
             toks = toks_dev.cpu().numpy()  # [B, k]: the one copy
             trimmed = False
@@ -954,7 +1078,7 @@ class ServingEngine:
 
         logits, nxt_dev, lens_next = _decode_fused(
             self.params, self.cfg, token_dev, lens_dev, self.k_pages,
-            self.v_pages, rows_dev, model=self.model,
+            self.v_pages, rows_dev, model=self.model, **self._mkw,
         )
         nxt = nxt_dev.cpu().numpy()
         # Reusable next step iff every emitted token is the device's
@@ -1002,7 +1126,7 @@ class ServingEngine:
         logits, _, _ = self.model.verify_step(
             self.params, self.cfg, self._to_device(token),
             self._to_device(seq_lens), self.k_pages, self.v_pages,
-            self._to_device(rows), self._to_device(valid),
+            self._to_device(rows), self._to_device(valid), **self._mkw,
         )
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         return active, nxt, logits

@@ -25,7 +25,8 @@ def test_port_imports_and_runs_with_jax_blocked():
     the Llama family and of the MoE family; transformers is blocked too
     (the HF bridge takes a config namespace and a state dict). The store
     surface (sharded client, warmup, benchmark, profiling, example
-    clients) imports too, and routes a key as the static hash says."""
+    clients) imports too, and routes a key as the static hash says; so do
+    the parallel modules, and graft_entry's decode step runs."""
     script = textwrap.dedent(f"""
         import importlib.abc, sys, types
         BLOCKED = {BLOCKED_WITH_HF!r}
@@ -103,6 +104,11 @@ def test_port_imports_and_runs_with_jax_blocked():
         with profile_window() as w:
             pass
         assert not w.op_deltas
+        from infinistore_tpu_torch import graft_entry
+        from infinistore_tpu_torch.parallel import launch, mesh
+        fn, args = graft_entry.entry("cpu")
+        assert fn(*args).shape == (2, 256)
+        assert mesh.param_sharding_rules()["wo"][1].dim == 0
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ISOLATED_OK")
@@ -132,7 +138,8 @@ def test_no_source_imports_jax_or_the_jax_package():
                 "models/llama.py", "models/moe.py", "models/hf.py",
                 "sharded.py", "warmup.py", "benchmark.py",
                 "utils/profiling.py", "example/client.py",
-                "example/client_async.py"):
+                "example/client_async.py", "parallel/__init__.py",
+                "parallel/mesh.py", "parallel/launch.py", "graft_entry.py"):
         assert os.path.join(PKG, mod) in paths, mod
     for path in paths:
         with open(path) as f:
@@ -151,7 +158,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def test_default_device_entry_points_raise_without_cuda(monkeypatch):
-    from infinistore_tpu_torch import cuda, serving
+    from infinistore_tpu_torch import cuda, graft_entry, serving
+    from infinistore_tpu_torch.parallel import mesh
     from infinistore_tpu_torch.example import demo_prefill, serve
     from infinistore_tpu_torch.models import hf, llama, moe
 
@@ -177,6 +185,10 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         hf.params_from_hf({}, cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         hf.moe_params_from_hf({}, moe.MoEConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.init_process_group(0, 1, 1)
 
 
 def test_int8_kernel_wrapper_refuses_cpu_tensors():

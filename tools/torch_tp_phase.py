@@ -1,0 +1,66 @@
+#!/usr/bin/env python3
+"""Run chip_smoke.py's phase 10 (tensor parallel) alone on one NVIDIA
+GPU: build the store library and the kernels, then the phase as the
+whole script runs it: (a) K2 / K4 on tp head slices in this process;
+(b)-(d) two ranks in processes of their own, time-sharing the card over
+gloo (the tp = 2 engine at Llama-3.1-8B width, its f32 token parity, an
+FSDP training step).
+
+    python3 tools/torch_tp_phase.py [--readings]
+
+With ``--readings`` a failed check in this process prints
+``READING-ONLY FAIL: ...`` and the phase goes on, so that one call
+reads every number; the exit code is then 1 if any check failed.
+Prints the phase's lines, its JSON report (``tensor parallel: {...}``)
+and the card line.
+"""
+
+import json
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+
+
+def main():
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from infinistore_tpu_torch import _native
+    from infinistore_tpu_torch._device import disable_tf32
+    from infinistore_tpu_torch.ops import _kernels
+    from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
+
+    if not torch.cuda.is_available():
+        print("FAIL: no GPU")
+        return 1
+    failed = []
+    if "--readings" in sys.argv:
+        def check(cond, msg):
+            if not cond:
+                failed.append(msg)
+                print(f"READING-ONLY FAIL: {msg}", flush=True)
+        cs.check = check
+    card = cs.card_line()
+    disable_tf32()
+    cs.build_all(_native, _kernels)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    report = {}
+    t0 = time.perf_counter()
+    try:
+        cs.phase_tp(torch, np, pd, pq, gen, report)
+    except cs.SmokeError as e:
+        print(f"FAIL: {e}")
+        return 1
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    print("tensor parallel: " + json.dumps(report))
+    print(card)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
