@@ -145,11 +145,32 @@ Phases, in order; any failure exits non-zero before the result line:
     and chunked tokens equal the single-process engine's; (d) one FSDP
     training step at dp = 2 (2 layers, f32): the loss and every leaf's
     grad against the single-process step.
-11. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
-    K4's also carry graph_ms; tp_launches: launches on phase 10's path),
-    after the phases' JSON lines (phase 6c's under "moe:", phase 6d's
-    under "sharded:", phase 10's under "tensor parallel:"), the card
-    line, and as the last line {"ok": true, "device": {...}}.
+11. The parallel set, two ranks in processes of their own time-sharing
+    the card over gloo (every transfer staged through pinned host
+    memory: not a multi-GPU reading): (a) ring attention over sp = 2 at
+    Llama-3.1-8B's attention (32 q / 8 kv heads, hd 128, bf16), one
+    32768-token sequence in 16384-token blocks, every block on K1 with
+    its lse, against one K1 launch over the whole sequence, and at 4096
+    tokens against the plain attention in bf16 and f32; (b) GPipe over
+    pp = 2, each stage 2 Llama-3.1-8B decoder layers, 4 microbatches of
+    2048 tokens, against the 4 layers in one process (forward, and each
+    stage's leaf grads of one backward: K1, K5, K6 in the stages); (c)
+    expert parallelism at Mixtral-8x7B width cut to 2 layers, ep = 2
+    (4 experts a rank): a 2048-token prefill and one AdamW step against
+    the single-process model (rows, routing agreement, loss, every leaf
+    grad), and at a tiny f32 width the loss to 1e-5 with the same
+    routing; (d) the device KV pool: one 2048-token prompt's K and V
+    pages at 8B width (8192 pages, 256 MiB) put on rank 0 and handed to
+    rank 1, then the same count held only in a CudaKVStore over SHM:
+    the pool's miss, a fetch onto rank 0, a handoff, an eviction back to
+    the store, each read back byte-equal; (e) the whole multi-rank dry
+    run (graft_entry.dryrun_multichip) on the card.
+12. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
+    K4's also carry graph_ms; tp_launches: launches on phase 10's path;
+    parallel_launches: per rank on phase 11's), after the phases' JSON
+    lines (phase 6c's under "moe:", phase 6d's under "sharded:", phase
+    10's under "tensor parallel:", phase 11's under "parallel set:"),
+    the card line, and as the last line {"ok": true, "device": {...}}.
 """
 
 import collections
@@ -2639,9 +2660,9 @@ class RoutingTape:
                 int(self.torch.stack(self.selected).sum()),
                 int(self.torch.stack(self.dropped).sum()))
 
-    def _route(self, layer, h, cfg, valid=None, choice=None):
+    def _route(self, layer, h, cfg, valid=None, choice=None, ep=None):
         if self.rows is None or self.replay is None:
-            r = self.saved(layer, h, cfg, valid, choice)
+            r = self.saved(layer, h, cfg, valid, choice, ep)
             self.selected.append(r.selected.sum())
             self.dropped.append((r.selected & ~r.kept).sum())
             if self.rows is not None:
@@ -4181,6 +4202,619 @@ def phase_tp(torch, np, pd, pq, gen, report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the parallel set
+# ---------------------------------------------------------------------------
+
+PAR_RANKS = 2  # two ranks time-sharing the card over gloo
+# Each leg's size (the rank function takes them as an argument):
+# (a) one sequence over sp = 2 (16384-token blocks) and a shorter one
+# checked against the plain attention; (b) S = PAR_RANKS stages of
+# pp_layers decoder layers, pp_micro microbatches of 1 x pp_tokens;
+# (c) Mixtral-8x7B cut to ep_layers layers, ep = PAR_RANKS (4 experts a
+# rank), one ep_tokens prefill and one AdamW step on ep_tokens + 1;
+# (d) one pool_tokens prompt's K and V pages over every layer.
+PAR_SIZES = dict(sp_tokens=32768, sp_check_tokens=4096, pp_layers=2,
+                 pp_micro=4, pp_tokens=2048, ep_layers=2, ep_tokens=2048,
+                 pool_tokens=2048, repeats=3)
+# The tiny float32 MoE of (c)'s exact check.
+PAR_TINY_MOE = dict(vocab_size=256, d_model=64, n_layers=2, n_heads=4,
+                    n_kv_heads=2, d_ff=128, n_experts=4, top_k=2,
+                    max_seq=256, page_size=8, dtype="float32")
+PAR_TOL_GRAD = TRAIN_TOL["bfloat16"]  # pp and ep leaf grads, bf16
+PAR_EP_LOSS = 1e-3                    # ep loss, bf16, relative
+PAR_EP_LOSS_F32 = 1e-5                # ep loss, tiny f32, relative
+
+
+def par_ms(torch, dev, fn, iters):
+    """Mean ms of fn() over iters calls (after one warm call): CUDA events
+    on the card; the host clock on the CPU, where the rank code is
+    rehearsed."""
+    fn()
+    if dev.type == "cuda":
+        return cuda_ms(torch, fn, iters, warmup=0)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def par_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def par_free(torch, dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def par_launches(fa):
+    return [fa.launches, fa.dq_launches, fa.dkv_launches]
+
+
+def par_sp(torch, dev, sizes, out):
+    """(a) The ring over sp = PAR_RANKS at Llama-3.1-8B's attention."""
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.ops.paged_attention import prefill_attention
+    from infinistore_tpu_torch.ops.ring_attention import (make_sp_mesh,
+                                                          ring_attention)
+    from infinistore_tpu_torch.parallel import transport
+
+    cfg = sizes["llama"]
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    mesh = make_sp_mesh(PAR_RANKS, dev.type, "gloo")
+    group = mesh.get_group()
+    rank, n = dist.get_rank(group), PAR_RANKS
+    nxt, prv = (rank + 1) % n, (rank - 1) % n
+    k1 = (fa.flash_prefill_attention if dev.type == "cuda"
+          else prefill_attention)
+
+    def qkv(s, dtype, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(1, s, h, D, generator=g, device=dev).to(dtype)
+                for h in (H, KV, KV)]
+
+    def block(t, s):
+        blk = s // n
+        return t[:, rank * blk:(rank + 1) * blk].contiguous()
+
+    S = sizes["sp_tokens"]
+    q, k, v = qkv(S, torch.bfloat16, SEED + 11)
+    ql, kl, vl = (block(t, S) for t in (q, k, v))
+    ring_attention(ql, kl, vl, mesh)  # warm: pinned buffers, the build
+    par_sync(torch, dev)
+    ring_ms = []
+    for _ in range(sizes["repeats"]):
+        fa.reset_launches()
+        transport.reset_counters()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        ring = ring_attention(ql, kl, vl, mesh)
+        par_sync(torch, dev)
+        ring_ms.append((time.perf_counter() - t0) * 1e3)
+        launched = fa.launches
+    moved = dict(transport.counters)
+    # Rank 0's block is the diagonal alone, which is the first rows of
+    # the same causal launch: only a rank that merges earlier blocks
+    # (their non-causal lse) holds the ring to the one launch.
+    one = k1(q, k, v, causal=True)
+    err = rel_err(ring, block(one, S)) if rank > 0 else None
+    one_ms = par_ms(torch, dev, lambda: k1(q, k, v, causal=True), 3)
+    block_ms = par_ms(torch, dev, lambda: k1(ql, kl, vl, causal=False), 3)
+    del one, q, k, v
+    bk, bv = torch.empty_like(kl), torch.empty_like(vl)
+    rotated = 2 * kl.numel() * kl.element_size()
+    rot_ms = []
+    for _ in range(sizes["repeats"]):
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        transport.exchange([(kl, nxt), (vl, nxt)], [(bk, prv), (bv, prv)],
+                           group).wait()
+        par_sync(torch, dev)
+        rot_ms.append((time.perf_counter() - t0) * 1e3)
+    del ring, ql, kl, vl, bk, bv
+    # The ring against the plain attention over the whole sequence.
+    S2 = sizes["sp_check_tokens"]
+    check_err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = qkv(S2, dtype, SEED + 12)
+        got = ring_attention(block(q, S2), block(k, S2), block(v, S2), mesh)
+        ref = prefill_attention(q, k, v, causal=True)
+        check_err[str(dtype).split(".")[-1]] = rel_err(got, block(ref, S2))
+        del q, k, v, got, ref
+    par_free(torch, dev)
+    out["sp"] = dict(
+        tokens=S, block=S // n, ring_ms=ring_ms, launches=launched,
+        blocks_computed=rank + 1, err_vs_one_k1=err, one_k1_ms=one_ms,
+        k1_block_ms=block_ms, rotated_bytes_per_step=rotated,
+        rotation_ms=rot_ms, staged_bytes=moved["staged_bytes"],
+        check_tokens=S2, check_err=check_err)
+
+
+def par_pp(torch, dev, sizes, out):
+    """(b) GPipe over pp = PAR_RANKS, each stage pp_layers Llama-3.1-8B
+    decoder layers, against the same layers in one process."""
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.parallel import mesh as pmesh
+    from infinistore_tpu_torch.parallel import pipeline as pp
+    from infinistore_tpu_torch.parallel import transport
+
+    S, per = PAR_RANKS, sizes["pp_layers"]
+    cfg = dataclasses.replace(sizes["llama"], n_layers=S * per)
+    full = llama.init_params(
+        torch.Generator(device=dev).manual_seed(SEED + 12), cfg, dev)
+    layers = full["layers"]
+    del full
+    mesh = pp.make_pp_mesh(S, dev.type, "gloo")
+    group = mesh.get_group()
+    rank = dist.get_rank(group)
+    stacked = pp.stack_stage_params(
+        [{"layers": layers[s * per:(s + 1) * per]} for s in range(S)])
+    with torch.no_grad():
+        stages = pmesh.tree_map(
+            lambda _, t, pl: pmesh.distribute(mesh, t, pl), stacked,
+            pp.stage_shardings(stacked))
+    del stacked
+    M, T = sizes["pp_micro"], sizes["pp_tokens"]
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x = torch.randn(M, 1, T, cfg.d_model, generator=g,
+                    device=dev).to(cfg.torch_dtype)
+    w = torch.randn(M, 1, T, cfg.d_model, generator=g, device=dev)
+    positions = torch.arange(T, device=dev)[None]
+
+    def stage_fn(p, h):
+        for layer in p["layers"]:
+            h, _ = llama.decoder_layer(layer, h, cfg, positions)
+        return h
+
+    with torch.no_grad():
+        pp.pipeline_apply(stage_fn, stages, x, mesh)  # warm
+        par_sync(torch, dev)
+        fa.reset_launches()
+        transport.reset_counters()
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        y = pp.pipeline_apply(stage_fn, stages, x, mesh)
+        par_sync(torch, dev)
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd_launches = par_launches(fa)
+        moved = dict(transport.counters)
+    # One backward through the schedule.
+    leaves = llama.trainable(stages)
+    fa.reset_launches()
+    dist.barrier(group)
+    t0 = time.perf_counter()
+    yg = pp.pipeline_apply(stage_fn, stages, x, mesh)
+    (yg.float() * w).sum().backward()
+    par_sync(torch, dev)
+    train_ms = (time.perf_counter() - t0) * 1e3
+    train_launches = par_launches(fa)
+    mine = [t.grad.to_local()[0].clone() for t in leaves]
+    del yg, leaves, stages
+    par_free(torch, dev)
+    # A hop alone: one activation from stage 0 to stage 1.
+    act = x[0]
+    buf = torch.empty_like(act)
+    hop_ms = []
+    for _ in range(sizes["repeats"]):
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        transport.exchange([(act, 1)] if rank == 0 else [],
+                           [(buf, 0)] if rank == 1 else [], group).wait()
+        par_sync(torch, dev)
+        hop_ms.append((time.perf_counter() - t0) * 1e3)
+    # The same layers applied in turn in this process.
+    ref_params = {"layers": layers}
+    with torch.no_grad():
+        ref = torch.stack([stage_fn(ref_params, x[m]) for m in range(M)])
+    byte_equal = bool(torch.equal(y, ref))
+    fwd_err = rel_err(y, ref)
+    del y, ref
+    ref_leaves = llama.trainable(ref_params)
+    ref_y = torch.stack([stage_fn(ref_params, x[m]) for m in range(M)])
+    (ref_y.float() * w).sum().backward()
+    del ref_y
+    own = llama.param_leaves(
+        {"layers": layers[rank * per:(rank + 1) * per]})
+    rels = [leaf_rel(a, b.grad) for a, b in zip(mine, own)]
+    del mine, ref_leaves, layers, own
+    par_free(torch, dev)
+    out["pp"] = dict(
+        stages=S, layers_per_stage=per, micro=M, tokens=T, fwd_ms=fwd_ms,
+        fwd_train_bwd_ms=train_ms, bubble=(S - 1) / (M + S - 1),
+        ticks=pp.n_ticks(S, M), hop_bytes=act.numel() * act.element_size(),
+        hop_ms=hop_ms, fwd_exchanges=moved["exchanges"],
+        fwd_staged_bytes=moved["staged_bytes"], byte_equal=byte_equal,
+        fwd_err=fwd_err, worst_leaf_rel=max(rels), n_leaves=len(rels),
+        fwd_launches=fwd_launches, train_launches=train_launches)
+
+
+def par_ep(torch, dev, sizes, out):
+    """(c) Expert parallelism at Mixtral-8x7B width, ep = PAR_RANKS, dp = 1,
+    against the single-process model; then the tiny f32 check."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch.models import hf, llama, moe
+    from infinistore_tpu_torch.ops import flash_attention as fa
+
+    mesh = moe.make_ep_mesh(1, PAR_RANKS, dev.type, "gloo")
+    ctx = moe.ExpertParallel(mesh)
+    tape, route = [], moe._route
+
+    def taped(*a, **kw):
+        r = route(*a, **kw)
+        tape.append(r.expert.clone())
+        return r
+
+    moe._route = taped
+
+    def run(cfg, params, tokens, train, ep):
+        """prefill logits (timed, warm first), the routing, and the
+        loss and leaf grads of one step."""
+        with torch.no_grad():
+            moe.prefill(params, cfg, tokens, ep=ep)
+            par_sync(torch, dev)
+            tape.clear()
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            logits, _ = moe.prefill(params, cfg, tokens, ep=ep)
+            par_sync(torch, dev)
+            ms = (time.perf_counter() - t0) * 1e3
+        routing = torch.stack(tape)
+        got = dict(logits=logits, routing=routing, prefill_ms=ms,
+                   prefill_launches=par_launches(fa))
+        leaves = llama.param_leaves(params)
+        fa.reset_launches()
+        if ep is None:
+            llama.trainable(params)
+            loss = moe.loss_fn(params, cfg, train)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            opt = llama.adamw(params, TRAIN_LR)
+            loss = moe.train_step(params, opt, cfg, train, ep=ep)
+            grads = [t.grad.to_local() for t in leaves]
+            del opt
+        got.update(loss=loss.item(), grads=grads,
+                   step_launches=par_launches(fa))
+        return got
+
+    def shard(params):
+        with torch.no_grad():
+            return moe.shard_params(mesh, params)
+
+    rank = mesh.get_local_rank("ep")
+    ns = type("HFConfig", (), sizes["mixtral"])
+    cfg = hf.moe_config_from_hf(ns, page_size=16, dtype="bfloat16")
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    full = moe.init_params(g, cfg, dev)
+    rng = np.random.default_rng(SEED + 14)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, sizes["ep_tokens"] + 1)),
+                             dtype=torch.int32, device=dev)
+    leaf_names = [n for n, _ in _named_leaves(full)]
+    one = run(cfg, full, tokens[:, :-1], tokens, None)
+    keep_one = dict(logits=one["logits"], routing=one["routing"],
+                    loss=one["loss"], prefill_ms=one["prefill_ms"])
+    one_grads = [gr.detach() for gr in one["grads"]]
+    del one
+    for t in llama.param_leaves(full):
+        t.requires_grad_(False)
+    par_free(torch, dev)
+    sharded = shard(full)
+    del full
+    par_free(torch, dev)
+    ep_run = run(cfg, sharded, tokens[:, :-1], tokens, ctx)
+    lo = rank * (cfg.n_experts // PAR_RANKS)
+    hi = lo + cfg.n_experts // PAR_RANKS
+    rels = []
+    for name, a, b in zip(leaf_names, ep_run["grads"], one_grads):
+        if name in ("e_gate", "e_up", "e_down"):
+            b = b[lo:hi]
+        rels.append(leaf_rel(a, b))
+    expert_bytes = sum(
+        t.to_local().numel() * t.to_local().element_size()
+        for la in sharded["layers"] for n, t in la.items()
+        if n in ("e_gate", "e_up", "e_down"))
+    x = torch.randn(sizes["ep_tokens"], cfg.d_model, device=dev)
+    reduce_ms = []
+    for _ in range(sizes["repeats"]):
+        dist.barrier(ctx.ep_group)
+        t0 = time.perf_counter()
+        ctx.reduce(x)
+        par_sync(torch, dev)
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    reading = dict(
+        layers=cfg.n_layers, experts=cfg.n_experts, tokens=sizes["ep_tokens"],
+        row_err=rel_err(ep_run["logits"], keep_one["logits"]),
+        routing_agreement=(ep_run["routing"] == keep_one["routing"])
+        .float().mean().item(),
+        prefill_ms=ep_run["prefill_ms"],
+        single_prefill_ms=keep_one["prefill_ms"],
+        loss=ep_run["loss"], single_loss=keep_one["loss"],
+        loss_rel=abs(ep_run["loss"] - keep_one["loss"])
+        / abs(keep_one["loss"]),
+        worst_leaf_rel=max(rels), worst_leaf=leaf_names[rels.index(
+            max(rels))], n_leaves=len(rels),
+        combine_allreduce_ms=reduce_ms, expert_bytes=expert_bytes,
+        prefill_launches=ep_run["prefill_launches"],
+        step_launches=ep_run["step_launches"])
+    del sharded, ep_run, one_grads, keep_one, x
+    par_free(torch, dev)
+    # The same at a tiny float32 width: the loss to 1e-5, the routing
+    # identical.
+    tcfg = moe.MoEConfig(**PAR_TINY_MOE)
+    tfull = moe.init_params(torch.Generator(device=dev).manual_seed(
+        SEED + 15), tcfg, dev)
+    ttok = torch.as_tensor(np.random.default_rng(SEED + 15).integers(
+        0, tcfg.vocab_size, (1, 129)), dtype=torch.int32, device=dev)
+    tone = run(tcfg, tfull, ttok[:, :-1], ttok, None)
+    for t in llama.param_leaves(tfull):
+        t.requires_grad_(False)
+    tep = run(tcfg, shard(tfull), ttok[:, :-1], ttok, ctx)
+    reading["f32"] = dict(
+        loss=tep["loss"], single_loss=tone["loss"],
+        loss_rel=abs(tep["loss"] - tone["loss"]) / abs(tone["loss"]),
+        routing_equal=bool(torch.equal(tep["routing"], tone["routing"])))
+    moe._route = route
+    out["ep"] = reading
+
+
+def _named_leaves(tree, name=None):
+    """(leaf name, leaf) in ``llama.param_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], k)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _named_leaves(v, name)
+    else:
+        yield name, tree
+
+
+def par_pool(torch, dev, sizes, store_port, out):
+    """(d) The device KV pool: one prompt's pages at 8B width handed from
+    rank 0 to rank 1, then the same count tiered through the store."""
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch import (ClientConfig, InfinityConnection,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.parallel import transport
+    from infinistore_tpu_torch.parallel.ici_handoff import (IciKVPool,
+                                                            make_pool_mesh)
+
+    cfg = sizes["llama"]
+    page = cfg.kv_page_shape()
+    n_pages = sizes["pool_tokens"] // cfg.page_size
+    keys = [k for li in range(cfg.n_layers) for kind in ("k", "v")
+            for k in llama.page_keys("pool", li, kind, n_pages)]
+    N = len(keys)
+    mesh = make_pool_mesh(PAR_RANKS, dev.type, "gloo")
+    group = mesh.get_group()
+    rank = dist.get_rank(group)
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    pages = torch.randn(N, *page, generator=g, device=dev).to(
+        cfg.torch_dtype)
+    nbytes = pages.numel() * pages.element_size()
+    pool = IciKVPool(mesh, page, cfg.torch_dtype, slots_per_device=N)
+    pool.put(keys, pages if rank == 0 else None, device=0)
+
+    def timed(fn):
+        dist.barrier(group)
+        par_sync(torch, dev)
+        t0 = time.perf_counter()
+        r = fn()
+        par_sync(torch, dev)
+        return r, time.perf_counter() - t0
+
+    transport.reset_counters()
+    _, hand_s = timed(lambda: pool.handoff({k: 1 for k in keys}))
+    moved = dict(transport.counters)
+    rounds = pool.rounds
+    got = pool.get(keys)
+    hand_ok = (bool(torch.equal(got, pages))
+               and pool.match_last_index(keys) == N - 1
+               and all(pool.device_of(k) == 1 for k in keys))
+    del got
+    pool.drop(keys)
+    # Tiering: the same count of pages held only in the store.
+    tkeys = [f"tier/{k}" for k in keys]
+    conn = InfinityConnection(ClientConfig(
+        host_addr="127.0.0.1", service_port=store_port,
+        connection_type=TYPE_SHM))
+    conn.connect()
+    store = tcuda.CudaKVStore(conn, dev)
+    try:
+        if rank == 0:
+            store.put_kv_pages(tkeys, pages, sync=True)
+        dist.barrier(group)
+        miss = pool.match_last_index(tkeys)
+        fetched, fetch_s = timed(
+            lambda: pool.fetch_from_store(store, tkeys, device=0))
+        _, tier_hand_s = timed(lambda: pool.handoff({k: 1 for k in tkeys}))
+        got = pool.get(tkeys)
+        tier_ok = bool(torch.equal(got, pages))
+        del got
+        # Evicting what the store holds would only free the slots (first
+        # writer wins): delete the store's copies so the eviction writes.
+        if rank == 0:
+            conn.delete_keys(tkeys)
+        dist.barrier(group)
+        evicted, evict_s = timed(lambda: pool.evict_to_store(store, tkeys))
+        back = store.get_kv_pages(tkeys, page, cfg.torch_dtype)
+        evict_ok = (bool(torch.equal(back, pages))
+                    and pool.match_last_index(tkeys) == -1
+                    and pool.free_slots(1) == N)
+        del back
+    finally:
+        store.close()
+        conn.close()
+    del pool, pages
+    par_free(torch, dev)
+    out["pool"] = dict(
+        pages=N, page_bytes=nbytes // N, bytes=nbytes,
+        handoff_s=hand_s, handoff_GBps=nbytes / hand_s / 1e9,
+        rounds=rounds, handoff_staged_bytes=moved["staged_bytes"],
+        handoff_ok=hand_ok, miss=miss, fetched=fetched, fetch_s=fetch_s,
+        fetch_GBps=nbytes / fetch_s / 1e9, tier_handoff_s=tier_hand_s,
+        tier_ok=tier_ok, evicted=evicted, evict_s=evict_s,
+        evict_GBps=nbytes / evict_s / 1e9, evict_ok=evict_ok)
+
+
+def par_rank(rank, dev, store_port, sizes):
+    """One rank of phase 11's legs (a)-(d), in a process of its own, the
+    ranks sharing the card over gloo (every transfer staged through
+    host memory). Returns the readings and launch counts the parent
+    checks."""
+    import torch
+
+    out = {"rank": rank}
+    t_rank = time.perf_counter()
+    for name, leg in (("sp", lambda: par_sp(torch, dev, sizes, out)),
+                      ("pp", lambda: par_pp(torch, dev, sizes, out)),
+                      ("ep", lambda: par_ep(torch, dev, sizes, out)),
+                      ("pool", lambda: par_pool(torch, dev, sizes,
+                                                store_port, out))):
+        t0 = time.perf_counter()
+        leg()
+        out[name]["leg_s"] = time.perf_counter() - t0
+        say(f"  [rank {rank}] {name} done "
+            f"({time.perf_counter() - t_rank:.1f} s)")
+    return out
+
+
+def par_checks(ranks, sizes, report, on_card=True):
+    """The checks of legs (a)-(d) over every rank's readings; fills
+    ``report``."""
+    n = len(ranks)
+    for r in ranks:
+        rk = r["rank"]
+        sp, pp, ep, pool = r["sp"], r["pp"], r["ep"], r["pool"]
+        check(rk == 0 or sp["err_vs_one_k1"] <= TOL_REL["bfloat16"],
+              f"rank {rk}: ring vs one K1 {sp['err_vs_one_k1']}")
+        for dt, e in sp["check_err"].items():
+            check(e <= TOL_REL[dt], f"rank {rk}: ring vs plain ({dt}) {e}")
+        check(sp["launches"] == sp["blocks_computed"],
+              f"rank {rk}: the ring launched K1 {sp['launches']} times for "
+              f"{sp['blocks_computed']} blocks")
+        check(pp["fwd_err"] <= TOL_REL["bfloat16"],
+              f"rank {rk}: pipeline output {pp['fwd_err']}")
+        check(pp["worst_leaf_rel"] <= PAR_TOL_GRAD,
+              f"rank {rk}: pipeline grads {pp['worst_leaf_rel']}")
+        runs = sizes["pp_layers"] * sizes["pp_micro"]
+        check(pp["fwd_launches"] == [runs, 0, 0],
+              f"rank {rk}: pipeline forward launches {pp['fwd_launches']}")
+        check(pp["train_launches"] == [runs] * 3,
+              f"rank {rk}: pipeline backward launches "
+              f"{pp['train_launches']}")
+        L = ep["layers"]
+        check(ep["row_err"] <= TOL_REL["bfloat16"],
+              f"rank {rk}: ep prefill rows {ep['row_err']}")
+        check(ep["loss_rel"] <= PAR_EP_LOSS, f"rank {rk}: ep loss "
+              f"{ep['loss']} vs {ep['single_loss']}")
+        check(ep["worst_leaf_rel"] <= PAR_TOL_GRAD,
+              f"rank {rk}: ep grads {ep['worst_leaf_rel']} "
+              f"({ep['worst_leaf']})")
+        check(ep["prefill_launches"] == [L, 0, 0] and
+              ep["step_launches"] == [L] * 3,
+              f"rank {rk}: ep launches {ep['prefill_launches']} "
+              f"{ep['step_launches']}")
+        check(ep["f32"]["loss_rel"] <= PAR_EP_LOSS_F32
+              and ep["f32"]["routing_equal"],
+              f"rank {rk}: tiny f32 ep {ep['f32']}")
+        check(pool["handoff_ok"] and pool["rounds"] == 1,
+              f"rank {rk}: pool handoff (rounds {pool['rounds']})")
+        check(pool["miss"] == -1 and pool["fetched"] == pool["pages"]
+              and pool["tier_ok"] and pool["evicted"] == pool["pages"]
+              and pool["evict_ok"], f"rank {rk}: pool tiering {pool}")
+    lead = ranks[0]
+    report.update(
+        ranks=n, transport="gloo, staged through pinned host memory "
+        "(two ranks time-sharing one card: not a multi-GPU reading)",
+        **{leg: [r[leg] for r in ranks] for leg in ("sp", "pp", "ep",
+                                                     "pool")})
+    # Per rank, the launches of K1, K5 and K6 on this phase's path: the
+    # ring, the pipeline's forward and training pass, the ep prefill and
+    # step.
+    report["launches"] = [
+        [r["sp"]["launches"] + r["pp"]["fwd_launches"][0]
+         + r["pp"]["train_launches"][0] + r["ep"]["prefill_launches"][0]
+         + r["ep"]["step_launches"][0],
+         r["pp"]["train_launches"][1] + r["ep"]["step_launches"][1],
+         r["pp"]["train_launches"][2] + r["ep"]["step_launches"][2]]
+        for r in ranks]
+    sp, pp, ep, pool = lead["sp"], lead["pp"], lead["ep"], lead["pool"]
+    say(f"(a) sp = {n}: {sp['tokens']} tokens, blocks of {sp['block']}: "
+        f"ring {[round(x, 2) for x in sp['ring_ms']]} ms (rank 0), "
+        f"one K1 over the whole {sp['one_k1_ms']:.3f} ms, K1 per block "
+        f"{sp['k1_block_ms']:.3f} ms, {sp['rotated_bytes_per_step']} B "
+        f"rotated a step in {[round(x, 2) for x in sp['rotation_ms']]} ms; "
+        f"vs one K1 (rank {n - 1}, {n} blocks merged) "
+        f"{ranks[-1]['sp']['err_vs_one_k1']:.2e}, vs plain at "
+        f"{sp['check_tokens']} {sp['check_err']}")
+    say(f"(b) pp = {n} x {pp['layers_per_stage']} layers, {pp['micro']} "
+        f"microbatches of {pp['tokens']}: forward {pp['fwd_ms']:.1f} ms, "
+        f"forward + backward {pp['fwd_train_bwd_ms']:.1f} ms, bubble "
+        f"{pp['bubble']:.2f}, hop {pp['hop_bytes']} B in "
+        f"{[round(x, 2) for x in pp['hop_ms']]} ms; byte-equal "
+        f"{pp['byte_equal']} (rel {pp['fwd_err']:.2e}), worst leaf grad "
+        f"{pp['worst_leaf_rel']:.2e}")
+    say(f"(c) ep = {n}, {ep['layers']} Mixtral layers: prefill "
+        f"{ep['prefill_ms']:.1f} ms (one process {ep['single_prefill_ms']:.1f}"
+        f"), rows {ep['row_err']:.2e}, routing agreement "
+        f"{ep['routing_agreement']:.4f}, loss {ep['loss']:.5f} vs "
+        f"{ep['single_loss']:.5f}, worst leaf grad "
+        f"{ep['worst_leaf_rel']:.2e}, combine all-reduce "
+        f"{[round(x, 2) for x in ep['combine_allreduce_ms']]} ms, "
+        f"{ep['expert_bytes'] / 2**30:.2f} GiB of experts a rank; "
+        f"f32 {ep['f32']}")
+    say(f"(d) pool: {pool['pages']} pages ({pool['bytes'] / 2**20:.0f} "
+        f"MiB): handoff {pool['handoff_GBps']:.2f} GB/s in "
+        f"{pool['rounds']} round, fetch {pool['fetch_GBps']:.2f} GB/s, "
+        f"evict {pool['evict_GBps']:.2f} GB/s, all byte-equal")
+
+
+def phase_parallel(torch, np, report):
+    """Phase 11 (see the module docstring)."""
+    from infinistore_tpu_torch import (InfiniStoreServer, ServerConfig,
+                                       graft_entry)
+    from infinistore_tpu_torch.models import llama
+    from infinistore_tpu_torch.parallel.launch import run_ranks
+
+    say("== phase 11: the parallel set (sp, pp, ep, the device KV pool, "
+        "the dry run) ==")
+    cfg = llama.LLAMA31_8B
+    sizes = dict(PAR_SIZES, llama=cfg,
+                 mixtral=dict(MIXTRAL_8X7B,
+                              num_hidden_layers=PAR_SIZES["ep_layers"]))
+    srv = start_store(InfiniStoreServer, ServerConfig, cfg,
+                      2 * PAR_SIZES["pool_tokens"])
+    try:
+        say(f"(a)-(d): {PAR_RANKS} ranks in processes of their own, "
+            f"time-sharing the one card over gloo")
+        t0 = time.perf_counter()
+        ranks = run_ranks(par_rank, PAR_RANKS, (srv.service_port, sizes),
+                          device="cuda", backend="gloo", timeout=900)
+        say(f"ranks done in {time.perf_counter() - t0:.1f} s")
+    finally:
+        srv.stop()
+    par_checks(ranks, sizes, report)
+    say("(e) the dry run on the card:")
+    t0 = time.perf_counter()
+    r = graft_entry.dryrun_multichip(PAR_RANKS, "cuda", "gloo")
+    report["dryrun"] = dict(line=r["line"], s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+
 def main():
     try:
         import torch
@@ -4268,6 +4902,8 @@ def main():
         tp_report = {}
         timed("tensor parallel", phase_tp, torch, np, pd, pq, gen,
               tp_report)
+        par_report = {}
+        timed("parallel set", phase_parallel, torch, np, par_report)
     except SmokeError as e:
         say(f"FAIL: {e}")
         return 1
@@ -4322,8 +4958,14 @@ def main():
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"]})
+    par_counts = dict(zip(("flash_prefill", "flash_bwd_dq",
+                           "flash_bwd_dkv"),
+                          zip(*par_report["launches"])))
     for row in kernels:
         row["tp_launches"] = tp_report["tp_launches"][row["name"]]
+        # Per rank, on phase 11's path (K2-K4 are not on it).
+        row["parallel_launches"] = list(par_counts.get(
+            row["name"], [0] * PAR_RANKS))
     main_path = {k: v for k, v in report.items()
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))
@@ -4333,6 +4975,7 @@ def main():
     say("moe: " + json.dumps(moe_report))
     say("training: " + json.dumps(train_report))
     say("tensor parallel: " + json.dumps(tp_report))
+    say("parallel set: " + json.dumps(par_report))
     say("backward at the training shape: " + json.dumps(
         {dt: ({"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}
               if dt != "sdpa_rounds" else r) for dt, r in bwd.items()}))

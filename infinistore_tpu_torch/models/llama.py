@@ -412,21 +412,34 @@ def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
                  + torch.arange(s, device=tokens.device))[None].expand(b, s)
     kvs = []
     for li, layer in enumerate(_layers(params, tp)):
-        q, k, v = _qkv(layer, x, cfg, positions, tp)
-        if prefix_kvs is None:
-            k_full, v_full = k, v
-        else:
-            pk, pv = prefix_kvs[li]
-            k_full = torch.cat([pk.to(k.dtype), k], dim=1)
-            v_full = torch.cat([pv.to(v.dtype), v], dim=1)
-        attn = flash_prefill(q.contiguous(), k_full.contiguous(),
-                             v_full.contiguous(), causal=True,
-                             window=cfg.window)
-        x = x + _attn_out(layer, attn.reshape(b, s, -1), tp)
-        x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
-        kvs.append((k, v))
+        x, kv = decoder_layer(layer, x, cfg, positions,
+                              None if prefix_kvs is None else prefix_kvs[li],
+                              ffn, tp)
+        kvs.append(kv)
     x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x, tp), kvs
+
+
+def decoder_layer(layer, x, cfg: LlamaConfig, positions, prefix_kv=None,
+                  ffn=None, tp=None):
+    """One layer of the dense decoder stack: x [batch, s, d_model] at rope
+    ``positions`` [batch, s] -> (x after the layer, its (k, v)). With
+    ``prefix_kv`` ((k, v) [batch, P, n_kv, hd], post-RoPE) attention
+    covers prefix + suffix; ``ffn`` and ``tp`` as :func:`_forward_stack`
+    takes them. The pipeline's stages run layers through it."""
+    b, s = x.shape[:2]
+    q, k, v = _qkv(layer, x, cfg, positions, tp)
+    if prefix_kv is None:
+        k_full, v_full = k, v
+    else:
+        pk, pv = prefix_kv
+        k_full = torch.cat([pk.to(k.dtype), k], dim=1)
+        v_full = torch.cat([pv.to(v.dtype), v], dim=1)
+    attn = flash_prefill(q.contiguous(), k_full.contiguous(),
+                         v_full.contiguous(), causal=True, window=cfg.window)
+    x = x + _attn_out(layer, attn.reshape(b, s, -1), tp)
+    x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
+    return x, (k, v)
 
 
 def forward_dense(params, cfg: LlamaConfig, tokens, tp=None):

@@ -31,9 +31,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import Replicate, Shard
 
 from .._device import disable_tf32, resolve_device
+from ..parallel import mesh as _pmesh
 from . import llama as _llama
 from .llama import rms_norm
 
@@ -133,7 +136,7 @@ class Routing(NamedTuple):
     aux: torch.Tensor       # float32 scalar: the Switch load-balance loss
 
 
-def _route(layer, h, cfg: MoEConfig, valid=None, choice=None):
+def _route(layer, h, cfg: MoEConfig, valid=None, choice=None, ep=None):
     """Top-k routing of h [T, d] -> :class:`Routing`.
 
     ``valid`` ([T] bool or None) takes tokens out of routing before the
@@ -147,11 +150,18 @@ def _route(layer, h, cfg: MoEConfig, valid=None, choice=None):
     the full prefill). TF32 stays off: it would round the weights.
     ``choice`` ([T, k] int64 or None) names the experts to take instead
     of the router's top-k, their gates still the router's probabilities
-    renormalised: a recorded routing replayed on other numerics."""
+    renormalised: a recorded routing replayed on other numerics.
+
+    Under ``ep`` (an :class:`ExpertParallel`) with dp > 1, h is this dp
+    rank's rows and the routing is the whole batch's, as under ``jit``
+    over dp-sharded tokens: capacity from every rank's tokens, slots
+    after the lower dp ranks' tokens (rows are dp-sharded in order), the
+    aux loss from the whole batch's shares and mean probabilities."""
     disable_tf32()
     T = h.shape[0]
     E = cfg.n_experts
-    C = cfg.capacity(T)
+    T_all = T if ep is None else ep.dp_sum_int(T)
+    C = cfg.capacity(T_all)
     logits = (h.double() @ layer["router"].double()).float()
     probs = torch.softmax(logits, dim=-1)  # [T, E]
     if choice is None:
@@ -168,47 +178,69 @@ def _route(layer, h, cfg: MoEConfig, valid=None, choice=None):
     # Earlier tokens win slots: position of t in e's list (float32 counts
     # are exact far past any T a pass routes).
     pos = torch.cumsum(chosen, dim=0) - chosen
+    # Switch loss: E * sum_e (share of tokens choosing e) * (mean router
+    # probability of e); the share counts valid tokens, the mean all.
+    if T_all == T:
+        aux = E * torch.sum(chosen.mean(dim=0) * probs.mean(dim=0))
+    else:
+        counts = chosen.sum(dim=0)
+        pos = pos + ep.dp_lower_sum(counts)
+        aux = E * torch.sum((ep.dp_sum(counts) / T_all)
+                            * (ep.dp_sum(probs.sum(dim=0), grad=True) / T_all))
     slot = pos.gather(1, top_idx).long()
     selected = chosen.gather(1, top_idx) > 0
     kept = selected & (slot < C)
-    # Switch loss: E * sum_e (share of tokens choosing e) * (mean router
-    # probability of e); the share counts valid tokens, the mean all.
-    aux = E * torch.sum(chosen.mean(dim=0) * probs.mean(dim=0))
     return Routing(top_idx, slot, top_w, selected, kept, C, aux)
 
 
-def _moe_mlp(layer, x, cfg: MoEConfig, valid=None):
+def _moe_mlp(layer, x, cfg: MoEConfig, valid=None, ep=None):
     """[B, S, d] -> ([B, S, d], aux) through the routed expert FFN.
-    ``valid`` ([B, S] bool or None) masks tokens out of routing."""
+    ``valid`` ([B, S] bool or None) masks tokens out of routing. Under
+    ``ep`` the expert leaves hold this rank's experts: every ep rank
+    routes all its tokens (the router is replicated), computes only the
+    pairs routed to its experts (the others add zero), and the float32
+    sums of the gated picks are all-reduced over ep and rounded once, so
+    a token's picks a + b sum as on one device."""
     b, s, d = x.shape
     h = rms_norm(x, layer["ln2"], cfg.norm_eps,
                  cfg.norm_plus_one).reshape(b * s, d)
-    r = _route(layer, h, cfg, None if valid is None else valid.reshape(-1))
+    r = _route(layer, h, cfg, None if valid is None else valid.reshape(-1),
+               ep=ep)
     k = cfg.top_k
-    n_slots = cfg.n_experts * r.capacity
-    # Each kept pair's row in the [E * C] slot grid; dropped pairs aim at
-    # a spare row past it, which is cut off before the experts run.
-    flat = torch.where(r.kept, r.expert * r.capacity + r.slot, n_slots)
-    xe = h.new_zeros(n_slots + 1, d).index_put(
-        (flat.reshape(-1),), h.repeat_interleave(k, dim=0))
-    xe = xe[:n_slots].view(cfg.n_experts, r.capacity, d)
+    n_local = layer["e_gate"].shape[0]
+    lo = 0 if ep is None else ep.ep_rank * n_local
+    mine = r.kept & (r.expert >= lo) & (r.expert < lo + n_local)
+    n_slots = n_local * r.capacity
+    # Each kept pair's row in this rank's [E_local * C] slot grid; pairs
+    # dropped or on another rank's experts aim at a spare row past it,
+    # which is cut off before the experts run.
+    flat = torch.where(mine, (r.expert - lo) * r.capacity + r.slot, n_slots)
+    hx = h if ep is None else ep.enter(h)
+    xe = hx.new_zeros(n_slots + 1, d).index_put(
+        (flat.reshape(-1),), hx.repeat_interleave(k, dim=0))
+    xe = xe[:n_slots].view(n_local, r.capacity, d)
     a = F.silu(torch.bmm(xe, layer["e_gate"])) * torch.bmm(xe,
                                                            layer["e_up"])
     oe = torch.bmm(a, layer["e_down"]).reshape(n_slots, d)
     # The combine weights, rounded to the model dtype as the JAX package
     # rounds its combine tensor, then summed over the kept experts in
-    # float32 and rounded once.
-    gate = torch.where(r.kept, r.gate, 0.0).to(oe.dtype)
+    # float32 and rounded once. Under ep a rank weighs only its own
+    # pairs, so the gates' gradient is summed over ep on the way back to
+    # the replicated router.
+    gate = torch.where(mine, r.gate if ep is None else ep.enter(r.gate),
+                       0.0).to(oe.dtype)
     picked = oe[flat.clamp(max=n_slots - 1)]  # [T, k, d]
     out = (picked.float() * gate.float()[..., None]).sum(dim=1)
+    if ep is not None:
+        out = ep.reduce(out)
     return out.to(oe.dtype).reshape(b, s, d), r.aux
 
 
-def _routed_ffn(cfg, valid=None, auxes=None):
+def _routed_ffn(cfg, valid=None, auxes=None, ep=None):
     """llama's ``ffn`` hook for this family: the routed FFN, its aux
     loss appended to ``auxes`` when given."""
     def ffn(layer, x):
-        out, aux = _moe_mlp(layer, x, cfg, valid)
+        out, aux = _moe_mlp(layer, x, cfg, valid, ep)
         if auxes is not None:
             auxes.append(aux)
         return out
@@ -216,28 +248,32 @@ def _routed_ffn(cfg, valid=None, auxes=None):
 
 
 def _forward_stack(params, cfg: MoEConfig, tokens, prefix_kvs=None,
-                   pos0=0):
+                   pos0=0, ep=None):
     """llama's decoder-stack loop with the routed FFN: (logits, per-layer
-    (k, v), total aux loss, float32)."""
+    (k, v), total aux loss, float32). Under ``ep`` ``params`` is this
+    rank's shard (:func:`shard_params`), computed on as its local
+    tensors, and ``tokens`` this rank's dp rows."""
     auxes = []
+    if ep is not None:
+        params = _pmesh.tree_map(lambda _, t: ep.local(t), params)
     logits, kvs = _llama._forward_stack(params, cfg, tokens, prefix_kvs,
-                                        pos0, ffn=_routed_ffn(cfg,
-                                                              auxes=auxes))
+                                        pos0, ffn=_routed_ffn(
+                                            cfg, auxes=auxes, ep=ep))
     aux_total = torch.zeros((), dtype=torch.float32, device=logits.device)
     for aux in auxes:
         aux_total = aux_total + aux
     return logits, kvs, aux_total
 
 
-def forward_dense(params, cfg: MoEConfig, tokens):
+def forward_dense(params, cfg: MoEConfig, tokens, ep=None):
     """Dense causal forward. tokens [B, S] -> (logits [B, S, V] float32,
     per-layer (k, v), total aux loss). Differentiable when the leaves
-    require grad."""
-    return _forward_stack(params, cfg, tokens)
+    require grad. ``ep`` as :func:`_forward_stack` takes it."""
+    return _forward_stack(params, cfg, tokens, ep=ep)
 
 
-def prefill(params, cfg: MoEConfig, tokens):
-    logits, kvs, _ = forward_dense(params, cfg, tokens)
+def prefill(params, cfg: MoEConfig, tokens, ep=None):
+    logits, kvs, _ = forward_dense(params, cfg, tokens, ep)
     return logits, kvs
 
 
@@ -279,23 +315,125 @@ def verify_step(params, cfg: MoEConfig, tokens, seq_lens, k_pages,
                               ffn=_routed_ffn(cfg, ok))
 
 
-def loss_fn(params, cfg: MoEConfig, tokens):
+def loss_fn(params, cfg: MoEConfig, tokens, ep=None):
     """Next-token NLL of tokens [batch, seq + 1] plus aux_loss_weight x
-    the summed aux loss."""
-    logits, _, aux = forward_dense(params, cfg, tokens[:, :-1])
+    the summed aux loss (under ``ep``: this rank's rows' NLL, the whole
+    batch's aux loss)."""
+    logits, _, aux = forward_dense(params, cfg, tokens[:, :-1], ep)
     return (_llama.token_nll(logits, tokens[:, 1:])
             + cfg.aux_loss_weight * aux)
 
 
-def train_step(params, optimizer, cfg: MoEConfig, tokens):
+def train_step(params, optimizer, cfg: MoEConfig, tokens, ep=None):
     """The shared optimizer step (``llama.train_step``; optimizer from
     ``llama.adamw``) with this family's loss. Leaves update in place;
-    returns the loss before the step."""
-    return _llama.train_step(params, optimizer, cfg, tokens, loss=loss_fn)
+    returns the loss before the step.
+
+    Under ``ep`` (``params`` from :func:`shard_params`, ``tokens`` this
+    rank's dp rows) the step follows the whole batch's loss, as
+    ``llama.train_step`` under dp: each rank differentiates its loss
+    over dp, the grads are summed over dp, and the mean loss is
+    returned. The aux loss, the same on every rank, is counted once."""
+    return _llama.train_step(
+        params, optimizer, cfg, tokens, tp=ep,
+        loss=lambda p, c, t, tp=None: loss_fn(p, c, t, ep=tp))
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism
+# ---------------------------------------------------------------------------
+
+EP_AXES = ("dp", "ep")
+_REP = (Replicate(), Replicate())
+_EP_RULES = {
+    # Expert-stacked leaves shard over ep on the E axis; the router and
+    # everything else stay replicated (every token routes everywhere).
+    "e_gate": (Replicate(), Shard(0)),
+    "e_up": (Replicate(), Shard(0)),
+    "e_down": (Replicate(), Shard(0)),
+}
+
+
+def make_ep_mesh(dp, ep, device="cuda", backend=None):
+    """The (dp, ep) DeviceMesh over the dp * ep ranks that joined with
+    ``parallel.mesh.init_process_group``: data parallel outer, experts
+    inner; the card unless ``device="cpu"``."""
+    return _pmesh.device_mesh((dp, ep), EP_AXES, device, backend)
+
+
+def param_shardings(mesh, params):
+    """Placements per leaf (dp, ep): the experts' E axis over ep,
+    everything else replicated (the JAX package's ``_EP_RULES``)."""
+    return _pmesh.tree_map(lambda name, leaf: _EP_RULES.get(name, _REP),
+                           params)
+
+
+def shard_params(mesh, params):
+    """The whole tree (the same on every rank) -> this rank's DTensors
+    under :func:`param_shardings` (no communication)."""
+    return _pmesh.shard_params(mesh, params, param_shardings(mesh, params))
+
+
+class _SumBoth(torch.autograd.Function):
+    """All-reduce forward and backward: a term of the loss that every rank
+    computes whole from its rows' part (the aux loss's mean
+    probabilities), so each rank's gradient of it is summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class ExpertParallel(_pmesh.TensorParallel):
+    """The collectives of the routed FFN on a (dp, ep) mesh from
+    :func:`make_ep_mesh`, for this rank: ``TensorParallel``'s over ep in
+    tp's place. The experts' input and the gates enter through the
+    Megatron pair's identity (all-reduce of the gradient over ep: each
+    rank's experts and pairs give part of it), the float32 combine is
+    all-reduced over ep (identity backward), the grads are summed over
+    dp (every leaf is replicated over dp), and the routing's counts are
+    summed over dp."""
+
+    axes = EP_AXES
+
+    def __init__(self, mesh):
+        super().__init__(mesh)
+        self.ep, self.ep_group, self.ep_rank = (self.tp, self.tp_group,
+                                                self.tp_rank)
+
+    def dp_sum(self, x, grad=False):
+        if grad:
+            return _SumBoth.apply(x, self.dp_group)
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.dp_group)
+        return x
+
+    def dp_sum_int(self, n):
+        if self.dp == 1:
+            return n
+        t = torch.tensor([n], dtype=torch.int64, device=self.mesh.device_type)
+        dist.all_reduce(t, group=self.dp_group)
+        return int(t.item())
+
+    def dp_lower_sum(self, x):
+        """The sum of ``x`` over the dp ranks below this one."""
+        parts = [torch.empty_like(x) for _ in range(self.dp)]
+        dist.all_gather(parts, x.detach().contiguous(), group=self.dp_group)
+        return sum(parts[:self.dp_rank], torch.zeros_like(x))
 
 
 __all__ = [
     "MoEConfig", "init_params", "forward_dense", "prefill",
     "prefill_with_prefix", "decode_step", "verify_step", "loss_fn",
-    "train_step",
+    "train_step", "make_ep_mesh", "param_shardings", "shard_params",
+    "ExpertParallel",
 ]

@@ -89,21 +89,36 @@ def make_mesh(config: MeshConfig = None, device="cuda", backend=None):
     config, all ranks are tp. The ranks must have joined with
     :func:`init_process_group` over the backend this device takes: gloo
     on the CPU, NCCL on the card unless ``backend="gloo"`` is asked."""
+    if config is None:
+        config = MeshConfig(dp=1, tp=_world())
+    return device_mesh((config.dp, config.tp), AXES, device, backend)
+
+
+def _world():
     if not dist.is_initialized():
         raise RuntimeError("join the ranks first: init_process_group")
-    world = dist.get_world_size()
-    if config is None:
-        config = MeshConfig(dp=1, tp=world)
-    if config.n_devices != world:
-        raise ValueError(f"mesh {config.dp}x{config.tp} needs "
-                         f"{config.n_devices} ranks, got {world}")
+    return dist.get_world_size()
+
+
+def device_mesh(dims, names, device="cuda", backend=None):
+    """A DeviceMesh of shape ``dims`` with dim names ``names`` over every
+    rank (first dim outermost): the mesh behind :func:`make_mesh` and the
+    sp, pp, ep and pool meshes. The ranks must have joined over the
+    backend this device takes (as :func:`make_mesh` says)."""
+    world = _world()
+    n = 1
+    for d in dims:
+        n *= d
+    if n != world:
+        raise ValueError(f"mesh {'x'.join(map(str, dims))} needs {n} ranks, "
+                         f"got {world}")
     device = resolve_device(device)
     want = "gloo" if device.type == "cpu" else (backend or "nccl")
     if dist.get_backend() != want:
         raise ValueError(f"the ranks joined over {dist.get_backend()}; a "
                          f"{device.type} mesh here takes {want}")
-    return init_device_mesh(device.type, (config.dp, config.tp),
-                            mesh_dim_names=AXES)
+    return init_device_mesh(device.type, tuple(dims),
+                            mesh_dim_names=tuple(names))
 
 
 _REP = (Replicate(), Replicate())
@@ -339,15 +354,20 @@ class _Gather(torch.autograd.Function):
 class TensorParallel:
     """The collectives a model needs on a (dp, tp) mesh from
     :func:`make_mesh`, for this rank. ``models/llama.py`` takes one as
-    its ``tp`` argument; ``None`` there is the single-device path."""
+    its ``tp`` argument; ``None`` there is the single-device path.
+    ``axes`` names the mesh's dims: a subclass renames the inner one
+    (``models/moe.ExpertParallel``: ep), whose group the ``tp``
+    attributes then hold."""
+
+    axes = AXES
 
     def __init__(self, mesh):
-        if tuple(mesh.mesh_dim_names or ()) != AXES:
-            raise ValueError(f"need a mesh with dims {AXES}")
+        if tuple(mesh.mesh_dim_names or ()) != self.axes:
+            raise ValueError(f"need a mesh with dims {self.axes}")
         self.mesh = mesh
-        self.tp_group = mesh.get_group("tp")
+        self.tp_group = mesh.get_group(self.axes[1])
         self.tp = mesh.size(1)
-        self.tp_rank = mesh.get_local_rank("tp")
+        self.tp_rank = mesh.get_local_rank(self.axes[1])
         self.dp_group = mesh.get_group("dp")
         self.dp = mesh.size(0)
         self.dp_rank = mesh.get_local_rank("dp")

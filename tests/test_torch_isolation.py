@@ -26,7 +26,9 @@ def test_port_imports_and_runs_with_jax_blocked():
     (the HF bridge takes a config namespace and a state dict). The store
     surface (sharded client, warmup, benchmark, profiling, example
     clients) imports too, and routes a key as the static hash says; so do
-    the parallel modules, and graft_entry's decode step runs."""
+    the parallel modules (mesh, launch, transport, ring attention, the
+    pipeline, expert parallelism, the pool), checkpoints and the relay,
+    and graft_entry's decode step runs."""
     script = textwrap.dedent(f"""
         import importlib.abc, sys, types
         BLOCKED = {BLOCKED_WITH_HF!r}
@@ -109,6 +111,20 @@ def test_port_imports_and_runs_with_jax_blocked():
         fn, args = graft_entry.entry("cpu")
         assert fn(*args).shape == (2, 256)
         assert mesh.param_sharding_rules()["wo"][1].dim == 0
+        from infinistore_tpu_torch.ops import ring_attention
+        from infinistore_tpu_torch.parallel import (ici_handoff, pipeline,
+                                                    transport)
+        from infinistore_tpu_torch.utils import checkpoint, netshaper
+        assert pipeline.n_ticks(4, 8) == 11
+        assert moe.param_shardings(None, mp)["layers"][0]["e_up"][1].dim == 0
+        out, lse = ring_attention._block(
+            torch.randn(1, 4, 2, 8), torch.randn(1, 4, 1, 8),
+            torch.randn(1, 4, 1, 8), True)
+        assert out.shape == (1, 4, 2, 8) and lse.shape == (1, 2, 4)
+        assert checkpoint.latest_step("/nonexistent") is None
+        relay = netshaper.ShapingRelay(1, rtt_ms=1.0)
+        relay.start()
+        relay.stop()
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
         print("ISOLATED_OK")
@@ -139,7 +155,10 @@ def test_no_source_imports_jax_or_the_jax_package():
                 "sharded.py", "warmup.py", "benchmark.py",
                 "utils/profiling.py", "example/client.py",
                 "example/client_async.py", "parallel/__init__.py",
-                "parallel/mesh.py", "parallel/launch.py", "graft_entry.py"):
+                "parallel/mesh.py", "parallel/launch.py", "graft_entry.py",
+                "parallel/transport.py", "parallel/pipeline.py",
+                "parallel/ici_handoff.py", "ops/ring_attention.py",
+                "utils/checkpoint.py", "utils/netshaper.py"):
         assert os.path.join(PKG, mod) in paths, mod
     for path in paths:
         with open(path) as f:
@@ -189,6 +208,37 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
         graft_entry.entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         mesh.init_process_group(0, 1, 1)
+
+
+def test_parallel_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """The sp, pp, ep and pool meshes and a checkpoint restored without a
+    template default to the card: without one they raise, on a joined
+    one-rank CPU group, rather than fall back to the CPU."""
+    from infinistore_tpu_torch.models import llama, moe
+    from infinistore_tpu_torch.ops.ring_attention import make_sp_mesh
+    from infinistore_tpu_torch.parallel import mesh
+    from infinistore_tpu_torch.parallel.ici_handoff import make_pool_mesh
+    from infinistore_tpu_torch.parallel.launch import free_port
+    from infinistore_tpu_torch.parallel.pipeline import make_pp_mesh
+    from infinistore_tpu_torch.utils import (restore_train_state,
+                                             save_train_state)
+
+    cfg = llama.LlamaConfig(vocab_size=16, d_model=8, n_layers=1,
+                            n_heads=1, n_kv_heads=1, d_ff=8,
+                            dtype="float32")
+    p = llama.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    save_train_state(tmp_path, 1, p, llama.adamw(p, 1e-3))
+    mesh.init_process_group(0, 1, free_port(), device="cpu")
+    try:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        for make in (make_sp_mesh, make_pp_mesh, make_pool_mesh,
+                     lambda: moe.make_ep_mesh(1, 1)):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                make()
+        with pytest.raises(RuntimeError, match="CUDA"):
+            restore_train_state(tmp_path)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def test_int8_kernel_wrapper_refuses_cpu_tensors():

@@ -1,0 +1,268 @@
+"""STREAM flow control at a real bandwidth-delay product, on the port:
+the cases of ``tests/test_stream_shaped.py`` through the port's client,
+server and ``utils/netshaper.ShapingRelay`` (its copy of the JAX
+package's relay).
+
+The reference exercises its remote path against real verbs hardware
+(reference: infinistore/test_infinistore.py:65-70 — RDMA loopback on an
+mlx5 NIC), which is what validates its flow-control constants
+(reference: src/protocol.h:23-34). This host has no real network, so the
+ShapingRelay injects RTT + a bandwidth cap in userspace and these tests
+prove the client's byte-window pipeline (native/src/client.cc,
+DEFAULT_WINDOW_BYTES) actually fills the link instead of degenerating to
+stop-and-wait — plus correctness through a shaped (reordering-free,
+delaying) middlebox.
+"""
+
+import time
+
+import numpy as np
+import pytest
+
+from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                   InfinityConnection, ServerConfig)
+from infinistore_tpu_torch.utils.netshaper import ShapingRelay
+
+
+@pytest.fixture(scope="module")
+def server():
+    """A port server (the JAX package's ``server`` fixture starts the JAX
+    package's)."""
+    srv = InfiniStoreServer(ServerConfig(
+        service_port=0, prealloc_size=0.125, minimal_allocate_size=16))
+    srv.start()
+    yield srv
+    srv.stop()
+
+
+def _shaped_conn(server, rtt_ms, bps):
+    relay = ShapingRelay(
+        server.service_port, rtt_ms=rtt_ms, bandwidth_bps=bps
+    )
+    relay.start()
+    conn = InfinityConnection(
+        ClientConfig(
+            host_addr="127.0.0.1",
+            service_port=relay.port,
+            connection_type="STREAM",
+        )
+    )
+    conn.connect()
+    return relay, conn
+
+
+def test_shaped_roundtrip_correct(server, rng):
+    """Bytes survive a 10 ms RTT link bit-exactly (delay only, no cap)."""
+    relay, conn = _shaped_conn(server, rtt_ms=10.0, bps=None)
+    try:
+        block = 32 << 10
+        n = 16
+        src = rng.integers(0, 255, n * block, dtype=np.uint8)
+        keys = [f"shp_rt_{i}" for i in range(n)]
+        offs = [i * block for i in range(n)]
+        blocks = conn.allocate(keys, block)
+        conn.write_cache(src, offs, block, blocks)
+        conn.sync()
+        dst = np.zeros_like(src)
+        conn.read_cache(dst, list(zip(keys, offs)), block)
+        conn.sync()
+        assert np.array_equal(src, dst)
+    finally:
+        conn.close()
+        relay.stop()
+
+
+def test_shaped_pipeline_fills_link(server, rng):
+    """At 10 ms RTT / 128 MiB/s the windowed pipeline must sustain a
+    large fraction of the cap. Stop-and-wait on 64 KiB blocks would get
+    64 KiB / 10 ms = 6.4 MiB/s (frac 0.05); the 64 MiB inflight window
+    covers the 1.25 MiB BDP ~50x over, so >=0.5 is a loose floor that
+    still separates pipelined from serialized by an order of magnitude
+    (bench.py's stream_rtt leg publishes the tight number, ~0.9)."""
+    bps = 128 * (1 << 20)
+    relay, conn = _shaped_conn(server, rtt_ms=10.0, bps=bps)
+    try:
+        block = 64 << 10
+        n = 128  # 8 MiB payload: >= 60 ms on the shaped link per phase
+        total = n * block
+        src = rng.integers(0, 255, total, dtype=np.uint8)
+        best_put = best_get = None
+        for it in range(2):  # second pass excludes warmup effects
+            keys = [f"shp_bw{it}_{i}" for i in range(n)]
+            offs = [i * block for i in range(n)]
+            t0 = time.perf_counter()
+            blocks = conn.allocate(keys, block)
+            conn.write_cache(src, offs, block, blocks)
+            conn.sync()
+            t_put = time.perf_counter() - t0
+            dst = np.zeros_like(src)
+            t0 = time.perf_counter()
+            conn.read_cache(dst, list(zip(keys, offs)), block)
+            conn.sync()
+            t_get = time.perf_counter() - t0
+            assert np.array_equal(src, dst)
+            best_put = t_put if best_put is None else min(best_put, t_put)
+            best_get = t_get if best_get is None else min(best_get, t_get)
+        put_frac = total / best_put / bps
+        get_frac = total / best_get / bps
+        assert put_frac >= 0.5, f"put pipeline collapsed: {put_frac:.2f}"
+        assert get_frac >= 0.5, f"get pipeline collapsed: {get_frac:.2f}"
+    finally:
+        conn.close()
+        relay.stop()
+
+
+def test_shaped_small_ops_pay_rtt_not_serialize(server, rng):
+    """200 batched 4 KiB reads over a 10 ms RTT link must complete in a
+    handful of RTTs (batched request, streamed response), not 200 RTTs
+    (2 s) — the batching analogue of the window test."""
+    relay, conn = _shaped_conn(server, rtt_ms=10.0, bps=None)
+    try:
+        block = 4 << 10
+        n = 200
+        src = rng.integers(0, 255, n * block, dtype=np.uint8)
+        keys = [f"shp_sm_{i}" for i in range(n)]
+        offs = [i * block for i in range(n)]
+        blocks = conn.allocate(keys, block)
+        conn.write_cache(src, offs, block, blocks)
+        conn.sync()
+        dst = np.zeros_like(src)
+        t0 = time.perf_counter()
+        conn.read_cache(dst, list(zip(keys, offs)), block)
+        conn.sync()
+        elapsed = time.perf_counter() - t0
+        assert np.array_equal(src, dst)
+        assert elapsed < 1.0, (
+            f"batched read serialized per-op over RTT: {elapsed:.2f}s"
+        )
+    finally:
+        conn.close()
+        relay.stop()
+
+
+def _echo_server():
+    """Plain TCP echo upstream for relay-calibration tests."""
+    import socket
+    import threading
+
+    ls = socket.socket()
+    ls.bind(("127.0.0.1", 0))
+    ls.listen(1)
+
+    def serve():
+        try:
+            c, _ = ls.accept()
+        except OSError:
+            return
+        while True:
+            try:
+                d = c.recv(65536)
+            except OSError:
+                break
+            if not d:
+                break
+            c.sendall(d)
+        c.close()
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+    return ls, ls.getsockname()[1]
+
+
+def test_relay_enforces_bandwidth_cap():
+    """The relay's pacer must actually hold the cap — if it under-shapes,
+    every stream_rtt_* fraction in the bench flatters the client.
+
+    A measured rate within [0.75, 1.25] of the cap is not demanded: on a
+    loaded CI box wall-clock stretches push the measured rate below
+    0.75x, a scheduling artifact, not an under-shaping bug. The real
+    regression this test exists to catch is one-sided: the pacer
+    letting bytes through FASTER than the cap. So the upper bound
+    stays tight (rate <= 1.25x cap), and the lower side asserts on the
+    paced-vs-unpaced RATIO instead of wall-clock: the same transfer
+    through an unshaped relay must be measurably faster than the
+    shaped one (>= 2x), proving the pacer actually bit."""
+    import socket
+    import time as _t
+
+    def echo_through(relay_port, total):
+        payload = bytes(64 << 10)
+        c = socket.create_connection(("127.0.0.1", relay_port))
+        c.settimeout(30)
+        got = bytearray()
+        t0 = _t.perf_counter()
+        sent = 0
+        # Each direction is paced independently and the two pipeline,
+        # so the echo round trip sustains ~cap end-to-end once the pipe
+        # fills (it is NOT cap/2).
+        while sent < total:
+            c.sendall(payload)
+            sent += len(payload)
+        c.shutdown(socket.SHUT_WR)
+        while len(got) < total:
+            d = c.recv(65536)
+            if not d:
+                break
+            got += d
+        dt = _t.perf_counter() - t0
+        c.close()
+        assert len(got) == total
+        return dt
+
+    cap = 64 * (1 << 20)
+    total = 8 << 20
+    # One echo upstream per leg: _echo_server serves a single accept.
+    ls, port = _echo_server()
+    shaped = ShapingRelay(port, rtt_ms=0.0, bandwidth_bps=cap)
+    shaped.start()
+    try:
+        dt_shaped = echo_through(shaped.port, total)
+    finally:
+        shaped.stop()
+        ls.close()
+    ls2, port2 = _echo_server()
+    unshaped = ShapingRelay(port2, rtt_ms=0.0, bandwidth_bps=None)
+    unshaped.start()
+    try:
+        dt_unshaped = echo_through(unshaped.port, total)
+    finally:
+        unshaped.stop()
+        ls2.close()
+    rate = total / dt_shaped
+    assert rate <= 1.25 * cap, (
+        f"pacer under-shapes: {rate / 2**20:.1f} MiB/s through a "
+        f"{cap / 2**20:.0f} MiB/s cap"
+    )
+    assert dt_shaped >= 2.0 * dt_unshaped, (
+        f"pacer did not bite: shaped {dt_shaped * 1e3:.0f} ms vs "
+        f"unshaped {dt_unshaped * 1e3:.0f} ms for {total >> 20} MiB"
+    )
+
+
+def test_relay_injects_rtt():
+    """A 1-byte ping-pong through the relay must pay >= the configured
+    RTT (delay is one-way per direction), and without shaping it's sub-
+    millisecond — the difference proves the delay injection works."""
+    import socket
+    import time as _t
+
+    ls, port = _echo_server()
+    relay = ShapingRelay(port, rtt_ms=30.0, bandwidth_bps=None)
+    relay.start()
+    try:
+        c = socket.create_connection(("127.0.0.1", relay.port))
+        c.settimeout(10)
+        # Warm the path (connection setup, thread spin-up).
+        c.sendall(b"x")
+        assert c.recv(1) == b"x"
+        t0 = _t.perf_counter()
+        for _ in range(3):
+            c.sendall(b"y")
+            assert c.recv(1) == b"y"
+        per_rt = (_t.perf_counter() - t0) / 3
+        c.close()
+        assert per_rt >= 0.028, f"round trip {per_rt * 1e3:.1f} ms < RTT"
+        assert per_rt < 0.3, f"round trip {per_rt * 1e3:.1f} ms absurd"
+    finally:
+        relay.stop()
+        ls.close()

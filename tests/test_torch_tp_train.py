@@ -13,8 +13,13 @@ again would scale every upstream grad by tp, and a dp step that missed
 the global mean would halve them."""
 
 import dataclasses
+import os
+import re
+import subprocess
+import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
@@ -24,7 +29,7 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 import torch_tp_ranks
 from infinistore_tpu.models import llama as jl
 from infinistore_tpu.parallel import mesh as jmesh
-from infinistore_tpu_torch import graft_entry, serving
+from infinistore_tpu_torch import _native, graft_entry, serving
 from infinistore_tpu_torch.models import llama as tl
 from infinistore_tpu_torch.models import moe
 from infinistore_tpu_torch.parallel.launch import run_ranks
@@ -108,25 +113,84 @@ def _jax_dryrun_loss(jparams, cfg):
     return float(loss)
 
 
+def _jax_dryrun_line():
+    """The JAX dry run itself (``python __graft_entry__.py --dryrun 4``,
+    every leg) in a subprocess on 4 CPU devices; its store leg runs on
+    the port's build of the store library (``INFINISTORE_TPU_NATIVE_LIB``:
+    the JAX package's own does not build on this toolchain)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["INFINISTORE_TPU_NATIVE_LIB"] = _native.build_native()
+    env["JAX_PLATFORMS"] = "cpu"
+    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, os.path.join(root,
+                                                     "__graft_entry__.py"),
+                        "--dryrun", "4"], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout + r.stderr
+    return r.stdout.strip().splitlines()[-1]
+
+
+_NUMBER = re.compile(r"(loss|fsdp_err|ring_err|err)=([-+.e0-9]+)")
+
+
+def _readings(line):
+    """The line with its measured numbers blanked, and the numbers:
+    [(field, value)] in order."""
+    return (_NUMBER.sub(r"\1=#", line),
+            [(m.group(1), float(m.group(2).rstrip(",")))
+             for m in _NUMBER.finditer(line)])
+
+
+def _jax_dryrun_weights(jcfg):
+    """The JAX dry run's weights at n = 4, as it draws them: the tiny
+    Llama (PRNGKey(0)), the MoE at ep = 2 (PRNGKey(1)), the pipeline's
+    stages (PRNGKey(3)) and microbatches (PRNGKey(4))."""
+    from infinistore_tpu.models import moe as jmoe
+
+    def bits(tree):
+        return jax.tree_util.tree_map(
+            lambda a: (np.asarray(a).view(np.uint16)
+                       if a.dtype == jnp.bfloat16 else np.asarray(a)), tree)
+
+    moe_cfg = jmoe.MoEConfig(vocab_size=256, d_model=64, n_layers=2,
+                             n_heads=4, n_kv_heads=2, d_ff=128, n_experts=2,
+                             top_k=2, max_seq=64, page_size=8)
+    stages = [np.asarray(jax.random.normal(k, (16, 16)) / np.sqrt(16))
+              for k in jax.random.split(jax.random.PRNGKey(3), 4)]
+    return {"llama": bits(jl.init_params(jax.random.PRNGKey(0), jcfg)),
+            "moe": bits(jmoe.init_params(jax.random.PRNGKey(1), moe_cfg)),
+            "pp_stages": stages,
+            "pp_x": np.asarray(jax.random.normal(jax.random.PRNGKey(4),
+                                                 (8, 2, 16)))}
+
+
 def test_dryrun_multichip_reproduces_jax_loss(capsys):
     """``graft_entry.dryrun_multichip(4, "cpu")`` on the JAX dry run's
-    weights (``init_params(PRNGKey(0))`` of the tiny bf16 config) and
-    tokens prints its line and gives the JAX dry run's loss: both models
-    compute in bf16, each rounding in its own places, so the two losses
-    agree to 1e-3 of the loss (an eighth of bf16's epsilon; 7.7e-5 is
-    read here), not to the bit."""
+    weights and inputs prints the JAX dry run's line field for field:
+    every field and count the same (mesh, sp = 4, ep = 2, pp = 4, 4 pages
+    handed 2 -> 2, tiering, 4-way tp decode), each check met (FSDP
+    within 1e-3; ring, pipeline and tp decode within 1e-4), and the two
+    losses equal to 1e-3 of each (both models compute in bf16, each
+    rounding in its own places: 7.7e-5 of the tp loss is read here)."""
     jcfg = jl.LlamaConfig(**dataclasses.asdict(graft_entry.tiny_cfg()))
-    jparams = jl.init_params(jax.random.PRNGKey(0), jcfg)
-    bits = jax.tree_util.tree_map(
-        lambda a: np.asarray(a).view(np.uint16), jparams)
-    r = graft_entry.dryrun_multichip(4, "cpu", params=bits)
-    line = capsys.readouterr().out
-    assert "dryrun_multichip ok: mesh dp=2 tp=2, loss=" in line
-    assert "tp_pallas_decode=4way" in line
-    assert r["fsdp_err"] < 1e-3 and r["tp_decode_err"] < 1e-4
-    jax_loss = _jax_dryrun_loss(jparams, jcfg)
-    assert abs(r["loss"] - jax_loss) <= 1e-3 * abs(jax_loss), (
-        r["loss"], jax_loss)
+    r = graft_entry.dryrun_multichip(4, "cpu",
+                                     weights=_jax_dryrun_weights(jcfg))
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line == r["line"]
+    jax_line = _jax_dryrun_line()
+    skeleton, got = _readings(line)
+    jax_skeleton, want = _readings(jax_line)
+    assert skeleton == jax_skeleton, (line, jax_line)
+    for (field, a), (_, b) in zip(got, want):
+        if field == "loss":
+            assert abs(a - b) <= 1e-3 * abs(b), (field, a, b)
+        else:
+            assert a < (1e-3 if field == "fsdp_err" else 1e-4), (field, a)
+    assert abs(r["loss"] - _jax_dryrun_loss(
+        jax.tree_util.tree_map(jnp.asarray, jl.init_params(
+            jax.random.PRNGKey(0), jcfg)), jcfg)) <= 1e-3 * abs(r["loss"])
 
 
 def test_tp_refuses_int8_weights_moe_and_indivisible_heads():
