@@ -165,12 +165,35 @@ Phases, in order; any failure exits non-zero before the result line:
     the pool's miss, a fetch onto rank 0, a handoff, an eviction back to
     the store, each read back byte-equal; (e) the whole multi-rank dry
     run (graft_entry.dryrun_multichip) on the card.
-12. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
+12. int8 and MoE on a mesh, two ranks in processes of their own
+    time-sharing the card over gloo (every collective staged through
+    host memory: not a multi-GPU reading): (a) Llama-3.1-8B at full
+    width and depth with int8 weights (init_params_quantized), tp = 2
+    (each rank holds half the int8 bytes), phase 10's 4 cold requests
+    through the SHM store and the same 4 again through prefix hits:
+    TTFT, decode ms/step, weight bytes per rank, the offloaded pages
+    against the single-process int8 engine's under the same keys (layer
+    0 byte-equal, every layer within phase 10's bound, its two planted
+    faults beyond it); (b) Mixtral-8x7B width cut to 8 layers, tp = 2,
+    bf16 (the router and experts whole on each rank): routing agreement
+    1.0 across the ranks, every request teacher-forced through a dense
+    single-process prefill routed as rank 0's engine routed (phase 6c's
+    check, with its planted fault); (c) the same width at 16 layers, ep
+    = 2 (4 experts a rank): tokens equal to the single-process engine's
+    (run before the ranks) and every layer's offloaded pages byte-equal,
+    the combine all-reduce's ms; (d) float32, 2 layers: the int8 tp, MoE
+    tp and MoE ep engines in plain, speculative and chunked modes give
+    one process's tokens, and a MoE tp training step (d_ff cut to 1024)
+    one process's loss and leaf grads (K5, K6). Each depth or width cut
+    is listed under "reduced" in the phase's JSON.
+13. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
     K4's also carry graph_ms; tp_launches: launches on phase 10's path;
-    parallel_launches: per rank on phase 11's), after the phases' JSON
-    lines (phase 6c's under "moe:", phase 6d's under "sharded:", phase
-    10's under "tensor parallel:", phase 11's under "parallel set:"),
-    the card line, and as the last line {"ok": true, "device": {...}}.
+    parallel_launches: per rank on phase 11's; mesh_launches: per rank
+    on phase 12's), after the phases' JSON lines (phase 6c's under
+    "moe:", phase 6d's under "sharded:", phase 10's under "tensor
+    parallel:", phase 11's under "parallel set:", phase 12's under
+    "mesh:"), the card line, and as the last line {"ok": true,
+    "device": {...}}.
 """
 
 import collections
@@ -2660,9 +2683,9 @@ class RoutingTape:
                 int(self.torch.stack(self.selected).sum()),
                 int(self.torch.stack(self.dropped).sum()))
 
-    def _route(self, layer, h, cfg, valid=None, choice=None, ep=None):
+    def _route(self, layer, h, cfg, valid=None, choice=None, par=None):
         if self.rows is None or self.replay is None:
-            r = self.saved(layer, h, cfg, valid, choice, ep)
+            r = self.saved(layer, h, cfg, valid, choice, par)
             self.selected.append(r.selected.sum())
             self.dropped.append((r.selected & ~r.kept).sum())
             if self.rows is not None:
@@ -2702,6 +2725,57 @@ class RoutingTape:
     def choices(self, rid, seq, pos, n_layers):
         k = self.key(seq, pos)
         return [self.lookup(rid, k, li) for li in range(n_layers)]
+
+
+class RoutingCheck:
+    """While active, ``moe._route`` is wrapped: every routing made under a
+    mesh context (``TensorParallel`` or ``ExpertParallel``) keeps, per
+    routed token, a checksum of the bits of its router input h and its
+    top-k experts, in call order. It syncs nothing while it records.
+    Ranks that made the same calls compare their records with
+    :meth:`agreement`."""
+
+    def __init__(self, torch, moe):
+        self.torch, self.moe = torch, moe
+        self.rows, self.experts, self.par = [], [], None
+
+    def __enter__(self):
+        self.saved = self.moe._route
+        self.moe._route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.saved
+
+    def _route(self, layer, h, cfg, valid=None, choice=None, par=None):
+        r = self.saved(layer, h, cfg, valid, choice, par)
+        if par is not None:
+            torch = self.torch
+            bits = h.detach().contiguous().view(
+                {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+                    h.element_size()])
+            w = torch.arange(1, h.shape[-1] + 1, device=h.device) % 251 + 1
+            self.rows.append((bits.to(torch.int64) * w).sum(dim=-1))
+            self.experts.append(r.expert.detach())
+            self.par = par
+        return r
+
+    def agreement(self):
+        """The share of the routed tokens that every rank of the mesh's
+        inner axis (tp or ep) routed alike: the same router input, to the
+        bit, and the same experts. 1.0 when the ranks agree; a rank whose
+        residual stream parted from the others' reads below it. Every
+        rank of the axis calls it."""
+        torch, par = self.torch, self.par
+        if par is None or par.tp == 1:
+            return 1.0
+        mine = torch.cat([torch.cat([r[:, None], e], dim=1)
+                          for r, e in zip(self.rows, self.experts)])
+        parts = [torch.empty_like(mine) for _ in range(par.tp)]
+        torch.distributed.all_gather(parts, mine, group=par.tp_group)
+        same = torch.stack([(p == parts[0]).all(dim=1)
+                            for p in parts]).all(0)
+        return same.double().mean().item()
 
 
 class TapedModel(CountingModel):
@@ -2777,7 +2851,8 @@ class PinnedPrefill:
 
 
 def moe_teacher_forced(torch, serving, llama, moe, plain_prefill, params,
-                       cfg, finished, rids, tape, fault_prompt):
+                       cfg, finished, rids, tape, fault_prompt,
+                       served_noise=0.0):
     """Every finished request teacher-forced through one dense prefill,
     by phase 6's rule (delta = DELTA_FACTOR x the kernel-vs-plain logit
     noise) twice: as phase 6 runs it, and with each dense pass routed as
@@ -2787,7 +2862,9 @@ def moe_teacher_forced(torch, serving, llama, moe, plain_prefill, params,
     first reads the flips (with the (layer, token) pairs whose top-2
     differs) and the second, the check, holds the paged path (pages,
     kernels, page tables) to the dense one. A planted page-table fault
-    must read above twice the pinned delta."""
+    must read above twice the pinned delta. ``served_noise``, the logit
+    noise of the engine's own arithmetic against one process's (a tp
+    engine's: phase 12), adds to the kernel noise before the factor."""
     L = cfg.n_layers
 
     def noise(pinned):
@@ -2845,12 +2922,13 @@ def moe_teacher_forced(torch, serving, llama, moe, plain_prefill, params,
     for name, gaps, pinned_run in (("as phase 6", free, False),
                                    ("routed as served", pinned, True)):
         nz = noise(pinned_run)
-        delta = DELTA_FACTOR * nz
+        delta = DELTA_FACTOR * (nz + served_noise)
         worst = max(g for g, _ in gaps)
         exact = statistics.mean(e for _, e in gaps)
         say(f"teacher-forced, {name}: {len(finished)} requests, largest "
             f"gap {worst:.4f}, exact argmax share {exact:.4f}; delta "
-            f"{delta:.4f} = {DELTA_FACTOR:g} x logit noise {nz:.4f}; per "
+            f"{delta:.4f} = {DELTA_FACTOR:g} x (logit noise {nz:.4f} + "
+            f"served noise {served_noise:.4f}); per "
             f"request " + " ".join(f"{g:.3f}" for g, _ in gaps))
         out["pinned" if pinned_run else "unpinned"] = dict(
             worst_gap=worst, exact_share=exact, delta=delta,
@@ -3441,6 +3519,15 @@ def phase_bwd(torch, fa, gen):
                     f"backward ({backend} backend) {lib_ms:.4f} ms: "
                     f"{statistics.median(ours) / lib_ms:.2f}x")
             rows["sdpa_rounds"] = dict(times, backend=backend)
+        elif dt == "bfloat16" and D == 256 and not win:
+            # The published hd-256 widths (Gemma-7B, Gemma-2B): one SDPA
+            # backward beside K5 and K6, a yardstick only.
+            times, backend = sdpa_bwd_rounds(torch, fa, args, rounds=1,
+                                             iters=3)
+            yard = (f"; one SDPA backward ({backend} backend) "
+                    f"{times['sdpa'][0]:.4f} ms")
+            rows[f"sdpa_bwd_hd256_H{H}_KV{KV}"] = dict(
+                sdpa=times["sdpa"][0], backend=backend)
         worst = max(rel.values())
         say(f"bwd {dt} Sq={sq} Skv={skv} causal={causal} window={win} "
             f"hd={D} H={H} KV={KV}: rel err lse {rel['lse']:.3e} dq "
@@ -3661,6 +3748,17 @@ TP_PAGE_TOL = 0.1
 TP_NOISE_FACTOR = 2.0
 
 
+def f32_engine_modes(page):
+    """The f32 engines' modes of phases 10 and 12 (ServingConfig kwargs):
+    plain, speculative (an oracle proposer drafts), and 256-token chunks
+    with 4-step bursts in a pool that forces preemption."""
+    ample = dict(max_slots=4, max_pages_per_seq=160, total_pages=4 * 160 + 1)
+    need = sum(-(-n // page) for n in F32_PROMPTS)
+    return {"plain": ample, "spec": dict(ample, spec_k=4),
+            "chunk": dict(max_slots=4, prefill_chunk=256, host_steps=4,
+                          max_pages_per_seq=160, total_pages=need + 5)}
+
+
 def tp_decode_slices(torch, pd, pq, gen, report):
     """(a) decode_attention_tp / decode_attention_quantized_tp at
     Llama-3.1-8B's heads (32 q, 8 kv, hd 128; phase 3's main-path
@@ -3748,6 +3846,73 @@ def recording_store(tcuda, conn):
             self.put_keys.extend(keys)
             return super().put_kv_pages(keys, pages, sync=sync)
     return Recording(conn)
+
+
+def tp_page_check(torch, cfg, tp_store, one_store, common, leg,
+                  same_tokens, n_requests):
+    """The tp engine's offloaded pages (in ``tp_store``) against the
+    single-process engine's (``one_store``) under the keys ``common``:
+    layer 0 byte-equal, every layer within TP_PAGE_TOL, and the two
+    planted faults (rank 1's kv heads from the previous layer's page,
+    the heads rolled by one) at their weakest page beyond twice it.
+    Prints and checks; returns the readings."""
+    L = cfg.n_layers
+    worst = collections.defaultdict(float)
+    equal = collections.Counter()
+    stale = rolled = float("inf")
+    half = cfg.n_kv_heads // TP_RANKS
+
+    def layer_of(key):
+        return int(key.split("/L")[1].split("/")[0])
+
+    def rel(x, y):  # relative L2 of each page of a batch
+        x, y = x.float().flatten(1), y.float().flatten(1)
+        return ((x - y).norm(dim=1)
+                / y.norm(dim=1).clamp_min(1e-30)).tolist()
+
+    def fetch(store, keys):
+        return store.get_kv_pages(keys, cfg.kv_page_shape(), cfg.torch_dtype)
+
+    for s in range(0, len(common), 1024):
+        keys = common[s:s + 1024]
+        layers = [layer_of(k) for k in keys]
+        a, b = fetch(tp_store, keys), fetch(one_store, keys)
+        same = (a.view(torch.int16) == b.view(torch.int16)).flatten(
+            1).all(dim=1).tolist()
+        for li, eq, r in zip(layers, same, rel(a, b)):
+            equal[li] += bool(eq)
+            worst[li] = max(worst[li], r)
+        rolled = min(rolled, min(rel(a.roll(1, dims=-2), b)))
+        deep = [i for i, li in enumerate(layers) if li > 0]
+        if deep:
+            prev = fetch(tp_store, [keys[i].replace(
+                f"/L{layers[i]}/", f"/L{layers[i] - 1}/", 1) for i in deep])
+            bad = a[deep].clone()
+            bad[..., half:, :] = prev[..., half:, :]
+            stale = min(stale, min(rel(bad, b[deep])))
+        del a, b
+    per_layer = len(common) // L
+    say(f"{leg} offloaded pages under the same keys: {len(common)} pages "
+        f"({same_tokens} of {n_requests} requests gave the single-process "
+        f"tokens); byte-equal per layer {[equal[li] for li in range(L)]} of "
+        f"{per_layer}; worst rel L2 layer 0 {worst[0]:.3e}, layer {L - 1} "
+        f"{worst[L - 1]:.3e}, all {max(worst.values()):.3e} (tol "
+        f"{TP_PAGE_TOL:g}); planted faults at their weakest page: rank 1's "
+        f"heads from the previous layer {stale:.3f}, kv heads rolled by one "
+        f"{rolled:.3f}")
+    check(equal[0] == per_layer, f"{leg} tp layer-0 pages are not "
+          f"byte-equal to the single-process engine's")
+    check(max(worst.values()) <= TP_PAGE_TOL,
+          f"{leg} tp pages differ from the single-process engine's")
+    check(stale > 2 * TP_PAGE_TOL, f"{leg} the page check missed rank 1's "
+          f"heads taken from the previous layer")
+    check(rolled > 2 * TP_PAGE_TOL, f"{leg} the page check missed kv heads "
+          f"out of order")
+    return dict(common=len(common), byte_equal_per_layer=[
+        equal[li] for li in range(L)], per_layer=per_layer,
+        worst_rel_per_layer=[worst[li] for li in range(L)],
+        same_token_requests=same_tokens,
+        fault_rel=dict(stale_shard=stale, rolled_heads=rolled))
 
 
 def tp_rank(rank, dev, store_port, f32_modes, f32_ref):
@@ -3948,12 +4113,7 @@ def phase_tp(torch, np, pd, pq, gen, report):
     srv_tp = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens)
     srv_one = start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens)
     ample = dict(max_slots=4, max_pages_per_seq=160, total_pages=4 * 160 + 1)
-    need = sum(-(-n // P) for n in F32_PROMPTS)
-    f32_modes = {
-        "plain": ample,
-        "spec": dict(ample, spec_k=4),
-        "chunk": dict(max_slots=4, prefill_chunk=256, host_steps=4,
-                      max_pages_per_seq=160, total_pages=need + 5)}
+    f32_modes = f32_engine_modes(P)
     try:
         # (c)'s reference: the single-process f32 engine's tokens (the
         # tp ranks' speculative leg drafts them, as phase 7's does).
@@ -4046,68 +4206,9 @@ def phase_tp(torch, np, pd, pq, gen, report):
                   "single-process engine's keys")
             same_tokens = sum(lead["cold"][f"c{i}"] == one_out[f"c{i}"]
                               for i in range(len(TP_PROMPTS)))
-            worst = collections.defaultdict(float)
-            equal = collections.Counter()
-            # The planted faults' weakest pages: rank 1's kv heads from
-            # the previous layer's page (layers >= 1), heads rolled by one.
-            stale = rolled = float("inf")
-            half = cfg.n_kv_heads // TP_RANKS
-
-            def layer_of(key):
-                return int(key.split("/L")[1].split("/")[0])
-
-            def rel(x, y):  # relative L2 of each page of a batch
-                x, y = x.float().flatten(1), y.float().flatten(1)
-                return ((x - y).norm(dim=1)
-                        / y.norm(dim=1).clamp_min(1e-30)).tolist()
-
-            def fetch(name, keys):
-                return conns[name][1].get_kv_pages(
-                    keys, cfg.kv_page_shape(), cfg.torch_dtype)
-
-            for s in range(0, len(common), 1024):
-                keys = common[s:s + 1024]
-                layers = [layer_of(k) for k in keys]
-                a, b = fetch("tp", keys), fetch("one", keys)
-                same = (a.view(torch.int16) == b.view(torch.int16)).flatten(
-                    1).all(dim=1).tolist()
-                for li, eq, r in zip(layers, same, rel(a, b)):
-                    equal[li] += bool(eq)
-                    worst[li] = max(worst[li], r)
-                rolled = min(rolled, min(rel(a.roll(1, dims=-2), b)))
-                deep = [i for i, li in enumerate(layers) if li > 0]
-                if deep:
-                    prev = fetch("tp", [keys[i].replace(
-                        f"/L{layers[i]}/", f"/L{layers[i] - 1}/", 1)
-                        for i in deep])
-                    bad = a[deep].clone()
-                    bad[..., half:, :] = prev[..., half:, :]
-                    stale = min(stale, min(rel(bad, b[deep])))
-                del a, b
-            per_layer = len(common) // L
-            say(f"(b) offloaded pages under the same keys: {len(common)} "
-                f"pages ({same_tokens} of {len(TP_PROMPTS)} requests gave "
-                f"the single-process tokens); byte-equal per layer "
-                f"{[equal[li] for li in range(L)]} of {per_layer}; worst "
-                f"rel L2 layer 0 {worst[0]:.3e}, layer {L - 1} "
-                f"{worst[L - 1]:.3e}, all {max(worst.values()):.3e} (tol "
-                f"{TP_PAGE_TOL:g}); planted faults at their weakest page: "
-                f"rank 1's heads from the previous layer {stale:.3f}, kv "
-                f"heads rolled by one {rolled:.3f}")
-            check(equal[0] == per_layer, "tp layer-0 pages are not "
-                  "byte-equal to the single-process engine's")
-            check(max(worst.values()) <= TP_PAGE_TOL,
-                  "tp pages differ from the single-process engine's")
-            check(stale > 2 * TP_PAGE_TOL, "the page check missed rank "
-                  "1's heads taken from the previous layer")
-            check(rolled > 2 * TP_PAGE_TOL, "the page check missed kv "
-                  "heads out of order")
-            report["pages"] = dict(
-                common=len(common), byte_equal_per_layer=[
-                    equal[li] for li in range(L)], per_layer=per_layer,
-                worst_rel_per_layer=[worst[li] for li in range(L)],
-                same_token_requests=same_tokens,
-                fault_rel=dict(stale_shard=stale, rolled_heads=rolled))
+            report["pages"] = tp_page_check(
+                torch, cfg, conns["tp"][1], conns["one"][1], common,
+                "(b)", same_tokens, len(TP_PROMPTS))
             report["one_cold"] = one_legs["one_cold"]
         finally:
             for c, st in conns.values():
@@ -4815,6 +4916,661 @@ def phase_parallel(torch, np, report):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 12: int8 and MoE on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2  # two ranks time-sharing the card over gloo
+# (a) Llama-3.1-8B with int8 weights at tp = 2, full width and depth;
+# (b) Mixtral-8x7B width at tp = 2, bf16, cut to 8 of 32 layers: the
+# experts have no tp rule, so each rank holds them all (2.82 GB a layer):
+# two ranks at 8 layers take ~45 GB; (c) the same width at ep = 2 (4
+# experts a rank), 16 of 32 layers (phase 6c's depth, 22.5 GB a rank);
+# (d) float32, 2 layers: the int8 tree at 8B width, and a Mixtral-width
+# tree with d_ff cut to MESH_F32_FF so that its tp training step (params,
+# grads and AdamW moments in f32) stays a few GB a rank.
+MESH_TP_MOE_LAYERS = 8
+MESH_EP_LAYERS = MOE_LAYERS
+MESH_F32_LAYERS = 2
+MESH_F32_FF = 1024
+MESH_TRAIN_TOKENS = 257
+MESH_FAULT_PROMPT = 3  # (b): the 512-token request, the planted fault's
+MESH_SEEDS = dict(int8=SEED + 20, tp_moe=SEED + 21, ep_moe=SEED + 22,
+                  f32=SEED + 23)
+MESH_KERNELS = ("flash_prefill", "paged_decode", "paged_verify",
+                "paged_decode_q", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def mesh_prompts(np, vocab, seed, lengths=TP_PROMPTS):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(0, vocab, n)] for n in lengths]
+
+
+def mesh_configs(hf, llama):
+    """The four legs' configurations (see MESH_TP_MOE_LAYERS)."""
+    _, mixtral = mixtral_config(hf)
+    _, small = mixtral_config(hf, num_hidden_layers=MESH_F32_LAYERS,
+                              intermediate_size=MESH_F32_FF)
+    return dict(
+        int8=llama.LLAMA31_8B,
+        tp_moe=dataclasses.replace(mixtral, n_layers=MESH_TP_MOE_LAYERS),
+        ep_moe=dataclasses.replace(mixtral, n_layers=MESH_EP_LAYERS),
+        f32_int8=dataclasses.replace(llama.LLAMA31_8B,
+                                     n_layers=MESH_F32_LAYERS,
+                                     dtype="float32"),
+        f32_moe=dataclasses.replace(small, dtype="float32"))
+
+
+def mesh_sc(prompts, n_new, page):
+    """A 4-slot engine with a page-table row for the longest request and
+    a pool for every slot's."""
+    pages = -(-(max(len(p) for p in prompts) + n_new + 8) // page)
+    return dict(max_slots=4, max_pages_per_seq=pages,
+                total_pages=4 * pages + 1)
+
+
+def local_bytes(llama, tree):
+    return sum(t.to_local().numel() * t.to_local().element_size()
+               for t in llama.param_leaves(tree))
+
+
+def ep_combine_ms(torch, ctx, d_model):
+    """Host ms per gloo all-reduce of the ep combine (float32 [T,
+    d_model]) at a batch-4 decode step's T and a 2048-token prefill's."""
+    out = {}
+    for name, T in (("decode", 4), ("prefill", 2048)):
+        x = torch.randn(T, d_model, device="cuda")
+        for _ in range(3):
+            ctx.reduce(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(COLLECTIVE_CALLS):
+            ctx.reduce(x)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / COLLECTIVE_CALLS * 1e3
+    return out
+
+
+def mesh_rank(rank, dev, ports, n_new):
+    """One rank of phase 12's legs (a)-(d), in a process of its own, the
+    ranks sharing the card over gloo (every collective staged through
+    host memory). Only the calls on the mesh count their kernel
+    launches: the single-process references that rank 0 computes for
+    (d) do not. Returns what the parent checks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from infinistore_tpu_torch import (ClientConfig, InfinityConnection,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import hf, llama, moe
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
+    from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.parallel import mesh as pmesh
+
+    lead = rank == 0
+    t_rank = time.perf_counter()
+    counters = dict(zip(MESH_KERNELS, (
+        (fa, "launches"), (pd, "launches"), (pv, "launches"),
+        (pq, "launches"), (fa, "dq_launches"), (fa, "dkv_launches"))))
+    launched = collections.Counter()
+
+    def counts():
+        return {k: getattr(m, a) for k, (m, a) in counters.items()}
+
+    def on_mesh(fn):
+        """Run a call on the mesh, adding its launches to ``launched``."""
+        before = counts()
+        r = fn()
+        torch.cuda.synchronize()
+        after = counts()
+        launched.update({k: after[k] - before[k] for k in after})
+        return r
+
+    def stage(msg):
+        say(f"  [rank {rank}] {msg} ({time.perf_counter() - t_rank:.1f} s)")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def connect(port):
+        conn = InfinityConnection(ClientConfig(
+            host_addr="127.0.0.1", service_port=port,
+            connection_type=TYPE_SHM))
+        conn.connect()
+        check(conn.shm_connected, "SHM path not active")
+        return conn, recording_store(tcuda, conn)
+
+    def from_lead(obj):
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def requests(prompts, tag, n=n_new):
+        return [serving.Request(f"{tag}{i}", p, max_new_tokens=n)
+                for i, p in enumerate(prompts)]
+
+    for m in (fa, pd, pv, pq):
+        m.reset_launches()
+    cfgs = mesh_configs(hf, llama)
+    tmesh = pmesh.make_mesh(pmesh.MeshConfig(dp=1, tp=MESH_RANKS), "cuda",
+                            backend="gloo")
+    tctx = pmesh.TensorParallel(tmesh)
+    emesh = moe.make_ep_mesh(1, MESH_RANKS, "cuda", "gloo")
+    ectx = moe.ExpertParallel(emesh)
+    out = {"rank": rank}
+
+    # ---- (a) Llama-3.1-8B, int8 weights, tp = 2 ----
+    cfg = cfgs["int8"]
+    prompts = mesh_prompts(np, cfg.vocab_size, MESH_SEEDS["int8"])
+    full = llama.init_params_quantized(gen(MESH_SEEDS["int8"]), cfg, "cuda")
+    whole_bytes = llama.param_bytes(full)
+    shards = pmesh.shard_params(tmesh, full)
+    del full
+    free()
+    a = dict(weight_bytes=local_bytes(llama, shards),
+             whole_bytes=whole_bytes)
+    conn, store = connect(ports["a_tp"])
+    model = CountingModel(llama)
+    try:
+        eng = serving.ServingEngine(
+            shards, cfg, serving.ServingConfig(
+                **mesh_sc(prompts, n_new, cfg.page_size)),
+            store=store, model=model, mesh=tmesh)
+        a["memory_GiB"] = torch.cuda.memory_allocated() / 2**30
+        legs = {}
+        a["cold"] = on_mesh(lambda: run_leg(
+            torch, eng, "int8_cold", requests(prompts, "c"), legs,
+            verbose=False))
+        a["cold_keys"] = list(store.put_keys)
+        a["hit"] = on_mesh(lambda: run_leg(
+            torch, eng, "int8_hit", requests(prompts, "g"), legs,
+            verbose=False))
+        a.update(legs=legs, calls=dict(model.calls), stats=dict(eng.stats),
+                 pool_heads=eng.k_pages.shape[3], namespace=eng._ns)
+        del eng
+    finally:
+        store.close()
+        conn.close()
+    del shards
+    free()
+    out["a"] = a
+    stage("(a) int8 tp engine served")
+
+    # ---- (b) Mixtral width, tp = 2, bf16 ----
+    cfg = cfgs["tp_moe"]
+    prompts = mesh_prompts(np, cfg.vocab_size, MESH_SEEDS["tp_moe"])
+    tree = moe.init_params(gen(MESH_SEEDS["tp_moe"]), cfg, "cuda",
+                           place=lambda la: pmesh.shard_params(tmesh, la))
+    tree.update(pmesh.shard_params(tmesh, {k: tree[k] for k in (
+        "embed", "lm_head", "final_ln")}))
+    free()
+    b = dict(weight_bytes=local_bytes(llama, tree))
+    tape, final = RoutingTape(torch, moe), {}
+    model = TapedModel(moe, tape, final)
+    eng = taped(serving.ServingEngine(
+        tree, cfg, serving.ServingConfig(**mesh_sc(prompts, n_new,
+                                                   cfg.page_size)),
+        model=model, mesh=tmesh), model)
+    b["memory_GiB"] = torch.cuda.memory_allocated() / 2**30
+    legs = {}
+    with tape, RoutingCheck(torch, moe) as rec:
+        done = on_mesh(lambda: run_leg(torch, eng, "tp_moe_cold",
+                                       requests(prompts, "m"), legs,
+                                       verbose=False))
+    b["routing_agreement"] = rec.agreement()
+    b["routed_passes"] = len(rec.rows)
+    del rec
+    final.update(done)
+    tape.commit()
+    # The tp model's dense logits on a fixed sequence, its routing
+    # recorded: the parent replays it in one process (the served noise).
+    toks = torch.as_tensor(np.random.default_rng(MESH_SEEDS["tp_moe"] + 1)
+                           .integers(0, cfg.vocab_size, (1, TP_NOISE_TOKENS)),
+                           dtype=torch.int32, device="cuda")
+    seq = tuple(toks[0].tolist())
+    ntape = RoutingTape(torch, moe)
+    with torch.no_grad(), ntape:
+        nlogits, _ = ntape.run(
+            lambda: [(seq, p, "noise") for p in range(len(seq))],
+            lambda: moe.prefill(eng.params, cfg, toks, tp=tctx))
+    ntape.commit()
+    if lead:
+        b.update(noise_tokens=list(seq), noise_logits=nlogits.cpu(),
+                 noise_table={k: v for k, v in ntape.table.items()
+                              if k[0] is not None})
+    del nlogits, ntape
+    b.update(legs=legs, calls=dict(model.calls), done=done,
+             prompts=prompts, pool_heads=eng.k_pages.shape[3],
+             table={k: v for k, v in tape.table.items()
+                    if k[0] is not None} if lead else None)
+    del eng, model, tape, tree
+    free()
+    out["b"] = b
+    stage("(b) MoE tp engine served")
+
+    # ---- (c) Mixtral width, ep = 2, bf16 ----
+    cfg = cfgs["ep_moe"]
+    prompts = mesh_prompts(np, cfg.vocab_size, MESH_SEEDS["ep_moe"])
+    tree = moe.init_params(gen(MESH_SEEDS["ep_moe"]), cfg, "cuda",
+                           place=lambda la: moe.shard_params(emesh, la))
+    tree.update(moe.shard_params(emesh, {k: tree[k] for k in (
+        "embed", "lm_head", "final_ln")}))
+    free()
+    c = dict(weight_bytes=local_bytes(llama, tree))
+    conn, store = connect(ports["c_ep"])
+    model = CountingModel(moe)
+    try:
+        eng = serving.ServingEngine(
+            tree, cfg, serving.ServingConfig(
+                **mesh_sc(prompts, n_new, cfg.page_size)),
+            store=store, model=model, mesh=emesh)
+        c["memory_GiB"] = torch.cuda.memory_allocated() / 2**30
+        legs = {}
+        with RoutingCheck(torch, moe) as rec:
+            c["cold"] = on_mesh(lambda: run_leg(
+                torch, eng, "ep_moe_cold", requests(prompts, "e"), legs,
+                verbose=False))
+        c["routing_agreement"] = rec.agreement()
+        del rec
+        c.update(legs=legs, calls=dict(model.calls),
+                 put_keys=list(store.put_keys), stats=dict(eng.stats),
+                 pool_heads=eng.k_pages.shape[3], namespace=eng._ns,
+                 combine_ms=ep_combine_ms(torch, ectx, cfg.d_model))
+        del eng
+    finally:
+        store.close()
+        conn.close()
+    del tree
+    free()
+    out["c"] = c
+    stage("(c) MoE ep engine served")
+
+    # ---- (d) float32, 2 layers: tokens against one process, training ----
+    d = {}
+    modes = f32_engine_modes(cfgs["f32_int8"].page_size)
+
+    def engines(shards, cfg, module, mesh, ref, prompts):
+        oracle = ContinuationProposer()
+        for p, o in zip(prompts, ref):
+            oracle.add(p, o)
+        got = {}
+        for name, sc in modes.items():
+            eng = serving.ServingEngine(shards, cfg,
+                                        serving.ServingConfig(**sc),
+                                        model=module, mesh=mesh,
+                                        proposer=oracle)
+            done = on_mesh(lambda: eng.run(requests(prompts, "f", F32_NEW)))
+            got[name] = ([done[f"f{i}"] for i in range(len(prompts))],
+                         dict(eng.stats))
+            del eng
+        return got
+
+    def reference(params, cfg, module, prompts):
+        """The single-process engine's tokens (rank 0), on every rank."""
+        ref = None
+        if lead:
+            done = serving.ServingEngine(
+                params, cfg, serving.ServingConfig(**modes["plain"]),
+                model=module).run(requests(prompts, "f", F32_NEW))
+            ref = [done[f"f{i}"] for i in range(len(prompts))]
+        return from_lead(ref)
+
+    cfg = cfgs["f32_int8"]
+    prompts = mesh_prompts(np, cfg.vocab_size, MESH_SEEDS["f32"],
+                           F32_PROMPTS)
+    q = llama.init_params_quantized(gen(MESH_SEEDS["f32"]), cfg, "cuda")
+    d["int8_ref"] = reference(q, cfg, llama, prompts)
+    qsh = pmesh.shard_params(tmesh, q)
+    del q
+    d["int8_tp"] = engines(qsh, cfg, llama, tmesh, d["int8_ref"], prompts)
+    del qsh
+    free()
+    stage("(d) f32 int8 tp engines served")
+
+    cfg = cfgs["f32_moe"]
+    prompts = mesh_prompts(np, cfg.vocab_size, MESH_SEEDS["f32"] + 1,
+                           F32_PROMPTS)
+    mtree = moe.init_params(gen(MESH_SEEDS["f32"] + 1), cfg, "cuda")
+    d["moe_ref"] = reference(mtree, cfg, moe, prompts)
+    msh = pmesh.shard_params(tmesh, mtree)
+    d["moe_tp"] = engines(msh, cfg, moe, tmesh, d["moe_ref"], prompts)
+    esh = moe.shard_params(emesh, mtree)
+    d["moe_ep"] = engines(esh, cfg, moe, emesh, d["moe_ref"], prompts)
+    del esh
+    free()
+    stage("(d) f32 MoE tp and ep engines served")
+
+    # The MoE tp training step against one process's loss and grads.
+    tokens = torch.as_tensor(np.random.default_rng(MESH_SEEDS["f32"] + 2)
+                             .integers(0, cfg.vocab_size,
+                                       (1, MESH_TRAIN_TOKENS)),
+                             dtype=torch.int32, device="cuda")
+    opt = llama.adamw(msh, TRAIN_LR)
+    before = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = on_mesh(lambda: moe.train_step(msh, opt, cfg, tokens,
+                                          tp=tctx).item())
+    step_ms = (time.perf_counter() - t0) * 1e3
+    step_launches = {k: v - before[k] for k, v in counts().items()}
+    grads = [pmesh.full_tensor(leaf.grad) for leaf in llama.param_leaves(msh)]
+    del opt, msh
+    train = dict(loss=loss, step_ms=step_ms, launches=step_launches)
+    if lead:
+        leaves = llama.trainable(mtree)
+        ref = moe.loss_fn(mtree, cfg, tokens)
+        ref_grads = torch.autograd.grad(ref, leaves)
+        names = [n for n, _ in _named_leaves(mtree)]
+        rels = [leaf_rel(x, y) for x, y in zip(grads, ref_grads)]
+        worst = rels.index(max(rels))
+        train.update(ref_loss=ref.item(), worst_leaf_rel=rels[worst],
+                     worst_leaf=names[worst], n_leaves=len(rels))
+        del ref_grads
+    del mtree, grads
+    free()
+    d["train"] = train
+    out["d"] = d
+    stage("(d) MoE tp training step")
+    out["launches"] = dict(launched)
+    return out
+
+
+def phase_mesh(torch, np, report):
+    """Phase 12 (see the module docstring)."""
+    from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
+                                       InfinityConnection, ServerConfig,
+                                       TYPE_SHM)
+    from infinistore_tpu_torch import cuda as tcuda
+    from infinistore_tpu_torch import serving
+    from infinistore_tpu_torch.models import hf, llama, moe
+    from infinistore_tpu_torch.ops.paged_attention import prefill_attention
+    from infinistore_tpu_torch.parallel.launch import run_ranks
+
+    say("== phase 12: int8 and MoE on a mesh ==")
+    cfgs = mesh_configs(hf, llama)
+    n_new = TP_NEW
+    n_tokens = int(1.25 * 2 * (sum(TP_PROMPTS) + len(TP_PROMPTS) * n_new))
+    servers, conns = {}, {}
+
+    def connect(name):
+        c = InfinityConnection(ClientConfig(
+            host_addr="127.0.0.1", service_port=servers[name].service_port,
+            connection_type=TYPE_SHM))
+        c.connect()
+        conns[name] = (c, recording_store(tcuda, c))
+        return conns[name][1]
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    def requests(prompts, tag):
+        return [serving.Request(f"{tag}{i}", p, max_new_tokens=n_new)
+                for i, p in enumerate(prompts)]
+
+    reduced = {
+        "b_layers": f"{MESH_TP_MOE_LAYERS} of 32: the replicated experts "
+                    f"take 2.82 GB a layer a rank, and two ranks share "
+                    f"the card's 80 GB",
+        "c_layers": f"{MESH_EP_LAYERS} of 32 (phase 6c's depth): 22.5 GB a "
+                    f"rank, and the single-process reference (47 GB) runs "
+                    f"before the ranks",
+        "d": f"{MESH_F32_LAYERS} layers in float32; the MoE tree's d_ff "
+             f"14336 -> {MESH_F32_FF}: its tp training step keeps params, "
+             f"grads and AdamW moments in float32 on both ranks"}
+    report["reduced"] = reduced
+    try:
+        for name, leg in (("a_tp", "int8"), ("a_one", "int8"),
+                          ("c_ep", "ep_moe"), ("c_one", "ep_moe")):
+            servers[name] = start_store(InfiniStoreServer, ServerConfig,
+                                        cfgs[leg], n_tokens)
+        # (c)'s single-process reference first: at 16 layers its tree
+        # (47 GB) cannot sit beside the two ranks' shards.
+        cfg = cfgs["ep_moe"]
+        c_prompts = mesh_prompts(np, cfg.vocab_size, MESH_SEEDS["ep_moe"])
+        params = moe.init_params(gen(MESH_SEEDS["ep_moe"]), cfg, "cuda")
+        one_store = connect("c_one")
+        legs = {}
+        one = serving.ServingEngine(
+            params, cfg, serving.ServingConfig(
+                **mesh_sc(c_prompts, n_new, cfg.page_size)),
+            store=one_store, model=moe)
+        c_one = run_leg(torch, one, "ep_one_cold", requests(c_prompts, "e"),
+                        legs, verbose=False)
+        c_one_ns = one._ns
+        del one, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        report["c_single"] = legs["ep_one_cold"]
+
+        say(f"(a)-(d): {MESH_RANKS} ranks in processes of their own, "
+            f"time-sharing the one card over gloo")
+        t0 = time.perf_counter()
+        ranks = run_ranks(mesh_rank, MESH_RANKS, (
+            {k: srv.service_port for k, srv in servers.items()}, n_new),
+            device="cuda", backend="gloo", timeout=900)
+        say(f"ranks done in {time.perf_counter() - t0:.1f} s")
+        lead = ranks[0]
+        mesh_checks(ranks, cfgs, report)
+
+        # (a) the single-process int8 engine's pages under the same keys.
+        cfg = cfgs["int8"]
+        a = lead["a"]
+        params = llama.init_params_quantized(gen(MESH_SEEDS["int8"]), cfg,
+                                             "cuda")
+        one_store = connect("a_one")
+        a_prompts = mesh_prompts(np, cfg.vocab_size, MESH_SEEDS["int8"])
+        one = serving.ServingEngine(
+            params, cfg, serving.ServingConfig(
+                **mesh_sc(a_prompts, n_new, cfg.page_size)), store=one_store)
+        one_out = one.run(requests(a_prompts, "c"))
+        check(one._ns == a["namespace"], "the int8 tp engine's key "
+              "namespace is not the single-process engine's")
+        del one, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        put_one = set(one_store.put_keys)
+        common = [k for k in a["cold_keys"] if k in put_one]
+        check(len(common) >= cfg.n_layers * 2 * sum(
+            n // cfg.page_size for n in TP_PROMPTS),
+            "(a) the int8 tp engine's prompt pages are not under the "
+            "single-process engine's keys")
+        same = sum(a["cold"][f"c{i}"] == one_out[f"c{i}"]
+                   for i in range(len(TP_PROMPTS)))
+        report["a"]["pages"] = tp_page_check(
+            torch, cfg, connect("a_tp"), one_store, common, "(a)", same,
+            len(TP_PROMPTS))
+
+        # (b) every served request teacher-forced as phase 6c checks it,
+        # the dense pass routed as rank 0's engine routed.
+        cfg = cfgs["tp_moe"]
+        b = lead["b"]
+        params = moe.init_params(gen(MESH_SEEDS["tp_moe"]), cfg, "cuda")
+        ntape = RoutingTape(torch, moe)
+        ntape.table = b["noise_table"]
+        toks = torch.tensor([b["noise_tokens"]], dtype=torch.int32,
+                            device="cuda")
+        with torch.no_grad(), ntape:
+            one, _ = PinnedPrefill(ntape, moe, "noise").prefill(params, cfg,
+                                                                toks)
+        tp_noise = (one - b["noise_logits"].to(one.device)).abs().max().item()
+        del one, ntape
+        tape = RoutingTape(torch, moe)
+        tape.table = b["table"]
+        rids = sorted(b["done"])
+        finished = [(b["prompts"][int(r[1:])], b["done"][r]) for r in rids]
+        tf = moe_teacher_forced(
+            torch, serving, llama, moe, prefill_attention, params, cfg,
+            finished, rids, tape, b["prompts"][MESH_FAULT_PROMPT],
+            served_noise=tp_noise)
+        kernel_noise = tf["pinned"]["logit_noise"]
+        say(f"(b) the tp model's logit noise against one process (dense "
+            f"prefill of {TP_NOISE_TOKENS} tokens, routed alike) "
+            f"{tp_noise:.4f}, at most {TP_NOISE_FACTOR:g} x the kernel "
+            f"noise {kernel_noise:.4f}")
+        check(tp_noise <= TP_NOISE_FACTOR * kernel_noise,
+              f"(b) tp logit noise {tp_noise} > {TP_NOISE_FACTOR:g} x "
+              f"kernel noise {kernel_noise}")
+        report["b"]["teacher_forced"] = dict(tf, tp_noise=tp_noise)
+        del params, tape
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) tokens and every layer's pages against one process.
+        c = lead["c"]
+        check(c["cold"] == c_one, "(c) the ep engine's tokens differ from "
+              "the single-process engine's")
+        check(c["namespace"] == c_one_ns, "(c) ep key namespace")
+        keys = c["put_keys"]
+        one_keys = set(conns["c_one"][1].put_keys)
+        check(keys and all(k in one_keys for k in keys),
+              "(c) ep pages not under the single-process engine's keys")
+        ep_store = connect("c_ep")
+        cfg = cfgs["ep_moe"]
+        unequal = 0
+        for s in range(0, len(keys), 1024):
+            part = keys[s:s + 1024]
+            x = ep_store.get_kv_pages(part, cfg.kv_page_shape(),
+                                      cfg.torch_dtype)
+            y = conns["c_one"][1].get_kv_pages(part, cfg.kv_page_shape(),
+                                               cfg.torch_dtype)
+            unequal += int((x.view(torch.int16) != y.view(torch.int16))
+                           .flatten(1).any(dim=1).sum())
+            del x, y
+        say(f"(c) ep offloaded {len(keys)} pages over {cfg.n_layers} "
+            f"layers: {len(keys) - unequal} byte-equal to the single-process "
+            f"engine's; tokens {'equal' if c['cold'] == c_one else 'DIFFER'}")
+        check(unequal == 0, f"(c) {unequal} ep pages differ from the "
+              f"single-process engine's")
+        report["c"].update(pages=len(keys), pages_unequal=unequal)
+    finally:
+        for c, st in conns.values():
+            st.close()
+            c.close()
+        for srv in servers.values():
+            srv.stop()
+    torch.cuda.empty_cache()
+
+
+def mesh_checks(ranks, cfgs, report):
+    """The checks of phase 12 that read the ranks' results alone; fills
+    ``report``."""
+    lead = ranks[0]
+    for leg in ("a", "b", "c"):
+        for r in ranks[1:]:
+            if leg != "b":
+                check(r[leg]["cold"] == lead[leg]["cold"],
+                      f"({leg}) ranks emitted different tokens")
+            else:
+                check(r[leg]["done"] == lead[leg]["done"],
+                      "(b) ranks emitted different tokens")
+    a, b, c, d = lead["a"], lead["b"], lead["c"], lead["d"]
+    check(all(not r["a"]["cold_keys"] for r in ranks[1:]),
+          "(a) a tp rank other than 0 put pages")
+    check(all(not r["c"]["put_keys"] for r in ranks[1:]),
+          "(c) an ep rank other than 0 put pages")
+    check(a["legs"]["int8_hit"]["prefix_hit_pages"] > 0,
+          "(a) the int8 hit leg never hit")
+    check(a["stats"]["store_errors"] == 0 and c["stats"]["store_errors"] == 0,
+          "store errors on the mesh")
+    check(a["pool_heads"] == cfgs["int8"].n_kv_heads // MESH_RANKS
+          and b["pool_heads"] == cfgs["tp_moe"].n_kv_heads // MESH_RANKS
+          and c["pool_heads"] == cfgs["ep_moe"].n_kv_heads,
+          "pool heads on the mesh")
+    for leg, name, key in (("a", "int8_cold", "a"), ("a", "int8_hit", "a"),
+                           ("b", "tp_moe_cold", "b"),
+                           ("c", "ep_moe_cold", "c")):
+        x = lead[leg]["legs"][name]
+        say(f"({key}) {name} (two ranks time-sharing one card, gloo staged "
+            f"through host memory): {x['requests']} requests, TTFT p50 "
+            f"{x['ttft_ms_p50']:.1f} max {x['ttft_ms_max']:.1f} ms, decode "
+            f"{x['itl_ms_mean']:.2f} ms/step, {x['gen_tok_s']:.1f} "
+            f"generated tok/s; prefix_hit_pages {x['prefix_hit_pages']} "
+            f"offloaded {x['offloaded_pages']}")
+    say(f"(a) int8 weights per rank {[r['a']['weight_bytes'] / 1e9 for r in ranks]}"
+        f" GB (whole tree {a['whole_bytes'] / 1e9:.2f} GB); allocated per "
+        f"rank {[round(r['a']['memory_GiB'], 2) for r in ranks]} GiB")
+    check(all(r["a"]["weight_bytes"] < 0.55 * a["whole_bytes"]
+              for r in ranks), "(a) a rank holds more than its half of the "
+          "int8 weights")
+    agree = [r["b"]["routing_agreement"] for r in ranks]
+    say(f"(b) MoE tp: routing agreement {agree} over "
+        f"{b['routed_passes']} routed passes; weights per rank "
+        f"{[round(r['b']['weight_bytes'] / 1e9, 2) for r in ranks]} GB")
+    check(all(x == 1.0 for x in agree), f"(b) routing agreement {agree}")
+    eagree = [r["c"]["routing_agreement"] for r in ranks]
+    say(f"(c) MoE ep: routing agreement {eagree}; experts a rank "
+        f"{cfgs['ep_moe'].n_experts // MESH_RANKS}, weights per rank "
+        f"{[round(r['c']['weight_bytes'] / 1e9, 2) for r in ranks]} GB; "
+        f"combine all-reduce (f32, gloo) {c['combine_ms']} ms; single "
+        f"process TTFT p50 {report['c_single']['ttft_ms_p50']:.1f} ms, "
+        f"decode {report['c_single']['itl_ms_mean']:.2f} ms/step")
+    check(all(x == 1.0 for x in eagree), f"(c) routing agreement {eagree}")
+    for leg in ("int8_tp", "moe_tp", "moe_ep"):
+        ref = d["moe_ref" if leg.startswith("moe") else "int8_ref"]
+        for mode, (toks, stats) in d[leg].items():
+            same = toks == ref
+            say(f"(d) f32 {leg} {mode}: "
+                f"{'the single-process tokens' if same else 'DIFFERENT'}; "
+                f"spec {stats['spec_accepted']}/{stats['spec_proposed']}, "
+                f"chunk_steps {stats['chunk_steps']}, preemptions "
+                f"{stats['preemptions']}")
+            check(all(r["d"][leg][mode][0] == ref for r in ranks),
+                  f"(d) f32 {leg} {mode} tokens differ from one process's")
+        check(d[leg]["spec"][1]["spec_accepted"] > 0
+              and d[leg]["chunk"][1]["chunk_steps"] > 0,
+              f"(d) {leg}: spec accepted nothing or chunk never chunked")
+    tr = d["train"]
+    loss_rel = abs(tr["loss"] - tr["ref_loss"]) / abs(tr["ref_loss"])
+    say(f"(d) MoE tp train_step, f32: loss {tr['loss']:.6f} vs one process "
+        f"{tr['ref_loss']:.6f} (rel {loss_rel:.1e}); worst leaf grad rel L2 "
+        f"{tr['worst_leaf_rel']:.3e} ({tr['worst_leaf']}, {tr['n_leaves']} "
+        f"leaves, tol {TRAIN_TOL['float32']:g}); step {tr['step_ms']:.1f} "
+        f"ms; launches per rank {[r['d']['train']['launches'] for r in ranks]}")
+    check(loss_rel <= TRAIN_TOL["float32"], f"(d) MoE tp loss {loss_rel}")
+    check(tr["worst_leaf_rel"] <= TRAIN_TOL["float32"],
+          f"(d) MoE tp grads {tr['worst_leaf_rel']} ({tr['worst_leaf']})")
+    per_rank = [r["launches"] for r in ranks]
+    say(f"launches per rank on phase 12's path: {per_rank}")
+    for r, k in enumerate(per_rank):
+        for name in ("flash_prefill", "paged_decode", "paged_verify",
+                     "flash_bwd_dq", "flash_bwd_dkv"):
+            check(k.get(name, 0) > 0, f"rank {r}: {name} never launched on "
+                  f"phase 12's path")
+    n_layers = cfgs["f32_moe"].n_layers
+    for r in ranks:
+        k = r["d"]["train"]["launches"]
+        check([k["flash_prefill"], k["flash_bwd_dq"], k["flash_bwd_dkv"]]
+              == [n_layers] * 3, f"(d) MoE tp step launches {k}")
+    report.update(
+        ranks=MESH_RANKS, transport="gloo, staged through host memory (two "
+        "ranks time-sharing one card: not a multi-GPU reading)",
+        launches=per_rank,
+        a=dict(legs=a["legs"], weight_bytes=[r["a"]["weight_bytes"]
+                                             for r in ranks],
+               whole_bytes=a["whole_bytes"],
+               memory_GiB=[r["a"]["memory_GiB"] for r in ranks]),
+        b=dict(legs=b["legs"], routing_agreement=agree,
+               routed_passes=b["routed_passes"],
+               weight_bytes=[r["b"]["weight_bytes"] for r in ranks],
+               memory_GiB=[r["b"]["memory_GiB"] for r in ranks]),
+        c=dict(legs=c["legs"], routing_agreement=eagree,
+               combine_ms=[r["c"]["combine_ms"] for r in ranks],
+               weight_bytes=[r["c"]["weight_bytes"] for r in ranks],
+               memory_GiB=[r["c"]["memory_GiB"] for r in ranks]),
+        d=dict(train={k: v for k, v in tr.items()},
+               stats={leg: {m: v[1] for m, v in d[leg].items()}
+                      for leg in ("int8_tp", "moe_tp", "moe_ep")}))
+
+
 def main():
     try:
         import torch
@@ -4904,6 +5660,8 @@ def main():
               tp_report)
         par_report = {}
         timed("parallel set", phase_parallel, torch, np, par_report)
+        mesh_report = {}
+        timed("int8 and MoE on a mesh", phase_mesh, torch, np, mesh_report)
     except SmokeError as e:
         say(f"FAIL: {e}")
         return 1
@@ -4966,6 +5724,9 @@ def main():
         # Per rank, on phase 11's path (K2-K4 are not on it).
         row["parallel_launches"] = list(par_counts.get(
             row["name"], [0] * PAR_RANKS))
+        # Per rank, on phase 12's path (K4 is not on it).
+        row["mesh_launches"] = [r.get(row["name"], 0)
+                                for r in mesh_report["launches"]]
     main_path = {k: v for k, v in report.items()
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))
@@ -4976,9 +5737,11 @@ def main():
     say("training: " + json.dumps(train_report))
     say("tensor parallel: " + json.dumps(tp_report))
     say("parallel set: " + json.dumps(par_report))
+    say("mesh: " + json.dumps(mesh_report))
     say("backward at the training shape: " + json.dumps(
         {dt: ({"k1_lse_ms": r["k1_lse_ms"], "rel": r["rel"]}
-              if dt != "sdpa_rounds" else r) for dt, r in bwd.items()}))
+              if dt in ("bfloat16", "float32") else r)
+         for dt, r in bwd.items()}))
     say("phase seconds: " + json.dumps(phase_s))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))

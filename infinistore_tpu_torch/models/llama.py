@@ -29,8 +29,12 @@ Tensor parallelism: every model call takes an optional ``tp`` (a
 ``parallel.mesh.TensorParallel``) and then computes this rank's heads
 and ffn columns of a Megatron-sharded tree, with the collectives
 explicit (the JAX package lets GSPMD insert them); KV and pages hold
-this rank's kv heads. ``tp=None`` is the single-device path. int8
-leaves and a routed FFN (the MoE) under tp raise.
+this rank's kv heads. ``tp=None`` is the single-device path. Under tp
+an int8 tree computes on each rank's int8 block through ``_matmul`` and
+the int8 embedding lookup, as one device does (a row-parallel weight's
+scale multiplies once, after the all-reduce), and a routed FFN (the
+MoE's ``ffn`` hook) runs on the replicated experts. Training over int8
+leaves stays refused, under tp and FSDP too (:func:`trainable`).
 """
 
 import functools
@@ -287,6 +291,19 @@ def _matmul(h, w):
     return h @ w
 
 
+def _row_parallel(h, w, tp):
+    """h @ W of a row-parallel weight (wo, w_down) under ``tp``: each
+    rank's product over its rows, summed over tp. An int8 leaf's scale
+    (per output column, whole on every rank) multiplies once, after the
+    sum, as one device's (h @ int8) * scale applies it to the finished
+    sum: the tp result then differs from one device's only in how the
+    sum is grouped, as a dense weight's does, and the multiply runs
+    once, not on each rank's partial."""
+    if isinstance(w, dict):
+        return tp.reduce(h @ w["int8"].to(h.dtype)) * w["scale"].to(h.dtype)
+    return tp.reduce(h @ w)
+
+
 def _proj(h, layer, w, b_, shape=None):
     """_matmul with an optional bias leaf (bq/bk/bv/bo)."""
     out = _matmul(h, layer[w])
@@ -317,7 +334,7 @@ def _attn_out(layer, attn_flat, tp=None):
     partial products are summed over tp, then ``bo`` is added once."""
     if tp is None:
         return _proj(attn_flat, layer, "wo", "bo")
-    out = tp.reduce(_matmul(attn_flat, layer["wo"]))
+    out = _row_parallel(attn_flat, layer["wo"], tp)
     bias = layer.get("bo")
     return out if bias is None else out + bias
 
@@ -336,26 +353,30 @@ def _mlp(layer, x, cfg, tp=None):
     if tp is not None:
         h = tp.enter(h)
     gated = _act(cfg, _matmul(h, layer["w_gate"])) * _matmul(h, layer["w_up"])
-    out = _matmul(gated, layer["w_down"])
-    return out if tp is None else tp.reduce(out)
+    if tp is None:
+        return _matmul(gated, layer["w_down"])
+    return _row_parallel(gated, layer["w_down"], tp)
 
 
 def _embed(params, tokens, cfg=None, tp=None):
     """Token embedding gather; an int8 embedding gathers its int8 rows
     and their per-row scales (the scale leaf carries the compute
-    dtype). Under ``tp`` each rank gathers its d_model columns and the
-    rows are all-gathered."""
-    if tp is not None:
-        return _scale_embed(
-            tp.gather(tp.local(params["embed"])[tokens.long()]), cfg)
-    e = params["embed"]
+    dtype). Under ``tp`` each rank gathers its d_model columns (of the
+    int8 rows, times the whole per-row scale) and the rows are
+    all-gathered."""
+    idx = tokens.long()
+    if tp is None:
+        return _scale_embed(_embed_rows(params["embed"], idx), cfg)
+    return _scale_embed(
+        tp.gather(_embed_rows(tp.local(params["embed"]), idx)), cfg)
+
+
+def _embed_rows(e, idx):
+    """Rows ``idx`` of an embedding table, dense or int8."""
     if isinstance(e, dict):
-        idx = tokens.long()
         row_scale = e["scale"][idx]
-        out = e["int8"][idx].to(row_scale.dtype) * row_scale[..., None]
-    else:
-        out = e[tokens.long()]
-    return _scale_embed(out, cfg)
+        return e["int8"][idx].to(row_scale.dtype) * row_scale[..., None]
+    return e[idx]
 
 
 def _scale_embed(out, cfg):
@@ -370,17 +391,15 @@ def _logits(params, x, tp=None):
     (in the compute dtype, then widened, as the single-device path)."""
     if tp is None:
         return _matmul(x, params["lm_head"]).float()
-    return tp.gather(tp.enter(x) @ tp.local(params["lm_head"])).float()
+    return tp.gather(_matmul(tp.enter(x),
+                             tp.local(params["lm_head"]))).float()
 
 
-def _tp_begin(params, cfg, tp, ffn=None):
+def _tp_begin(params, cfg, tp):
     """Checks of a tensor-parallel call; returns the final norm's leaf."""
     if tp is None:
         return params["final_ln"]
     tp.check(cfg)
-    if ffn is not None:
-        raise NotImplementedError(
-            "a routed FFN (MoE) under tensor parallelism is not supported")
     return tp.local(params["final_ln"])
 
 
@@ -402,9 +421,13 @@ def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
     (``models.moe`` passes its routed experts). ``tp``, a
     ``parallel.mesh.TensorParallel``, runs the stack Megatron-sharded:
     each rank computes its heads and ffn columns (KV of its kv heads)
-    and the logits are gathered whole on every rank."""
+    and the logits are gathered whole on every rank. An ``ffn`` under
+    ``tp`` takes the rank's local leaves of the layer and the x that the
+    attention's all-reduce left the same on every rank, and adds no
+    collective: its leaves have no tp rule, so they are whole on every
+    rank (the JAX placement of the MoE's router and experts)."""
     disable_tf32()
-    final_ln = _tp_begin(params, cfg, tp, ffn)
+    final_ln = _tp_begin(params, cfg, tp)
     b, s = tokens.shape
     prefix_len = 0 if prefix_kvs is None else prefix_kvs[0][0].shape[1]
     x = _embed(params, tokens, cfg, tp)
@@ -487,7 +510,7 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
     rank-local launch over them. Returns (logits [batch, vocab] float32,
     k_pages, v_pages)."""
     disable_tf32()
-    final_ln = _tp_begin(params, cfg, tp, ffn)
+    final_ln = _tp_begin(params, cfg, tp)
     b = token.shape[0]
     n_pages = k_pages.shape[1]
     x = _embed(params, token[:, None], cfg, tp)  # [b, 1, d]
@@ -543,7 +566,7 @@ def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
     :func:`decode_step`. Returns (logits [batch, m, vocab] float32,
     k_pages, v_pages)."""
     disable_tf32()
-    final_ln = _tp_begin(params, cfg, tp, ffn)
+    final_ln = _tp_begin(params, cfg, tp)
     b, m = tokens.shape
     n_pages = k_pages.shape[1]
     page = cfg.page_size

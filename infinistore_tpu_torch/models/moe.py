@@ -24,6 +24,17 @@ dense MLP (llama's ``ffn`` hook), so the paging, the page contract and
 the attention kernels (K1, K2, K3 on the card; K5 and K6 in training)
 are shared by construction. Serving passes this module as the
 ``ServingEngine``'s ``model``.
+
+On a mesh, every model call takes either ``tp`` (a
+``parallel.mesh.TensorParallel``: the attention Megatron-sharded by
+llama's rules, the router and experts, which have no tp rule, whole on
+every rank and run on the activations the attention's all-reduce left
+the same on every rank) or ``ep`` (an :class:`ExpertParallel`: the
+experts' E axis over ep, everything else whole; the combine is
+all-reduced over ep). Both are the JAX package's placements; tp and ep
+on one mesh are not (neither package has such a mesh). Every rank must
+route every token alike; the tests and ``chip_smoke.py`` check that they
+did (its ``RoutingCheck``).
 """
 
 from dataclasses import dataclass
@@ -31,7 +42,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.tensor import Replicate, Shard
 
@@ -88,13 +98,17 @@ class MoEConfig:
         return max(8, -(-c // 8) * 8)
 
 
-def init_params(generator, cfg: MoEConfig, device="cuda"):
+def init_params(generator, cfg: MoEConfig, device="cuda", place=None):
     """Random parameters (normal * d_model**-0.5, norms at one) drawn
     from ``generator``, which must live on ``device``: embed, lm_head,
     then each layer's wq, wk, wv, wo, router, e_gate, e_up, e_down. The
     router stays float32 whatever the tree's dtype, as in the JAX
     package. Same leaf names and shapes as the JAX ``init_params``; the
-    numbers differ (another generator)."""
+    numbers differ (another generator). ``place(layer)``, if given,
+    takes each layer's leaves as they are drawn and returns what the
+    tree keeps (a rank's shard of them, say ``shard_params(mesh,
+    layer)``): a rank then never holds more than one whole layer, and
+    draws the same numbers as the whole tree's."""
     device = resolve_device(device)
     scale = cfg.d_model ** -0.5
     dt = cfg.torch_dtype
@@ -112,12 +126,15 @@ def init_params(generator, cfg: MoEConfig, device="cuda"):
 
     embed = dense((cfg.vocab_size, d))
     lm_head = dense((d, cfg.vocab_size))
-    layers = [{"ln1": ones(), "wq": dense((d, hq)), "wk": dense((d, hkv)),
-               "wv": dense((d, hkv)), "wo": dense((hq, d)), "ln2": ones(),
-               "router": dense((d, e), torch.float32),
-               "e_gate": dense((e, d, ff)), "e_up": dense((e, d, ff)),
-               "e_down": dense((e, ff, d))}
-              for _ in range(cfg.n_layers)]
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {"ln1": ones(), "wq": dense((d, hq)), "wk": dense((d, hkv)),
+                 "wv": dense((d, hkv)), "wo": dense((hq, d)), "ln2": ones(),
+                 "router": dense((d, e), torch.float32),
+                 "e_gate": dense((e, d, ff)), "e_up": dense((e, d, ff)),
+                 "e_down": dense((e, ff, d))}
+        layers.append(layer if place is None else place(layer))
+        del layer
     return {"embed": embed, "layers": layers, "final_ln": ones(),
             "lm_head": lm_head}
 
@@ -136,7 +153,7 @@ class Routing(NamedTuple):
     aux: torch.Tensor       # float32 scalar: the Switch load-balance loss
 
 
-def _route(layer, h, cfg: MoEConfig, valid=None, choice=None, ep=None):
+def _route(layer, h, cfg: MoEConfig, valid=None, choice=None, par=None):
     """Top-k routing of h [T, d] -> :class:`Routing`.
 
     ``valid`` ([T] bool or None) takes tokens out of routing before the
@@ -152,15 +169,16 @@ def _route(layer, h, cfg: MoEConfig, valid=None, choice=None, ep=None):
     of the router's top-k, their gates still the router's probabilities
     renormalised: a recorded routing replayed on other numerics.
 
-    Under ``ep`` (an :class:`ExpertParallel`) with dp > 1, h is this dp
-    rank's rows and the routing is the whole batch's, as under ``jit``
-    over dp-sharded tokens: capacity from every rank's tokens, slots
-    after the lower dp ranks' tokens (rows are dp-sharded in order), the
-    aux loss from the whole batch's shares and mean probabilities."""
+    Under ``par`` (the call's ``ExpertParallel`` or ``TensorParallel``)
+    with dp > 1, h is this dp rank's rows and the routing is the whole
+    batch's, as under ``jit`` over dp-sharded tokens: capacity from
+    every rank's tokens, slots after the lower dp ranks' tokens (rows
+    are dp-sharded in order), the aux loss from the whole batch's shares
+    and mean probabilities."""
     disable_tf32()
     T = h.shape[0]
     E = cfg.n_experts
-    T_all = T if ep is None else ep.dp_sum_int(T)
+    T_all = T if par is None else par.dp_sum_int(T)
     C = cfg.capacity(T_all)
     logits = (h.double() @ layer["router"].double()).float()
     probs = torch.softmax(logits, dim=-1)  # [T, E]
@@ -184,28 +202,32 @@ def _route(layer, h, cfg: MoEConfig, valid=None, choice=None, ep=None):
         aux = E * torch.sum(chosen.mean(dim=0) * probs.mean(dim=0))
     else:
         counts = chosen.sum(dim=0)
-        pos = pos + ep.dp_lower_sum(counts)
-        aux = E * torch.sum((ep.dp_sum(counts) / T_all)
-                            * (ep.dp_sum(probs.sum(dim=0), grad=True) / T_all))
+        pos = pos + par.dp_lower_sum(counts)
+        aux = E * torch.sum((par.dp_sum(counts) / T_all)
+                            * (par.dp_sum(probs.sum(dim=0), grad=True)
+                               / T_all))
     slot = pos.gather(1, top_idx).long()
     selected = chosen.gather(1, top_idx) > 0
     kept = selected & (slot < C)
     return Routing(top_idx, slot, top_w, selected, kept, C, aux)
 
 
-def _moe_mlp(layer, x, cfg: MoEConfig, valid=None, ep=None):
+def _moe_mlp(layer, x, cfg: MoEConfig, valid=None, ep=None, tp=None):
     """[B, S, d] -> ([B, S, d], aux) through the routed expert FFN.
     ``valid`` ([B, S] bool or None) masks tokens out of routing. Under
     ``ep`` the expert leaves hold this rank's experts: every ep rank
     routes all its tokens (the router is replicated), computes only the
     pairs routed to its experts (the others add zero), and the float32
     sums of the gated picks are all-reduced over ep and rounded once, so
-    a token's picks a + b sum as on one device."""
+    a token's picks a + b sum as on one device. Under ``tp`` the experts
+    and router are whole on every rank and x is the same on every rank:
+    each computes the whole FFN, with no collective (``tp`` only sums
+    the routing's counts over dp)."""
     b, s, d = x.shape
     h = rms_norm(x, layer["ln2"], cfg.norm_eps,
                  cfg.norm_plus_one).reshape(b * s, d)
     r = _route(layer, h, cfg, None if valid is None else valid.reshape(-1),
-               ep=ep)
+               par=ep if ep is not None else tp)
     k = cfg.top_k
     n_local = layer["e_gate"].shape[0]
     lo = 0 if ep is None else ep.ep_rank * n_local
@@ -236,72 +258,89 @@ def _moe_mlp(layer, x, cfg: MoEConfig, valid=None, ep=None):
     return out.to(oe.dtype).reshape(b, s, d), r.aux
 
 
-def _routed_ffn(cfg, valid=None, auxes=None, ep=None):
+def _routed_ffn(cfg, valid=None, auxes=None, ep=None, tp=None):
     """llama's ``ffn`` hook for this family: the routed FFN, its aux
     loss appended to ``auxes`` when given."""
     def ffn(layer, x):
-        out, aux = _moe_mlp(layer, x, cfg, valid, ep)
+        out, aux = _moe_mlp(layer, x, cfg, valid, ep, tp)
         if auxes is not None:
             auxes.append(aux)
         return out
     return ffn
 
 
+def _on_mesh(params, ep, tp):
+    """The tree a call computes on: under ``ep`` this rank's local
+    tensors (llama's loop then runs as on one device, the attention
+    replicated); otherwise as it is (under ``tp`` llama's loop takes
+    each layer's local leaves itself)."""
+    if ep is not None and tp is not None:
+        raise ValueError("tp and ep on one mesh are not supported: pass one")
+    if ep is None:
+        return params
+    return _pmesh.tree_map(lambda _, t: ep.local(t), params)
+
+
 def _forward_stack(params, cfg: MoEConfig, tokens, prefix_kvs=None,
-                   pos0=0, ep=None):
+                   pos0=0, ep=None, tp=None):
     """llama's decoder-stack loop with the routed FFN: (logits, per-layer
     (k, v), total aux loss, float32). Under ``ep`` ``params`` is this
     rank's shard (:func:`shard_params`), computed on as its local
-    tensors, and ``tokens`` this rank's dp rows."""
+    tensors, and ``tokens`` this rank's dp rows; under ``tp`` the tree
+    of ``parallel.mesh.shard_params`` (attention Megatron-sharded, the
+    rest replicated) and this rank's dp rows."""
     auxes = []
-    if ep is not None:
-        params = _pmesh.tree_map(lambda _, t: ep.local(t), params)
+    params = _on_mesh(params, ep, tp)
     logits, kvs = _llama._forward_stack(params, cfg, tokens, prefix_kvs,
                                         pos0, ffn=_routed_ffn(
-                                            cfg, auxes=auxes, ep=ep))
+                                            cfg, auxes=auxes, ep=ep, tp=tp),
+                                        tp=tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=logits.device)
     for aux in auxes:
         aux_total = aux_total + aux
     return logits, kvs, aux_total
 
 
-def forward_dense(params, cfg: MoEConfig, tokens, ep=None):
+def forward_dense(params, cfg: MoEConfig, tokens, ep=None, tp=None):
     """Dense causal forward. tokens [B, S] -> (logits [B, S, V] float32,
     per-layer (k, v), total aux loss). Differentiable when the leaves
-    require grad. ``ep`` as :func:`_forward_stack` takes it."""
-    return _forward_stack(params, cfg, tokens, ep=ep)
+    require grad. ``ep`` and ``tp`` as :func:`_forward_stack` takes
+    them."""
+    return _forward_stack(params, cfg, tokens, ep=ep, tp=tp)
 
 
-def prefill(params, cfg: MoEConfig, tokens, ep=None):
-    logits, kvs, _ = forward_dense(params, cfg, tokens, ep)
+def prefill(params, cfg: MoEConfig, tokens, ep=None, tp=None):
+    logits, kvs, _ = forward_dense(params, cfg, tokens, ep, tp)
     return logits, kvs
 
 
 def prefill_with_prefix(params, cfg: MoEConfig, tokens, prefix_kvs,
-                        pos0=0):
+                        pos0=0, ep=None, tp=None):
     """Suffix prefill over a cached prefix (the cache-hit path), the
     contract of ``llama.prefill_with_prefix``. Routing sees the suffix
     tokens only, so capacity is sized for them."""
     logits, kvs, _ = _forward_stack(params, cfg, tokens, prefix_kvs,
-                                    pos0=pos0)
+                                    pos0=pos0, ep=ep, tp=tp)
     return logits, kvs
 
 
 @torch.no_grad()
 def decode_step(params, cfg: MoEConfig, token, seq_lens, k_pages, v_pages,
-                page_table):
+                page_table, ep=None, tp=None):
     """``llama.decode_step`` with the routed FFN (pages updated in place).
     Rows with an empty cache (seq_lens == 0, the engine's inactive slots)
-    stay out of routing and capacity."""
+    stay out of routing and capacity, on every rank alike (each holds
+    the same seq_lens)."""
     valid = (seq_lens > 0)[:, None]
-    return _llama.decode_step(params, cfg, token, seq_lens, k_pages,
-                              v_pages, page_table,
-                              ffn=_routed_ffn(cfg, valid))
+    return _llama.decode_step(_on_mesh(params, ep, tp), cfg, token,
+                              seq_lens, k_pages, v_pages, page_table,
+                              ffn=_routed_ffn(cfg, valid, ep=ep, tp=tp),
+                              tp=tp)
 
 
 @torch.no_grad()
 def verify_step(params, cfg: MoEConfig, tokens, seq_lens, k_pages,
-                v_pages, page_table, valid_len=None):
+                v_pages, page_table, valid_len=None, ep=None, tp=None):
     """``llama.verify_step`` with the routed FFN (pages updated in place).
     Padded columns (j >= valid_len[b]) stay out of routing and
     capacity."""
@@ -310,33 +349,38 @@ def verify_step(params, cfg: MoEConfig, tokens, seq_lens, k_pages,
         m = tokens.shape[1]
         ok = (torch.arange(m, device=tokens.device)[None, :]
               < valid_len.to(tokens.device).long()[:, None])
-    return _llama.verify_step(params, cfg, tokens, seq_lens, k_pages,
-                              v_pages, page_table, valid_len,
-                              ffn=_routed_ffn(cfg, ok))
+    return _llama.verify_step(_on_mesh(params, ep, tp), cfg, tokens,
+                              seq_lens, k_pages, v_pages, page_table,
+                              valid_len,
+                              ffn=_routed_ffn(cfg, ok, ep=ep, tp=tp), tp=tp)
 
 
-def loss_fn(params, cfg: MoEConfig, tokens, ep=None):
+def loss_fn(params, cfg: MoEConfig, tokens, ep=None, tp=None):
     """Next-token NLL of tokens [batch, seq + 1] plus aux_loss_weight x
-    the summed aux loss (under ``ep``: this rank's rows' NLL, the whole
-    batch's aux loss)."""
-    logits, _, aux = forward_dense(params, cfg, tokens[:, :-1], ep)
+    the summed aux loss (under ``ep`` or ``tp``: this rank's rows' NLL,
+    the whole batch's aux loss)."""
+    logits, _, aux = forward_dense(params, cfg, tokens[:, :-1], ep, tp)
     return (_llama.token_nll(logits, tokens[:, 1:])
             + cfg.aux_loss_weight * aux)
 
 
-def train_step(params, optimizer, cfg: MoEConfig, tokens, ep=None):
+def train_step(params, optimizer, cfg: MoEConfig, tokens, ep=None, tp=None):
     """The shared optimizer step (``llama.train_step``; optimizer from
     ``llama.adamw``) with this family's loss. Leaves update in place;
     returns the loss before the step.
 
-    Under ``ep`` (``params`` from :func:`shard_params`, ``tokens`` this
-    rank's dp rows) the step follows the whole batch's loss, as
+    Under ``ep`` (``params`` from :func:`shard_params`) or ``tp``
+    (``params`` from ``parallel.mesh.shard_params``), ``tokens`` this
+    rank's dp rows, the step follows the whole batch's loss, as
     ``llama.train_step`` under dp: each rank differentiates its loss
     over dp, the grads are summed over dp, and the mean loss is
-    returned. The aux loss, the same on every rank, is counted once."""
+    returned. The aux loss, the same on every rank, is counted once.
+    Under tp the router's and experts' grads are the same on every tp
+    rank and are not summed over tp: each rank's loss reaches them
+    whole, through the x that every rank holds alike."""
     return _llama.train_step(
-        params, optimizer, cfg, tokens, tp=ep,
-        loss=lambda p, c, t, tp=None: loss_fn(p, c, t, ep=tp))
+        params, optimizer, cfg, tokens, tp=ep if ep is not None else tp,
+        loss=lambda p, c, t, **_: loss_fn(p, c, t, ep=ep, tp=tp))
 
 
 # ---------------------------------------------------------------------------
@@ -374,25 +418,6 @@ def shard_params(mesh, params):
     return _pmesh.shard_params(mesh, params, param_shardings(mesh, params))
 
 
-class _SumBoth(torch.autograd.Function):
-    """All-reduce forward and backward: a term of the loss that every rank
-    computes whole from its rows' part (the aux loss's mean
-    probabilities), so each rank's gradient of it is summed."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
 class ExpertParallel(_pmesh.TensorParallel):
     """The collectives of the routed FFN on a (dp, ep) mesh from
     :func:`make_ep_mesh`, for this rank: ``TensorParallel``'s over ep in
@@ -405,30 +430,12 @@ class ExpertParallel(_pmesh.TensorParallel):
 
     axes = EP_AXES
 
-    def __init__(self, mesh):
-        super().__init__(mesh)
+    split_heads = False  # the attention is whole on every ep rank
+
+    def __init__(self, mesh, replicas=False):
+        super().__init__(mesh, replicas)
         self.ep, self.ep_group, self.ep_rank = (self.tp, self.tp_group,
                                                 self.tp_rank)
-
-    def dp_sum(self, x, grad=False):
-        if grad:
-            return _SumBoth.apply(x, self.dp_group)
-        x = x.detach().clone()
-        dist.all_reduce(x, group=self.dp_group)
-        return x
-
-    def dp_sum_int(self, n):
-        if self.dp == 1:
-            return n
-        t = torch.tensor([n], dtype=torch.int64, device=self.mesh.device_type)
-        dist.all_reduce(t, group=self.dp_group)
-        return int(t.item())
-
-    def dp_lower_sum(self, x):
-        """The sum of ``x`` over the dp ranks below this one."""
-        parts = [torch.empty_like(x) for _ in range(self.dp)]
-        dist.all_gather(parts, x.detach().contiguous(), group=self.dp_group)
-        return sum(parts[:self.dp_rank], torch.zeros_like(x))
 
 
 __all__ = [

@@ -18,7 +18,8 @@ no DTensor, so here the collectives are explicit. They live in
   it is used, and its gradient is reduce-scattered back.
 
 Parameters are DTensors on the mesh, placed by the JAX package's
-leaf-name rules (:func:`param_sharding_rules`). The model computes on
+leaf-name rules (:func:`param_sharding_rules`; an int8 weight by its
+parent's rule, where the JAX rules replicate it). The model computes on
 their local tensors (:meth:`TensorParallel.local`), and
 ``torch.optim.AdamW`` steps the DTensors, so its moments take each
 leaf's shard, as ``optimizer.init`` on the sharded tree does in JAX.
@@ -139,8 +140,9 @@ def param_sharding_rules():
     projections (Qwen2's bq/bk/bv) split with their columns: the JAX
     rules leave them replicated and GSPMD splits them inside the program.
     ``bo`` stays replicated and is added after the reduction. Leaves
-    without a rule (int8 weights, MoE experts and router) are
-    replicated, as in the JAX package."""
+    without a rule (the MoE's experts and router) are replicated, as in
+    the JAX package. An int8 weight (an ``{"int8", "scale"}`` leaf) is
+    placed by its parent's rule (:func:`param_shardings`)."""
     return {
         "embed": _COL,     # [vocab, d_model]: tp over d_model
         "wq": _COL, "wk": _COL, "wv": _COL,
@@ -166,10 +168,40 @@ def tree_map(fn, tree, *others, name=None):
     return fn(name, tree, *others)
 
 
+def _is_int8_leaf(x):
+    """An int8 weight-only leaf: {"int8": int8 [in, out], "scale": ...}."""
+    return isinstance(x, dict) and set(x) == {"int8", "scale"}
+
+
+def _int8_placements(name, rule):
+    """An int8 leaf's placements under its parent ``name``'s ``rule``:
+    the int8 block as the parent's weight; a per-output-column scale
+    with its columns (column-parallel weights and lm_head), every other
+    scale replicated: a row-parallel weight's (its output columns are
+    whole on every rank) and the embedding's per-row [vocab] scale."""
+    by_column = rule[1] == Shard(1) and name != "embed"
+    return {"int8": rule, "scale": _VEC if by_column else _REP}
+
+
 def param_shardings(mesh, params):
-    """A tree of placements matching ``params`` by leaf name."""
+    """A tree of placements matching ``params`` by leaf name. The JAX
+    rules give an int8 leaf's ``int8`` and ``scale`` no rule, so GSPMD
+    replicates them and computes each rank's columns from the whole
+    leaf; here each rank holds only the block it computes on
+    (:func:`_int8_placements`): the same columns, 1/tp of the int8
+    bytes."""
     rules = param_sharding_rules()
-    return tree_map(lambda name, leaf: rules.get(name, _REP), params)
+
+    def walk(tree, name=None):
+        if _is_int8_leaf(tree):
+            return _int8_placements(name, rules.get(name, _REP))
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, name) for v in tree]
+        return rules.get(name, _REP)
+
+    return walk(params)
 
 
 def fsdp_param_shardings(mesh, params):
@@ -178,11 +210,10 @@ def fsdp_param_shardings(mesh, params):
     by dp, so each dp rank holds 1/dp of the leaf (and of its AdamW
     moments). Leaves with fewer than 2 dims stay unsharded over dp. The
     JAX package's ``fsdp_param_shardings`` rule."""
-    rules = param_sharding_rules()
     dp = mesh.size(0)
 
-    def spec(name, leaf):
-        pl = list(rules.get(name, _REP))
+    def spec(_, leaf, tp_rule):
+        pl = list(tp_rule)
         if leaf.ndim < 2:
             return tuple(pl)
         taken = {p.dim for p in pl if isinstance(p, Shard)}
@@ -192,7 +223,7 @@ def fsdp_param_shardings(mesh, params):
                 break
         return tuple(pl)
 
-    return tree_map(spec, params)
+    return tree_map(spec, params, param_shardings(mesh, params))
 
 
 def data_sharding(mesh):
@@ -351,6 +382,25 @@ class _Gather(torch.autograd.Function):
         return out, None, None, None, None, None
 
 
+class _SumBoth(torch.autograd.Function):
+    """All-reduce forward and backward: a term of the loss that every rank
+    computes whole from its rows' part (the MoE aux loss's mean
+    probabilities), so each rank's gradient of it is summed."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 class TensorParallel:
     """The collectives a model needs on a (dp, tp) mesh from
     :func:`make_mesh`, for this rank. ``models/llama.py`` takes one as
@@ -360,11 +410,18 @@ class TensorParallel:
     attributes then hold."""
 
     axes = AXES
+    # The pool of an engine on this mesh holds this rank's kv heads.
+    split_heads = True
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, replicas=False):
         if tuple(mesh.mesh_dim_names or ()) != self.axes:
             raise ValueError(f"need a mesh with dims {self.axes}")
         self.mesh = mesh
+        # With ``replicas`` the dp ranks are separate replicas (serving
+        # engines, each running its own requests): the routing's dp sum
+        # is this rank's own count, so a MoE routes each replica's tokens
+        # alone, as one device would, and no other dp sum is reached.
+        self.replicas = replicas
         self.tp_group = mesh.get_group(self.axes[1])
         self.tp = mesh.size(1)
         self.tp_rank = mesh.get_local_rank(self.axes[1])
@@ -374,7 +431,8 @@ class TensorParallel:
 
     @property
     def leader(self):
-        """Rank 0 of this rank's tp group: the one that writes to a store."""
+        """Rank 0 of this rank's inner (tp or ep) group: the one that
+        writes to a store."""
         return self.tp_rank == 0
 
     def heads(self, n, what="heads"):
@@ -391,10 +449,10 @@ class TensorParallel:
     def local(self, leaf):
         """A leaf's tp-local tensor: a DTensor's local block, gathered
         over dp (differentiably: the backward reduce-scatters the grads)
-        where FSDP shards it; a plain tensor as it is."""
+        where FSDP shards it; a plain tensor as it is; an int8 leaf as
+        the pair of its parts' local blocks."""
         if isinstance(leaf, dict):
-            raise TypeError("int8 weight leaves under tensor parallelism are "
-                            "not supported")
+            return {k: self.local(v) for k, v in leaf.items()}
         if not isinstance(leaf, DTensor):
             return leaf
         pl = leaf.placements[0]
@@ -444,6 +502,30 @@ class TensorParallel:
         op = dist.ReduceOp.MAX if largest else dist.ReduceOp.MIN
         dist.all_reduce(t, op=op, group=self.tp_group)
         return int(t.item())
+
+    def dp_sum(self, x, grad=False):
+        """The sum of ``x`` over the dp ranks (with ``grad``, summed in
+        the backward too)."""
+        if grad:
+            return _SumBoth.apply(x, self.dp_group)
+        x = x.detach().clone()
+        dist.all_reduce(x, group=self.dp_group)
+        return x
+
+    def dp_sum_int(self, n):
+        """The sum of the int ``n`` over the dp ranks (``n`` itself
+        between replicas)."""
+        if self.dp == 1 or self.replicas:
+            return n
+        t = torch.tensor([n], dtype=torch.int64, device=self.mesh.device_type)
+        dist.all_reduce(t, group=self.dp_group)
+        return int(t.item())
+
+    def dp_lower_sum(self, x):
+        """The sum of ``x`` over the dp ranks below this one."""
+        parts = [torch.empty_like(x) for _ in range(self.dp)]
+        dist.all_gather(parts, x.detach().contiguous(), group=self.dp_group)
+        return sum(parts[:self.dp_rank], torch.zeros_like(x))
 
     def dp_mean(self, value):
         """The mean of a tensor over the dp ranks."""

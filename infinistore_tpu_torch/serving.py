@@ -45,15 +45,18 @@ Where it differs from the JAX engine, and why:
 - A multi-step burst is a Python loop of ``decode_step`` with the tokens
   kept on the device and one device-to-host copy per burst (the JAX
   engine fuses it with ``lax.scan``).
-- Tensor parallelism (``mesh=``): the JAX engine runs unchanged on
-  Megatron-sharded weights and XLA inserts the collectives. Here every
-  rank of the mesh's tp dim runs an engine over its shard of the weights
-  and a pool of its kv heads, and ``models/llama.py`` makes the
-  collectives explicit. The gathered logits are the same on every rank,
+- A mesh (``mesh=``): the JAX engine runs unchanged on a sharded tree
+  and XLA inserts the collectives. Here every rank of the mesh's inner
+  dim runs an engine over its shard of the weights, and the models make
+  the collectives explicit. On a (dp, tp) mesh (tensor parallelism:
+  dense, int8 or MoE trees) the pool holds the rank's kv heads; on a
+  (dp, ep) mesh (expert parallelism, the MoE family) every rank holds
+  every kv head and its experts. The logits are the same on every rank,
   so every rank schedules and samples alike; each store call's outcome
-  is agreed over tp before it steers anything. The store sees whole
-  pages under the single-device keys: heads are gathered before rank 0
-  puts, and each rank keeps its heads' slice of a restored page.
+  is agreed over the inner dim before it steers anything. The store
+  sees whole pages under the single-device keys: under tp heads are
+  gathered before rank 0 puts and each rank keeps its heads' slice of a
+  restored page; under ep rank 0 puts its own pages.
 """
 
 import hashlib
@@ -66,7 +69,7 @@ from torch.distributed.tensor import DTensor
 
 from ._device import resolve_device
 from .lib import InfiniStoreKeyNotFound
-from .models import llama, moe  # noqa: F401 (moe: the annotation)
+from .models import llama, moe
 
 
 def content_page_digests(tokens, page_size, n_pages, namespace=""):
@@ -375,12 +378,18 @@ class ServingEngine:
     seed=...).
 
     ``mesh``, a (dp, tp) DeviceMesh of ``parallel.mesh.make_mesh``, makes
-    this engine one tp rank of a Megatron-sharded engine (Llama family
-    only): ``params`` is then this rank's shard of the tree, the
-    DTensors of ``parallel.mesh.shard_params(mesh, whole)`` (no rank
-    needs the whole tree once it is sharded), and the pool holds
-    n_kv_heads / tp heads. Every tp rank must run the same requests in
-    the same order, each with a store of its own or all without."""
+    this engine one tp rank of a Megatron-sharded engine (either family,
+    dense or int8 weights): ``params`` is then this rank's shard of the
+    tree, the DTensors of ``parallel.mesh.shard_params(mesh, whole)``
+    (no rank needs the whole tree once it is sharded), and the pool
+    holds n_kv_heads / tp heads. A (dp, ep) DeviceMesh of
+    ``moe.make_ep_mesh`` makes it one ep rank of an expert-parallel MoE
+    engine: ``params`` from ``moe.shard_params(mesh, whole)``, the pool
+    whole. Every rank of the inner dim must run the same requests in the
+    same order, each with a store of its own or all without. At dp > 1
+    the dp ranks are separate engines, each serving its own requests:
+    nothing is summed over dp, so a MoE routes each engine's tokens
+    alone, as one device would."""
 
     def __init__(self, params, cfg: "llama.LlamaConfig | moe.MoEConfig",
                  sconfig=None,
@@ -398,24 +407,31 @@ class ServingEngine:
                 raise ValueError(
                     f"params lie on {leaf.device}, the engine on "
                     f"{self.device}")
-        self.tp = None
-        self._mkw = {}  # the model calls' tp argument
+        # The mesh's collectives (TensorParallel, or moe.ExpertParallel
+        # on an ep mesh) and the model calls' argument naming them; the
+        # dp ranks are replicas, each routing its own requests alone.
+        self.par = None
+        self._mkw = {}
         n_kv = cfg.n_kv_heads
         if mesh is not None:
             from .parallel.mesh import TensorParallel
-            if hasattr(cfg, "n_experts"):
-                raise NotImplementedError(
-                    "a routed FFN (MoE) under tensor parallelism is not "
-                    "supported")
-            self.tp = TensorParallel(mesh)
-            self.tp.check(cfg)
+            if tuple(mesh.mesh_dim_names or ()) == moe.EP_AXES:
+                if not hasattr(cfg, "n_experts"):
+                    raise ValueError("an ep mesh takes a MoE model "
+                                     "(model=moe, a MoEConfig)")
+                self.par = moe.ExpertParallel(mesh, replicas=True)
+                self._mkw = {"ep": self.par}
+                shard = "moe.shard_params(mesh, params)"
+            else:
+                self.par = TensorParallel(mesh, replicas=True)
+                self.par.check(cfg)
+                self._mkw = {"tp": self.par}
+                n_kv //= self.par.tp
+                shard = "parallel.mesh.shard_params(mesh, params)"
             if not all(isinstance(x, DTensor) and x.device_mesh == mesh
                        for x in leaves):
-                raise ValueError("under a mesh, params are this rank's "
-                                 "shards: parallel.mesh.shard_params(mesh, "
-                                 "params)")
-            self._mkw = {"tp": self.tp}
-            n_kv //= self.tp.tp
+                raise ValueError(f"under a mesh, params are this rank's "
+                                 f"shards: {shard}")
         self.cfg = cfg
         self.model = model
         self.store = store
@@ -458,8 +474,8 @@ class ServingEngine:
         model_id = self.sc.model_id
         if store is not None and model_id == "default":
             model_id = f"wf{weights_fingerprint(params)}"
-        if self.tp is not None:
-            params = self.tp.local_tree(params)
+        if self.par is not None:
+            params = self.par.local_tree(params)
         self.params = params
         wire = "q8" if self.sc.quantized_store else cfg.dtype
         self._ns = (
@@ -538,16 +554,17 @@ class ServingEngine:
         self.v_pages.index_copy_(1, idx, v_new.to(self.v_pages.dtype))
 
     def _agree(self, value, largest=False):
-        """A store call's outcome as every tp rank sees it (the smallest,
-        or the largest, of the ranks'); the value itself without tp."""
-        return value if self.tp is None else self.tp.agree(value, largest)
+        """A store call's outcome as every rank of the mesh's inner dim
+        sees it (the smallest, or the largest, of the ranks'); the value
+        itself without a mesh."""
+        return value if self.par is None else self.par.agree(value, largest)
 
     def _store_failed(self, what, exc):
         """First store failure downgrades to store-less serving: the
-        cache accelerates, it must never fail a request. Under tp,
+        cache accelerates, it must never fail a request. Under a mesh,
         ``exc`` is None where another rank's call failed."""
         if exc is None:
-            exc = RuntimeError("another tp rank's store call failed")
+            exc = RuntimeError("another rank's store call failed")
         self._store_ok = False
         self.stats["store_errors"] += 1
         logging.getLogger("infinistore_tpu_torch.serving").warning(
@@ -578,7 +595,7 @@ class ServingEngine:
             self._store_failed("probe", err)
             return 0, []
         hit = min(hit, cap)
-        if hit > 0 and (self.tp is None or self.tp.leader):
+        if hit > 0 and (self.par is None or self.par.leader):
             self._prefetch_chain(work.prompt, hit, digests[:hit])
         return hit, digests[:hit]
 
@@ -673,7 +690,7 @@ class ServingEngine:
         if hit > 0:
             # Restore the in-window hit pages with one batched store
             # call; the digests come from the probe. Outcome: 0 restored,
-            # 1 evicted, 2 failed (agreed over tp: the worst counts).
+            # 1 evicted, 2 failed (agreed over the mesh: the worst counts).
             outcome, err = 0, None
             try:
                 kp, vp = llama.restore_prefix_pages(
@@ -700,9 +717,9 @@ class ServingEngine:
             else:
                 kp = kp.to(self.device)
                 vp = vp.to(self.device)
-                if self.tp is not None:
+                if self.par is not None and self.par.split_heads:
                     # Whole pages from the store; this rank's kv heads.
-                    kp, vp = self.tp.head_slice(kp), self.tp.head_slice(vp)
+                    kp, vp = self.par.head_slice(kp), self.par.head_slice(vp)
                 if self.sc.prefill_chunk == 0:
                     # Contiguous form for the one-shot suffix prefill;
                     # the chunked path attends straight over the pages.
@@ -863,8 +880,9 @@ class ServingEngine:
         (offloaded when they left the window). One batched put over
         every (layer, kind), then ``conn.sync()``: the pages are durable
         in the store before their pool pages can be reused. Under tp the
-        kv heads are gathered and tp rank 0 puts the whole pages; the
-        ranks' agreement on the outcome waits for its sync."""
+        kv heads are gathered and tp rank 0 puts the whole pages (under
+        ep ep rank 0 puts its own, whole); the ranks' agreement on the
+        outcome waits for its sync."""
         if (self.store is None or not self._store_ok
                 or not slot.work.req.cache):
             return
@@ -887,9 +905,9 @@ class ServingEngine:
                                                   digests=new_digests))
             pages = torch.stack([self.k_pages.index_select(1, sel),
                                  self.v_pages.index_select(1, sel)], dim=1)
-            if self.tp is not None:
-                pages = self.tp.gather_heads(pages)
-            if self.tp is None or self.tp.leader:
+            if self.par is not None and self.par.split_heads:
+                pages = self.par.gather_heads(pages)
+            if self.par is None or self.par.leader:
                 self._put_pages(keys,
                                 pages.reshape(-1, *cfg.kv_page_shape()))
                 self.store.conn.sync()

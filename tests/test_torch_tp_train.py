@@ -24,6 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.distributed as dist
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_tp_ranks
@@ -32,7 +33,8 @@ from infinistore_tpu.parallel import mesh as jmesh
 from infinistore_tpu_torch import _native, graft_entry, serving
 from infinistore_tpu_torch.models import llama as tl
 from infinistore_tpu_torch.models import moe
-from infinistore_tpu_torch.parallel.launch import run_ranks
+from infinistore_tpu_torch.parallel import mesh as pmesh
+from infinistore_tpu_torch.parallel.launch import free_port, run_ranks
 from infinistore_tpu_torch.parallel.mesh import TensorParallel
 
 CFG = tl.LlamaConfig(vocab_size=128, d_model=64, n_layers=2, n_heads=8,
@@ -194,23 +196,44 @@ def test_dryrun_multichip_reproduces_jax_loss(capsys):
 
 
 def test_tp_refuses_int8_weights_moe_and_indivisible_heads():
-    """What tensor parallelism does not take raises before any
-    collective: int8 weight leaves (the JAX rules leave them
-    replicated), the MoE's routed FFN (it waits for expert parallelism)
-    and head counts that do not divide by tp."""
-    tp = object.__new__(TensorParallel)  # the checks read tp alone
-    tp.tp = 2
+    """What tensor parallelism takes and what it still refuses. int8
+    weight leaves (placed by their parent's Megatron rule) and the MoE's
+    routed FFN (its router and experts replicated, as the JAX rules
+    leave them) now run under tp, here on a one-rank gloo mesh in this
+    process: the int8 prefill gives the single-device logits, the routed
+    stack returns, and a MoE engine on the mesh serves. Training over
+    int8 leaves still raises (``llama.trainable``, under the tp and the
+    FSDP placements alike), and so do head counts that do not divide by
+    tp, before any collective."""
     params = tl.init_params(torch.Generator().manual_seed(0), CFG, "cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(TypeError, match="int8"):
-        tl.prefill(tl.quantize_params(params, CFG), CFG, toks, tp=tp)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tl._forward_stack(params, CFG, toks, ffn=lambda layer, x: x, tp=tp)
+    quantized = tl.quantize_params(params, CFG)
     mcfg = moe.MoEConfig(dtype="float32")
     mparams = moe.init_params(torch.Generator().manual_seed(0), mcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        serving.ServingEngine(mparams, mcfg, model=moe, device="cpu",
-                              mesh=object())
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = pmesh.make_mesh(pmesh.MeshConfig(dp=1, tp=1), "cpu")
+        tp = TensorParallel(mesh)
+        got, _ = tl.prefill(quantized, CFG, toks, tp=tp)
+        want, _ = tl.prefill(quantized, CFG, toks)
+        assert torch.equal(got, want)
+        out, _ = tl._forward_stack(params, CFG, toks,
+                                   ffn=lambda layer, x: x, tp=tp)
+        assert out.shape == (1, 4, CFG.vocab_size)
+        eng = serving.ServingEngine(pmesh.shard_params(mesh, mparams), mcfg,
+                                    model=moe, device="cpu", mesh=mesh)
+        assert len(eng.run([serving.Request("r", [1, 2, 3], 2)])["r"]) == 2
+        for rule in (pmesh.param_shardings, pmesh.fsdp_param_shardings):
+            sharded = pmesh.shard_params(mesh, quantized,
+                                         rule(mesh, quantized))
+            with pytest.raises(TypeError, match="int8"):
+                tl.adamw(sharded, 1e-3)
+    finally:
+        dist.destroy_process_group()
+    with pytest.raises(TypeError, match="int8"):
+        tl.trainable(quantized)
+    tp = object.__new__(TensorParallel)  # the checks read tp alone
     tp.tp = 3
     with pytest.raises(ValueError, match="not divisible by tp=3"):
         tl.prefill(params, CFG, toks, tp=tp)

@@ -1,7 +1,7 @@
 """Rank functions of the port's sequence, pipeline, expert-parallel, pool
 and checkpoint tests (test_torch_ring_attention.py,
-test_torch_pipeline.py, test_torch_ep.py, test_torch_ici_pool.py,
-test_torch_checkpoint.py), spawned on the CPU over gloo by
+test_torch_pipeline.py, test_torch_ep.py, test_torch_moe_ep_serving.py,
+test_torch_ici_pool.py, test_torch_checkpoint.py), spawned on the CPU over gloo by
 ``infinistore_tpu_torch.parallel.launch.run_ranks``.
 
 Kept apart from the test files so that a spawned rank imports only torch
@@ -26,7 +26,8 @@ from infinistore_tpu_torch.parallel.ici_handoff import (IciKVPool,
                                                         make_pool_mesh)
 from infinistore_tpu_torch.utils import restore_train_state, save_train_state
 
-from torch_tp_ranks import flat_leaves, tree_map_numpy, tree_to_torch
+from torch_tp_ranks import (flat_leaves, model_steps, serve_legs,
+                            tree_map_numpy, tree_to_torch)
 
 
 def _groups(sizes):
@@ -116,6 +117,23 @@ def ep_step(rank, dev, dp, ep, cfg, tree, tokens):
              for name in ("e_gate", "e_up", "e_down", "router", "wq")}
     return {"loss": loss, "grads": grads, "local": local} if rank == 0 \
         else None
+
+
+def ep_serve_cases(rank, dev, ep, cfg, engine_cfg, tree, inputs, modes,
+                   reqs, offload_port, hit_port, hit_reqs):
+    """The MoE at ep on a (1, ep) mesh from the whole numpy tree: its
+    model steps under ``cfg`` on ``inputs`` (``torch_tp_ranks.
+    model_steps``, every rank holding every kv head) and the ep engine's
+    legs under ``engine_cfg`` (``torch_tp_ranks.serve_legs``: store-less
+    ``modes``, an offload into an empty store, hits on pages a
+    single-process engine wrote). Every rank returns (steps, legs)."""
+    mesh = tmoe.make_ep_mesh(1, ep, "cpu")
+    ctx = tmoe.ExpertParallel(mesh)
+    shards = tmoe.shard_params(mesh, tree_to_torch(tree))
+    steps = model_steps(tmoe, shards, cfg, inputs, ep=ctx)
+    legs = serve_legs(shards, engine_cfg, mesh, tmoe, modes, reqs,
+                      offload_port, hit_port, hit_reqs)
+    return steps, legs
 
 
 # -- the device KV pool -----------------------------------------------------
