@@ -25,41 +25,59 @@
 // per kv head, in k's dtype. A kv row no query sees (past a window, or in
 // a tile with no live q tile) gets exactly zero.
 //
-// The bf16 kernel (hd 32, 64, 128): one CTA owns 64 kv rows, with two
-// consumer warpgroups and one producer warpgroup. The producer loads the
-// CTA's K and V tiles once, then one (group member, live q tile) a stage
+// The bf16 kernel: one CTA owns 64 kv rows, with two consumer
+// warpgroups and one producer warpgroup. The producer loads the CTA's K
+// and V tiles once, then one (group member, live q tile) a stage
 // through a ring of shared-memory stages by TMA: its 64-row Q and dO
 // tiles (full / empty mbarriers, 128-byte swizzle, 64-byte at hd 32, out
 // of bounds zero fill). lse and D vary along the accumulators' columns,
 // so a second producer warp stages the 64 queries' values in shared
 // memory with each stage (read before the stage frees, arriving on its
 // full barrier): read from device memory by the consumers after each
-// product instead, their latency cost K6 a third of its time. The two
-// consumers take the stages in turn, each into its own dK and dV: under
-// a causal mask kv tile 0 has 32x the stages of the last, so splitting a
-// CTA's stages (and not its rows) keeps both consumers of the heavy
-// tiles busy, and two consumers on an SM hide each other's waits. Per
-// stage a consumer issues S^T = K Q^T and dP^T = V dO^T together on
-// wgmma (K-major operands, N = 64), forms P^T and dS^T on the
-// accumulator fragments in registers (masked pairs exactly 0, the mask
-// built only on boundary tiles) and packs both into bf16 register A
-// fragments, then issues dV += P^T dO and dK += dS^T Q on wgmma, reading
-// the same swizzled dO and Q tiles MN-major through the transpose bit.
-// S^T, P^T, dP^T and dS^T never pass through shared memory. A stage is
-// released once dK's product, the last to read its Q, has been waited
-// for. At the end consumer 1 hands its sums to consumer 0 through the
-// idle ring (a fixed order, so the result is the same on every run),
-// which writes dK and dV through the K and V tiles by TMA stores that
-// write no row past Skv. Kv tile 0, the heaviest under a causal mask,
-// launches first.
+// product instead, their latency cost K6 a third of its time. Per stage
+// a consumer issues S^T = K Q^T and dP^T = V dO^T together on wgmma
+// (K-major operands, N = 64), forms P^T and dS^T on the accumulator
+// fragments in registers (masked pairs exactly 0, the mask built only on
+// boundary tiles) and packs both into bf16 register A fragments, then
+// issues dV += P^T dO and dK += dS^T Q on wgmma, reading the same
+// swizzled dO and Q tiles MN-major through the transpose bit. S^T, P^T,
+// dP^T and dS^T never pass through shared memory. A stage is released
+// once dK's product, the last to read its Q, has been waited for. Kv
+// tile 0, the heaviest under a causal mask, launches first.
 //
-// The f32 variant, and bf16 at hd 256, keep flash_tile.cuh's tile loop
-// (wmma bf16, plain FMA loops for f32 so that f32 stays true f32): 4
-// warps of 16 kv rows, q tiles of 64 rows (32 for f32 at hd 256, so that
-// the tiles fit in shared memory). At hd 256 two f32 accumulators of the
-// whole head (128 registers each) would not fit beside the rest, so each
-// CTA of a pair (grid.z) recomputes S^T and dP^T over all 256 dims and
-// accumulates its own 128 columns of dK and dV.
+// How the consumers share the work depends on the head dim.
+// - hd 32, 64, 128: the two consumers take the stages in turn, each into
+//   its own dK and dV of the whole head: under a causal mask kv tile 0
+//   has 32x the stages of the last, so splitting a CTA's stages (and not
+//   its rows) keeps both consumers of the heavy tiles busy, and two
+//   consumers on an SM hide each other's waits. At the end consumer 1
+//   hands its sums to consumer 0 through the idle ring (a fixed order,
+//   so the result is the same on every run), which writes dK and dV
+//   through the K and V tiles by TMA stores that write no row past Skv.
+// - hd 256 (every D from 136 to 256): dK and dV of 64 rows x 256 would
+//   be 256 f32 registers a thread, so each consumer owns one half of the
+//   columns, dK[:, half] and dV[:, half] (128 registers), and both take
+//   every stage. Each recomputes S^T and dP^T over all 256 dims (32
+//   registers each): 1.5x the products of one pass, with no exchange
+//   through shared memory and no barrier between the two in the loop.
+//   The ring holds two stages (K and V 64 KB, a stage 64 KB). Each
+//   consumer writes its half through its half of the K and V tiles.
+//   Where the grid of ceil(Skv / 64) * B * KV CTAs is smaller than the
+//   card (Gemma-2B's one kv head: 32 CTAs on 132 SMs), each kv head's
+//   group of q heads is split into `splits` runs of heads (a divisor of
+//   the group, chosen by ops/flash_attention.py's k6_splits), one CTA
+//   each; the splits of one kv tile launch side by side. Each CTA then
+//   writes its f32 sums into a workspace, and a second small kernel adds
+//   the splits in split order and rounds to bf16: no atomics, and two
+//   launches are byte-equal.
+//
+// The f32 variant keeps flash_tile.cuh's tile loop (plain FMA loops, so
+// that f32 stays true f32): 4 warps of 16 kv rows, q tiles of 64 rows
+// (32 at hd 256, so that the tiles fit in shared memory). At hd 256 two
+// f32 accumulators of the whole head (128 registers each) would not fit
+// beside the rest, so each CTA of a pair (grid.z) recomputes S^T and
+// dP^T over all 256 dims and accumulates its own 128 columns of dK and
+// dV.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,12 +94,12 @@ using namespace istpu::tile;
 namespace hp = istpu::hopper;
 
 // ---------------------------------------------------------------------------
-// bf16 at hd <= 128: TMA ring and warp-specialised wgmma
+// bf16: TMA ring and warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 64;  // kv rows per CTA
 constexpr int kBQ = 64;    // q rows per stage
-constexpr int kNC = 2;     // consumer warpgroups, taking stages in turn
+constexpr int kNC = 2;     // consumer warpgroups
 constexpr int kSmemLimit = 232448;  // shared memory one block may use
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -92,6 +110,13 @@ struct Plan {
     // bf16 is BLOCKS column blocks of SW / 2 elements.
     static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;
     static constexpr int BLOCKS = HD * 2 / SW;
+    // hd 256: each consumer owns COLS = HD / 2 columns of dK and dV and
+    // reads every stage; else both own all HD and take the stages in
+    // turn.
+    static constexpr bool HALVES = HD > 128;
+    static constexpr int COLS = HALVES ? HD / 2 : HD;
+    static constexpr int COL_BLOCKS = COLS * 2 / SW;  // of one consumer
+    static constexpr int READERS = HALVES ? kNC : 1;  // consumers a stage
     static constexpr int KV_BYTES = kRows * HD * 2;   // K, and again V
     static constexpr int TILE_BYTES = kBQ * HD * 2;   // one Q or dO tile
     static constexpr int STAGE_BYTES = 2 * TILE_BYTES;  // by TMA
@@ -99,9 +124,11 @@ struct Plan {
     static constexpr int FIT = (kSmemLimit - 1024 - 256 - 2 * KV_BYTES) /
                                (STAGE_BYTES + ROW_BYTES);
     static constexpr int STAGES = FIT < 4 ? FIT : 4;
-    // Consumer c takes the stages i with i % kNC == c, so each ring slot
-    // serves one consumer.
-    static_assert(STAGES % kNC == 0, "ring slots split among consumers");
+    static_assert(STAGES >= 2, "the ring needs two stages");
+    // In turns, consumer c takes the stages i with i % kNC == c, so each
+    // ring slot serves one consumer.
+    static_assert(HALVES || STAGES % kNC == 0,
+                  "ring slots split among consumers");
     // 1024 bytes of room to align the tiles, the tiles, each stage's lse
     // and D, the barriers.
     static constexpr size_t bytes() {
@@ -127,20 +154,20 @@ __device__ __forceinline__ void issue_abt(float (&d)[32],
     }
 }
 
-// D[64 x HD] += A[64 x 64] B, issued but not waited for: A bf16 register
-// fragments, B a staged 64-row tile read MN-major (transposed), 16 of
-// its rows a step.
-template <int HD, int SW>
-__device__ __forceinline__ void issue_ab(float (&d)[HD / 2],
+// D[64 x N] += A[64 x 64] B, issued but not waited for: A bf16 register
+// fragments, B N columns of a staged 64-row tile (from column block 0 at
+// `b`) read MN-major (transposed), 16 of its rows a step.
+template <int N, int SW>
+__device__ __forceinline__ void issue_ab(float (&d)[N / 2],
                                          const uint32_t (&a)[kBQ / 16][4],
                                          const unsigned char* b) {
 #pragma unroll
     for (int kk = 0; kk < kBQ / 16; ++kk) {
         const uint64_t desc = hp::smem_desc(b + kk * 16 * SW, kBQ * SW,
                                             8 * SW, SW);
-        if constexpr (HD == 128) {
+        if constexpr (N == 128) {
             hp::wgmma_rs_n128(d, a[kk], desc, 1);
-        } else if constexpr (HD == 64) {
+        } else if constexpr (N == 64) {
             hp::wgmma_rs_n64(d, a[kk], desc, 1);
         } else {
             hp::wgmma_rs_n32(d, a[kk], desc, 1);
@@ -148,16 +175,16 @@ __device__ __forceinline__ void issue_ab(float (&d)[HD / 2],
     }
 }
 
-// Write a consumer's accumulator (rows of its warpgroup, f32 fragments)
-// as bf16 into its 64 rows of a swizzled tile (column blocks `blk` bytes
-// apart).
-template <int HD, int SW>
-__device__ __forceinline__ void stage_out(const float (&d)[HD / 2],
+// Write a consumer's accumulator of N columns (rows of its warpgroup, f32
+// fragments) as bf16 into its 64 rows of a swizzled tile (from column
+// block 0 at `rows`, blocks `blk` bytes apart).
+template <int N, int SW>
+__device__ __forceinline__ void stage_out(const float (&d)[N / 2],
                                           unsigned char* rows, int blk,
                                           int warp, int lane) {
     const int quad = lane % 4;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < N / 8; ++j) {
 #pragma unroll
         for (int hi = 0; hi < 2; ++hi) {
             const int r = warp * 16 + lane / 4 + 8 * hi;
@@ -172,6 +199,29 @@ __device__ __forceinline__ void stage_out(const float (&d)[HD / 2],
     }
 }
 
+// The f32 sums of a consumer's N columns (from column c0) straight to
+// device memory: `out` is a [B, Skv, KV, D] f32 tensor of the workspace.
+template <int N>
+__device__ __forceinline__ void store_partial(const float (&d)[N / 2],
+                                              float* out, int b, int kvh,
+                                              int k_start, int c0, int Skv,
+                                              int KV, int D, int warp,
+                                              int lane) {
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+            const int row = k_start + warp * 16 + lane / 4 + 8 * hi;
+            const int col = c0 + 8 * j + 2 * (lane % 4);
+            if (row < Skv && col < D) {
+                *reinterpret_cast<float2*>(
+                    out + (((size_t)b * Skv + row) * KV + kvh) * D + col) =
+                    make_float2(d[4 * j + 2 * hi], d[4 * j + 2 * hi + 1]);
+            }
+        }
+    }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(Plan<HD>::THREADS, 1)
 flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
@@ -181,9 +231,10 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                            __grid_constant__ const CUtensorMap dkmap,
                            __grid_constant__ const CUtensorMap dvmap,
                            const float* __restrict__ lse,
-                           const float* __restrict__ dvec, int Sq, int Skv,
-                           int H, int KV, int causal, int window,
-                           float scale) {
+                           const float* __restrict__ dvec,
+                           float* __restrict__ partial, int splits, int Sq,
+                           int Skv, int H, int KV, int D, int causal,
+                           int window, float scale) {
     using P = Plan<HD>;
     constexpr int SW = P::SW;
 
@@ -202,16 +253,24 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     uint64_t* const full = kv_full + 1;
     uint64_t* const empty = full + P::STAGES;
 
-    const int b = blockIdx.x / KV;
-    const int kvh = blockIdx.x % KV;
+    // The splits of one (batch, kv head) are neighbours in x, so the
+    // splits of one kv tile launch side by side.
+    const int split = blockIdx.x % splits;
+    const int b = blockIdx.x / splits / KV;
+    const int kvh = blockIdx.x / splits % KV;
     const int group = H / KV;
+    // This CTA's run of the group's q heads: members [g_lo, g_lo +
+    // members).
+    const int g_lo = split * group / splits;
+    const int members = (split + 1) * group / splits - g_lo;
     // Kv tile 0 first: under a causal mask it sees the most q tiles.
     const int k_start = blockIdx.y * kRows;
     int qt_begin, qt_end;
     q_tiles<kBQ, kRows>(k_start, Sq, Skv, causal, window, qt_begin, qt_end);
-    // The walk: stage i is group member i / n_qt, q tile qt_begin + i % n_qt.
+    // The walk: stage i is member g_lo + i / n_qt, q tile qt_begin + i %
+    // n_qt.
     const int n_qt = qt_end - qt_begin;
-    const int stages = group * n_qt;
+    const int stages = members * n_qt;
 
     if (threadIdx.x == 0) {
         hp::mbar_init(kv_full, 1);
@@ -219,7 +278,8 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
             // The TMA thread's arrival, and one from each lane of the
             // warp that stages lse and D.
             hp::mbar_init(&full[s], 1 + 32);
-            hp::mbar_init(&empty[s], 4);  // one arrival per consumer warp
+            // One arrival per warp of each consumer that reads the stage.
+            hp::mbar_init(&empty[s], 4 * P::READERS);
         }
         hp::fence_barrier_init();
     }
@@ -240,7 +300,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
             int stage = 0;
             uint32_t phase = 0;
             for (int i = 0; i < stages; ++i) {
-                const int h = kvh * group + i / n_qt;
+                const int h = kvh * group + g_lo + i / n_qt;
                 const int q_start = (qt_begin + i % n_qt) * kBQ;
                 hp::mbar_wait(&empty[stage], phase ^ 1);
                 hp::mbar_expect_tx(&full[stage], P::STAGE_BYTES);
@@ -264,7 +324,7 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
             int stage = 0;
             uint32_t phase = 0;
             for (int i = 0; i < stages; ++i) {
-                const int h = kvh * group + i / n_qt;
+                const int h = kvh * group + g_lo + i / n_qt;
                 const int col = (qt_begin + i % n_qt) * kBQ + 2 * lane;
                 const size_t row0 = ((size_t)b * H + h) * Sq;
                 float l2[2], dd[2];
@@ -288,20 +348,26 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
             }
         }
     } else {
-        // ---- consumer wg: stages wg, wg + kNC, ... ----
+        // ---- consumer wg: in turns, stages wg, wg + kNC, ...; in
+        // halves, every stage, into columns [c0, c0 + COLS) ----
         hp::regs_alloc<240>();
         const int warp = (threadIdx.x / 32) % 4;
         const int lane = threadIdx.x % 32;
         const int quad = lane % 4;
         const int kr_lo = k_start + warp * 16 + lane / 4;  // and kr_lo + 8
         const float scale_log2 = scale * kLog2e;
+        const int c0 = P::HALVES ? wg * P::COLS : 0;
+        // This consumer's column blocks of a tile start c0 * 2 / SW
+        // blocks in: at byte `half` of a 64-row tile.
+        const int half = c0 * 2 / SW * kBQ * SW;
 
-        float dk[HD / 2], dv[HD / 2];
+        float dk[P::COLS / 2], dv[P::COLS / 2];
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.0f;
+        for (int i = 0; i < P::COLS / 2; ++i) dk[i] = dv[i] = 0.0f;
 
         hp::mbar_wait(kv_full, 0);
-        for (int i = wg; i < stages; i += kNC) {
+        for (int i = P::HALVES ? 0 : wg; i < stages;
+             i += P::HALVES ? 1 : kNC) {
             const int stage = i % P::STAGES;
             const uint32_t phase = (i / P::STAGES) & 1;
             const int q_start = (qt_begin + i % n_qt) * kBQ;
@@ -364,8 +430,8 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
             hp::fence_regs(dv);
             hp::fence_regs(dk);
             hp::wgmma_fence();
-            issue_ab<HD, SW>(dv, pa, sdO);
-            issue_ab<HD, SW>(dk, da, sQ);
+            issue_ab<P::COLS, SW>(dv, pa, sdO + half);
+            issue_ab<P::COLS, SW>(dk, da, sQ + half);
             hp::wgmma_commit();
             hp::wgmma_wait<0>();
             hp::fence_regs(dv);
@@ -373,55 +439,125 @@ flash_bwd_dkv_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
             if (lane == 0) hp::mbar_arrive(&empty[stage]);
         }
 
-        // The group sum of both consumers, consumer 1's through the ring,
-        // idle once both are past their last stage: same order on every
-        // run.
-        float* const red = reinterpret_cast<float*>(sQD);
-        const int t = threadIdx.x % 128;
-        hp::named_barrier(3, 256);
-        if (wg == 1) {
+        if constexpr (P::HALVES) {
+            if (partial != nullptr) {
+                // ---- epilogue of one split: f32 sums to the workspace,
+                // [split][dk, dv][B, Skv, KV, D] ----
+                const size_t n = (size_t)(gridDim.x / splits) * Skv * D;
+                float* const pk = partial + (size_t)split * 2 * n;
+                store_partial<P::COLS>(dk, pk, b, kvh, k_start, c0, Skv, KV,
+                                       D, warp, lane);
+                store_partial<P::COLS>(dv, pk + n, b, kvh, k_start, c0, Skv,
+                                       KV, D, warp, lane);
+                return;
+            }
+            // ---- epilogue (each consumer its half): dK and dV through
+            // its half of the K and V tiles, once both consumers' wgmma
+            // have read all of them ----
+            hp::named_barrier(3, 256);
+            const int blk0 = c0 * 2 / SW;
+            stage_out<P::COLS, SW>(dk, sK + blk0 * kRows * SW, kRows * SW,
+                                   warp, lane);
+            stage_out<P::COLS, SW>(dv, sV + blk0 * kRows * SW, kRows * SW,
+                                   warp, lane);
+            hp::fence_async_shared();
+            hp::named_barrier(1 + wg, 128);
+            if (threadIdx.x % 128 == 0) {
+                // Column blocks wholly past D hold zeros: not stored.
+                for (int c = blk0;
+                     c < blk0 + P::COL_BLOCKS && c * SW / 2 < D; ++c) {
+                    hp::tma_store_4d(&dkmap, sK + c * kRows * SW,
+                                     c * SW / 2, kvh, k_start, b);
+                    hp::tma_store_4d(&dvmap, sV + c * kRows * SW,
+                                     c * SW / 2, kvh, k_start, b);
+                }
+                hp::tma_store_commit();
+                hp::tma_store_wait_read();
+            }
+        } else {
+            // The group sum of both consumers, consumer 1's through the
+            // ring, idle once both are past their last stage: same order
+            // on every run.
+            float* const red = reinterpret_cast<float*>(sQD);
+            const int t = threadIdx.x % 128;
+            hp::named_barrier(3, 256);
+            if (wg == 1) {
+#pragma unroll
+                for (int i = 0; i < HD / 2; ++i) {
+                    red[i * 128 + t] = dk[i];
+                    red[(HD / 2 + i) * 128 + t] = dv[i];
+                }
+            }
+            hp::named_barrier(3, 256);
+            if (wg == 1) return;
 #pragma unroll
             for (int i = 0; i < HD / 2; ++i) {
-                red[i * 128 + t] = dk[i];
-                red[(HD / 2 + i) * 128 + t] = dv[i];
+                dk[i] += red[i * 128 + t];
+                dv[i] += red[(HD / 2 + i) * 128 + t];
             }
-        }
-        hp::named_barrier(3, 256);
-        if (wg == 1) return;
-#pragma unroll
-        for (int i = 0; i < HD / 2; ++i) {
-            dk[i] += red[i * 128 + t];
-            dv[i] += red[(HD / 2 + i) * 128 + t];
-        }
 
-        // ---- epilogue (consumer 0): dK and dV through the K and V tiles
-        hp::named_barrier(1, 128);  // every warp's wgmma has read K and V
-        stage_out<HD, SW>(dk, sK, kRows * SW, warp, lane);
-        stage_out<HD, SW>(dv, sV, kRows * SW, warp, lane);
-        hp::fence_async_shared();
-        hp::named_barrier(1, 128);
-        if (threadIdx.x == 0) {
-            for (int c = 0; c < P::BLOCKS; ++c) {
-                hp::tma_store_4d(&dkmap, sK + c * kRows * SW, c * SW / 2,
-                                 kvh, k_start, b);
-                hp::tma_store_4d(&dvmap, sV + c * kRows * SW, c * SW / 2,
-                                 kvh, k_start, b);
+            // ---- epilogue (consumer 0): dK and dV through the K and V
+            // tiles
+            hp::named_barrier(1, 128);  // every warp's wgmma has read K, V
+            stage_out<HD, SW>(dk, sK, kRows * SW, warp, lane);
+            stage_out<HD, SW>(dv, sV, kRows * SW, warp, lane);
+            hp::fence_async_shared();
+            hp::named_barrier(1, 128);
+            if (threadIdx.x == 0) {
+                for (int c = 0; c < P::BLOCKS; ++c) {
+                    hp::tma_store_4d(&dkmap, sK + c * kRows * SW, c * SW / 2,
+                                     kvh, k_start, b);
+                    hp::tma_store_4d(&dvmap, sV + c * kRows * SW, c * SW / 2,
+                                     kvh, k_start, b);
+                }
+                hp::tma_store_commit();
+                hp::tma_store_wait_read();
             }
-            hp::tma_store_commit();
-            hp::tma_store_wait_read();
         }
     }
 }
 
+// dk and dv [n elements each, bf16] = the workspace's splits [split][dk,
+// dv][n] (f32) added in split order: four elements a thread a step.
+__global__ void flash_bwd_dkv_sum_kernel(const float* __restrict__ partial,
+                                         int splits, size_t n,
+                                         __nv_bfloat16* __restrict__ dk,
+                                         __nv_bfloat16* __restrict__ dv) {
+    const size_t step = (size_t)gridDim.x * blockDim.x * 4;
+    for (size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+         i < 2 * n; i += step) {
+        float4 acc = *reinterpret_cast<const float4*>(partial + i);
+        for (int p = 1; p < splits; ++p) {
+            const float4 x = *reinterpret_cast<const float4*>(
+                partial + (size_t)p * 2 * n + i);
+            acc.x += x.x;
+            acc.y += x.y;
+            acc.z += x.z;
+            acc.w += x.w;
+        }
+        __nv_bfloat16* const out = i < n ? dk + i : dv + (i - n);
+        const __nv_bfloat162 lo = __floats2bfloat162_rn(acc.x, acc.y);
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(acc.z, acc.w);
+        *reinterpret_cast<uint2*>(out) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                       *reinterpret_cast<const uint32_t*>(&hi));
+    }
+}
+
 // The tensor maps take the tensors' own D as their innermost dim (zero
-// fill past it on load, clipped on store), as K1's do.
+// fill past it on load, clipped on store), as K1's do. `splits` > 1
+// (hd 256 only) needs `partial`, f32 [splits, 2, B, Skv, KV, D].
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* dvec,
-                 void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-                 int D, float scale, int causal, int window,
-                 cudaStream_t stream) {
+                 void* dk, void* dv, float* partial, int splits, int B,
+                 int Sq, int Skv, int H, int KV, int D, float scale,
+                 int causal, int window, cudaStream_t stream) {
     using P = Plan<HD>;
+    if (splits < 1 || (H / KV) % splits != 0 ||
+        (splits > 1 && (!P::HALVES || partial == nullptr))) {
+        return (int)cudaErrorInvalidValue;
+    }
     CUtensorMap qm, km, vm, dom, dkm, dvm;
     if (!hp::tensor_map(&qm, q, B, Sq, H, D, kBQ, P::SW) ||
         !hp::tensor_map(&km, k, B, Skv, KV, D, kRows, P::SW) ||
@@ -435,15 +571,25 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P::bytes());
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid(B * KV, (Skv + kRows - 1) / kRows);
+    const dim3 grid(B * KV * splits, (Skv + kRows - 1) / kRows);
     kern<<<grid, P::THREADS, P::bytes(), stream>>>(
-        qm, km, vm, dom, dkm, dvm, lse, dvec, Sq, Skv, H, KV, causal, window,
-        scale);
+        qm, km, vm, dom, dkm, dvm, lse, dvec,
+        splits > 1 ? partial : nullptr, splits, Sq, Skv, H, KV, D, causal,
+        window, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || splits == 1) return (int)err;
+    const size_t n = (size_t)B * Skv * KV * D;
+    const size_t quads = 2 * n / 4;
+    const int blocks = (int)(quads < 1024 * 256 ? (quads + 255) / 256
+                                                : 1024);
+    flash_bwd_dkv_sum_kernel<<<blocks, 256, 0, stream>>>(
+        partial, splits, n, static_cast<__nv_bfloat16*>(dk),
+        static_cast<__nv_bfloat16*>(dv));
     return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// f32, and bf16 at hd 256: flash_tile.cuh's tile loop
+// f32: flash_tile.cuh's tile loop
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
@@ -579,27 +725,27 @@ int launch_tile(const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
 }
 
-// bf16: the wgmma kernel at hd <= 128, the tile loop at hd 256.
+// bf16: the wgmma kernel at every capacity.
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
-                void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-                int D, float scale, int causal, int window, cudaStream_t s) {
-    if constexpr (HD > 128) {
-        return launch_tile<__nv_bfloat16, HD>(q, k, v, dout, lse, dvec, dk,
-                                              dv, B, Sq, Skv, H, KV, D,
-                                              scale, causal, window, s);
-    } else {
-        return launch_wgmma<HD>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,
-                                Skv, H, KV, D, scale, causal, window, s);
-    }
+                void* dk, void* dv, float* partial, int splits, int B,
+                int Sq, int Skv, int H, int KV, int D, float scale,
+                int causal, int window, cudaStream_t s) {
+    return launch_wgmma<HD>(q, k, v, dout, lse, dvec, dk, dv, partial,
+                            splits, B, Sq, Skv, H, KV, D, scale, causal,
+                            window, s);
 }
 
+// f32: the tile loop, whose grid has no split of the group.
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v,
                const void* dout, const float* lse, const float* dvec,
-               void* dk, void* dv, int B, int Sq, int Skv, int H, int KV,
-               int D, float scale, int causal, int window, cudaStream_t s) {
+               void* dk, void* dv, float* partial, int splits, int B,
+               int Sq, int Skv, int H, int KV, int D, float scale,
+               int causal, int window, cudaStream_t s) {
+    (void)partial;
+    if (splits != 1) return (int)cudaErrorInvalidValue;
     return launch_tile<float, HD>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,
                                   Skv, H, KV, D, scale, causal, window, s);
 }
@@ -609,25 +755,33 @@ int launch_f32(const void* q, const void* k, const void* v,
 // q/dout [B, Sq, H, D], k/v/dk/dv [B, Skv, KV, D], bf16 (is_bf16 = 1) or
 // f32, D a multiple of 8 up to 256; scale, lse and dvec as in
 // istpu_flash_bwd_dq; all contiguous. dk and dv are summed over each kv
-// head's group of q heads. Returns cudaGetLastError().
+// head's group of q heads. splits: runs the group's q heads are cut into
+// (a divisor of H / KV; more than 1 only for bf16 at D > 128), whose
+// f32 sums go to `partial`, f32 [splits, 2, B, Skv, KV, D] (null for
+// one split), and are added in split order. Returns cudaGetLastError().
 extern "C" int istpu_flash_bwd_dkv(const void* q, const void* k,
                                    const void* v, const void* dout,
                                    const float* lse, const float* dvec,
-                                   void* dk, void* dv, int is_bf16, int B,
-                                   int Sq, int Skv, int H, int KV, int D,
+                                   void* dk, void* dv, float* partial,
+                                   int splits, int is_bf16, int B, int Sq,
+                                   int Skv, int H, int KV, int D,
                                    float scale, int causal, int window,
                                    void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define ISTPU_HD(fn)                                                        \
     switch (istpu::head_dim_capacity(D)) {                                  \
-        case 32: return fn<32>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,     \
-                               Skv, H, KV, D, scale, causal, window, s);    \
-        case 64: return fn<64>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,     \
-                               Skv, H, KV, D, scale, causal, window, s);    \
-        case 128: return fn<128>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,   \
-                                 Skv, H, KV, D, scale, causal, window, s);  \
-        case 256: return fn<256>(q, k, v, dout, lse, dvec, dk, dv, B, Sq,   \
-                                 Skv, H, KV, D, scale, causal, window, s);  \
+        case 32: return fn<32>(q, k, v, dout, lse, dvec, dk, dv, partial,   \
+                               splits, B, Sq, Skv, H, KV, D, scale, causal, \
+                               window, s);                                  \
+        case 64: return fn<64>(q, k, v, dout, lse, dvec, dk, dv, partial,   \
+                               splits, B, Sq, Skv, H, KV, D, scale, causal, \
+                               window, s);                                  \
+        case 128: return fn<128>(q, k, v, dout, lse, dvec, dk, dv, partial, \
+                                 splits, B, Sq, Skv, H, KV, D, scale,       \
+                                 causal, window, s);                        \
+        case 256: return fn<256>(q, k, v, dout, lse, dvec, dk, dv, partial, \
+                                 splits, B, Sq, Skv, H, KV, D, scale,       \
+                                 causal, window, s);                        \
         default: return (int)cudaErrorInvalidValue;                         \
     }
     if (is_bf16) {

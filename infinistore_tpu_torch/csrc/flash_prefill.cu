@@ -18,7 +18,7 @@
 // and loops over the live kv tiles itself. The CTA is NC consumer
 // warpgroups (64 query rows each) and one producer warpgroup, which
 // gives its registers to the consumers (setmaxnreg). One producer thread
-// loads the Q tile once and the 128-row K and V tiles through a ring of
+// loads the Q tile once and the K and V tiles (BK rows) through a ring of
 // STAGES shared-memory stages by TMA, each stage with a "full" barrier
 // (bytes landed) and an "empty" one (every consumer warp done with it),
 // so the next tiles are in flight while the consumers compute. Tensor
@@ -45,11 +45,20 @@
 // softmax) needs more than the 240 registers setmaxnreg gives it or
 // makes ptxas serialise the wgmma (note C7513), and ran slower.
 //
+// The tile sizes per head dim (Plan). At hd <= 128 a kv tile is 128
+// rows (kBK): S takes 64 registers a consumer thread and P's bf16 A
+// fragments 32 beside O's hd / 2. At hd 256 O [64 x 256] in f32 alone is
+// 128 registers a thread, so a kv tile is 64 rows (kBKWide): S 32 and P
+// 16 registers, which fit beside O in 240. O is then two accumulators of
+// 128 columns, and P V is issued as two N = 128 products over V's two
+// halves of column blocks. Shared memory at hd 256: Q for two consumers
+// is 64 KB and one K + V stage 64 KB, so the ring has two stages (three
+// for one consumer). Every D from 136 to 256 runs here: the column
+// blocks past D are zero-filled on load and not stored.
+//
 // The f32 variant is the 64 x 64 tile fold of flash_tile.cuh with plain
 // FMA loops, so f32 stays true f32 (no TF32); at hd 256 its kv tiles are
-// 32 rows, so that they fit in shared memory. bf16 at hd 256 takes the
-// same tile fold on wmma: the consumer plan above cannot hold O (128
-// registers a thread) beside S and P in 240.
+// 32 rows, so that they fit in shared memory.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,25 +78,32 @@ namespace hp = istpu::hopper;
 // bf16: TMA ring and warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 64;   // query rows per consumer warpgroup
-constexpr int kBK = 128;    // kv rows per tile
+constexpr int kRows = 64;     // query rows per consumer warpgroup
+constexpr int kBK = 128;      // kv rows per tile at hd <= 128
+constexpr int kBKWide = 64;   // kv rows per tile at hd 256
 constexpr int kSmemLimit = 232448;  // shared memory one block may use
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int HD, int NC>
 struct Plan {
     static constexpr int BQ = NC * kRows;  // query rows per CTA
+    static constexpr int BK = HD > 128 ? kBKWide : kBK;  // kv rows a tile
     static constexpr int THREADS = (NC + 1) * 128;
     // Swizzle width = bytes of one row of a column block; a row of HD
     // bf16 is BLOCKS column blocks of SW / 2 elements.
     static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;
     static constexpr int BLOCKS = HD * 2 / SW;
+    // O's accumulators: OH parts of ON columns, one P V wgmma (N = ON)
+    // each.
+    static constexpr int OH = HD > 128 ? 2 : 1;
+    static constexpr int ON = HD / OH;
     static constexpr int Q_BYTES = BQ * HD * 2;
-    static constexpr int TILE_BYTES = kBK * HD * 2;  // one K or V tile
+    static constexpr int TILE_BYTES = BK * HD * 2;  // one K or V tile
     static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
     static constexpr int FIT = (kSmemLimit - 1024 - 256 - Q_BYTES) /
                                STAGE_BYTES;
     static constexpr int STAGES = FIT < 4 ? FIT : 4;
+    static_assert(STAGES >= 2, "the ring needs two stages");
     // 1024 bytes of room to align the tiles, the tiles, the barriers.
     static constexpr size_t bytes() {
         return 1024 + Q_BYTES + (size_t)STAGES * STAGE_BYTES +
@@ -95,39 +111,50 @@ struct Plan {
     }
 };
 
-// S[64 x kBK] += Q K^T for one consumer's rows, issued but not waited
+// S[64 x BK] += Q K^T for one consumer's rows, issued but not waited
 // for: 16 head-dim columns (32 bytes) a step. q: the consumer's rows of
 // column block 0 (blocks `q_blk` bytes apart); k: the staged K tile.
-template <int HD, int SW>
-__device__ __forceinline__ void issue_scores(float (&s)[kBK / 2],
+template <int HD, int SW, int BK>
+__device__ __forceinline__ void issue_scores(float (&s)[BK / 2],
                                              const unsigned char* q,
                                              int q_blk,
                                              const unsigned char* k) {
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
         const int blk = kk * 32 / SW, off = kk * 32 % SW;
-        hp::wgmma_ss_n128(
-            s, hp::smem_desc(q + blk * q_blk + off, 16, 8 * SW, SW),
-            hp::smem_desc(k + blk * kBK * SW + off, 16, 8 * SW, SW), 1);
+        const uint64_t a = hp::smem_desc(q + blk * q_blk + off, 16, 8 * SW,
+                                         SW);
+        const uint64_t b = hp::smem_desc(k + blk * BK * SW + off, 16,
+                                         8 * SW, SW);
+        if constexpr (BK == 128) {
+            hp::wgmma_ss_n128(s, a, b, 1);
+        } else {
+            hp::wgmma_ss_n64(s, a, b, 1);
+        }
     }
 }
 
-// O[64 x HD] += P[64 x kBK] V, issued but not waited for: 16 keys (16
-// rows of the staged V tile) a step.
-template <int HD, int SW>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&pa)[kBK / 16][4],
+// O[64 x HD] += P[64 x BK] V, issued but not waited for: 16 keys (16
+// rows of the staged V tile) a step, one wgmma per part of O (part h
+// reads V's column blocks from h * ON * 2 / SW on).
+template <int HD, int SW, int BK, int OH, int ON>
+__device__ __forceinline__ void issue_pv(float (&o)[OH][ON / 2],
+                                         const uint32_t (&pa)[BK / 16][4],
                                          const unsigned char* v) {
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t d = hp::smem_desc(v + kk * 16 * SW, kBK * SW, 8 * SW,
-                                         SW);
-        if constexpr (HD == 128) {
-            hp::wgmma_rs_n128(o, pa[kk], d, 1);
-        } else if constexpr (HD == 64) {
-            hp::wgmma_rs_n64(o, pa[kk], d, 1);
-        } else {
-            hp::wgmma_rs_n32(o, pa[kk], d, 1);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int h = 0; h < OH; ++h) {
+            const uint64_t d = hp::smem_desc(
+                v + h * (ON * 2 / SW) * BK * SW + kk * 16 * SW, BK * SW,
+                8 * SW, SW);
+            if constexpr (ON == 128) {
+                hp::wgmma_rs_n128(o[h], pa[kk], d, 1);
+            } else if constexpr (ON == 64) {
+                hp::wgmma_rs_n64(o[h], pa[kk], d, 1);
+            } else {
+                hp::wgmma_rs_n32(o[h], pa[kk], d, 1);
+            }
         }
     }
 }
@@ -138,13 +165,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
 // row sum l, returns in alpha the factor that rescales the sums so far,
 // and writes P in bf16 as the A fragments of the P V steps (key pair
 // (i, i + 1) to step i / 8, register (i / 2) % 4).
+template <int BK>
 __device__ __forceinline__ void softmax_tile(
-    float (&s)[kBK / 2], uint32_t (&pa)[kBK / 16][4], float (&m)[2],
+    float (&s)[BK / 2], uint32_t (&pa)[BK / 16][4], float (&m)[2],
     float (&l)[2], float (&alpha)[2], bool interior, int r_lo, int k_start,
     int quad, int Sq, int Skv, int causal, int window, float scale_log2) {
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
-    for (int i = 0; i < kBK / 2; ++i) {
+    for (int i = 0; i < BK / 2; ++i) {
         const int hi = (i >> 1) & 1;
         float x = s[i] * scale_log2;
         if (!interior &&
@@ -165,7 +193,7 @@ __device__ __forceinline__ void softmax_tile(
         l[hi] *= alpha[hi];
     }
 #pragma unroll
-    for (int i = 0; i < kBK / 2; i += 2) {
+    for (int i = 0; i < BK / 2; i += 2) {
         const int hi = (i >> 1) & 1;
         const float p0 = exp2f(s[i] - m[hi]);
         const float p1 = exp2f(s[i + 1] - m[hi]);
@@ -182,10 +210,10 @@ flash_prefill_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                            __grid_constant__ const CUtensorMap vmap,
                            __grid_constant__ const CUtensorMap omap,
                            float* __restrict__ lse, int Sq, int Skv, int H,
-                           int KV, int causal, int window,
+                           int KV, int D, int causal, int window,
                            float scale_log2) {
     using P = Plan<HD, NC>;
-    constexpr int SW = P::SW;
+    constexpr int SW = P::SW, BK = P::BK;
 
     extern __shared__ unsigned char smem_raw[];
     unsigned char* const sQ =
@@ -206,7 +234,7 @@ flash_prefill_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     // kv tiles under a causal mask.
     const int q_start = (gridDim.y - 1 - blockIdx.y) * P::BQ;
     int kt_begin, kt_end;
-    kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
+    kv_tiles<P::BQ, BK>(q_start, Sq, Skv, causal, window, kt_begin, kt_end);
 
     if (threadIdx.x == 0) {
         hp::mbar_init(q_full, 1);
@@ -236,10 +264,10 @@ flash_prefill_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                 unsigned char* const sK = sKV + stage * P::STAGE_BYTES;
                 unsigned char* const sV = sK + P::TILE_BYTES;
                 for (int c = 0; c < P::BLOCKS; ++c) {
-                    hp::tma_load_4d(sK + c * kBK * SW, &kmap, &full[stage],
-                                    c * SW / 2, kvh, kt * kBK, b);
-                    hp::tma_load_4d(sV + c * kBK * SW, &vmap, &full[stage],
-                                    c * SW / 2, kvh, kt * kBK, b);
+                    hp::tma_load_4d(sK + c * BK * SW, &kmap, &full[stage],
+                                    c * SW / 2, kvh, kt * BK, b);
+                    hp::tma_load_4d(sV + c * BK * SW, &vmap, &full[stage],
+                                    c * SW / 2, kvh, kt * BK, b);
                 }
                 if (++stage == P::STAGES) {
                     stage = 0;
@@ -258,39 +286,49 @@ flash_prefill_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
         // This consumer's Q rows in column block c: qc + c * BQ * SW.
         unsigned char* const qc = sQ + wg * kRows * SW;
 
-        float o[HD / 2];
+        // O's column c is part c / ON, o[c / ON][4 (c % ON / 8) + ...].
+        float o[P::OH][P::ON / 2];
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) o[i] = 0.0f;
+        for (int oh = 0; oh < P::OH; ++oh) {
+#pragma unroll
+            for (int i = 0; i < P::ON / 2; ++i) o[oh][i] = 0.0f;
+        }
         float m[2] = {kNegInf, kNegInf};
         float l[2] = {0.0f, 0.0f};  // this lane's part of the row sums
 
         const auto tile = [&](int st) { return sKV + st * P::STAGE_BYTES; };
-        uint32_t pa[kBK / 16][4];
+        uint32_t pa[BK / 16][4];
         float alpha[2];
         int stage = 0;
         uint32_t phase = 0;
         hp::mbar_wait(q_full, 0);
         for (int kt = kt_begin; kt < kt_end; ++kt) {
-            float s[kBK / 2];
+            float s[BK / 2];
 #pragma unroll
-            for (int i = 0; i < kBK / 2; ++i) s[i] = 0.0f;
+            for (int i = 0; i < BK / 2; ++i) s[i] = 0.0f;
             hp::fence_regs(s);
             hp::mbar_wait(&full[stage], phase);
             hp::wgmma_fence();
-            issue_scores<HD, SW>(s, qc, P::BQ * SW, tile(stage));
+            issue_scores<HD, SW, BK>(s, qc, P::BQ * SW, tile(stage));
             hp::wgmma_commit();
             hp::wgmma_wait<0>();
             hp::fence_regs(s);
-            softmax_tile(s, pa, m, l, alpha,
-                         interior_tile<kRows, kBK>(row0, kt * kBK, Sq, Skv,
-                                                   causal, window),
-                         r_lo, kt * kBK, quad, Sq, Skv, causal, window,
-                         scale_log2);
+            softmax_tile<BK>(s, pa, m, l, alpha,
+                             interior_tile<kRows, BK>(row0, kt * BK, Sq, Skv,
+                                                      causal, window),
+                             r_lo, kt * BK, quad, Sq, Skv, causal, window,
+                             scale_log2);
 #pragma unroll
-            for (int i = 0; i < HD / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+            for (int oh = 0; oh < P::OH; ++oh) {
+#pragma unroll
+                for (int i = 0; i < P::ON / 2; ++i) {
+                    o[oh][i] *= alpha[(i >> 1) & 1];
+                }
+            }
             hp::fence_regs(o);
             hp::wgmma_fence();
-            issue_pv<HD, SW>(o, pa, tile(stage) + P::TILE_BYTES);
+            issue_pv<HD, SW, BK, P::OH, P::ON>(o, pa,
+                                                tile(stage) + P::TILE_BYTES);
             hp::wgmma_commit();
             hp::wgmma_wait<0>();
             hp::fence_regs(o);
@@ -318,16 +356,19 @@ flash_prefill_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                 const int off = r * SW + byte % SW;
                 const int swz =
                     off ^ (((off >> 7) & (SW == 128 ? 7 : 3)) << 4);
+                const int part = j / (P::ON / 8);
+                const int x = 4 * (j % (P::ON / 8)) + 2 * hi;
                 *reinterpret_cast<__nv_bfloat162*>(
                     qc + byte / SW * P::BQ * SW + swz) =
-                    __floats2bfloat162_rn(o[4 * j + 2 * hi] * inv[hi],
-                                          o[4 * j + 2 * hi + 1] * inv[hi]);
+                    __floats2bfloat162_rn(o[part][x] * inv[hi],
+                                          o[part][x + 1] * inv[hi]);
             }
         }
         hp::fence_async_shared();
         hp::named_barrier(1 + wg, 128);
         if (threadIdx.x % 128 == 0) {
-            for (int c = 0; c < P::BLOCKS; ++c) {
+            // Column blocks wholly past D hold zeros: not stored.
+            for (int c = 0; c < P::BLOCKS && c * SW / 2 < D; ++c) {
                 hp::tma_store_4d(&omap, qc + c * P::BQ * SW, c * SW / 2, h,
                                  row0, b);
             }
@@ -351,7 +392,7 @@ flash_prefill_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
 }
 
 // ---------------------------------------------------------------------------
-// f32, and bf16 at hd 256: flash_tile.cuh's tile fold
+// f32: flash_tile.cuh's tile fold
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
@@ -392,8 +433,6 @@ flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     RowState<HD> st;
 
     __syncthreads();
-    QRegs<T, HD> qf;
-    qf.load(sm.Q, warp);
 
     for (int kt = kt_begin; kt < kt_end; ++kt) {
         const int k_start = kt * TK;
@@ -404,7 +443,7 @@ flash_prefill_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
         const bool interior = interior_tile<BQ, TK>(q_start, k_start, Sq,
                                                     Skv, causal, window);
-        fold_tile<T, HD>(qf, sm, warp, lane, scale, interior,
+        fold_tile<T, HD>(sm, warp, lane, scale, interior,
                          [&](int col) {
                              return keeps(pos_q, k_start + col, Sq, Skv,
                                           causal, window);
@@ -453,7 +492,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // The tensor maps take the tensors' own D as their innermost dim: a
 // column block that reaches past D is zero-filled on load and clipped on
-// store, so the capacity HD needs no padded copy.
+// store (one wholly past D is not stored), so the capacity HD needs no
+// padded copy.
 template <int HD, int NC>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int Sq, int Skv, int H, int KV, int D,
@@ -461,8 +501,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     using P = Plan<HD, NC>;
     CUtensorMap qm, km, vm, om;
     if (!hp::tensor_map(&qm, q, B, Sq, H, D, P::BQ, P::SW) ||
-        !hp::tensor_map(&km, k, B, Skv, KV, D, kBK, P::SW) ||
-        !hp::tensor_map(&vm, v, B, Skv, KV, D, kBK, P::SW) ||
+        !hp::tensor_map(&km, k, B, Skv, KV, D, P::BK, P::SW) ||
+        !hp::tensor_map(&vm, v, B, Skv, KV, D, P::BK, P::SW) ||
         !hp::tensor_map(&om, o, B, Sq, H, D, kRows, P::SW)) {
         return (int)cudaErrorInvalidValue;
     }
@@ -473,7 +513,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     const dim3 grid(B * H, (Sq + P::BQ - 1) / P::BQ);
     const double log2e = 1.4426950408889634;
     kern<<<grid, P::THREADS, P::bytes(), stream>>>(
-        qm, km, vm, om, lse, Sq, Skv, H, KV, causal, window,
+        qm, km, vm, om, lse, Sq, Skv, H, KV, D, causal, window,
         (float)(log2e * scale));
     return (int)cudaGetLastError();
 }
@@ -484,17 +524,12 @@ int consumers(int B, int Sq, int H) {
                              H);
 }
 
-// bf16: the wgmma kernel at hd <= 128; at hd 256 (O alone would take 128
-// of a consumer's 240 registers) flash_tile.cuh's tile fold.
+// bf16: the wgmma kernel at every capacity (Plan's tiles per hd).
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int B, int Sq, int Skv, int H, int KV, int D,
                 float scale, int causal, int window, cudaStream_t s) {
-    if constexpr (HD > 128) {
-        return launch_tile<__nv_bfloat16, HD>(q, k, v, o, lse, B, Sq, Skv,
-                                              H, KV, D, scale, causal,
-                                              window, s);
-    } else if (consumers(B, Sq, H) == 1) {
+    if (consumers(B, Sq, H) == 1) {
         return launch_wgmma<HD, 1>(q, k, v, o, lse, B, Sq, Skv, H, KV, D,
                                    scale, causal, window, s);
     } else {

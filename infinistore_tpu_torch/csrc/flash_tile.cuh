@@ -1,6 +1,6 @@
-// Tile code shared by the tile-loop flash prefill (flash_prefill.cu: f32,
-// and bf16 at hd 256) and flash backward (flash_bwd_dq.cu,
-// flash_bwd_dkv.cu: f32, and bf16 at hd 256) kernels.
+// Tile code shared by the tile-loop flash prefill (flash_prefill.cu: f32)
+// and flash backward (flash_bwd_dq.cu: f32, and bf16 at hd 256;
+// flash_bwd_dkv.cu: f32) kernels.
 // A CTA of 4 warps owns 64 rows, 16 per warp, staged in shared memory
 // with the tiles of TK rows it is folding (TK = 64, or 32 for f32 at hd
 // 256, so that the tiles fit in the 227 KB one block may use). bf16 runs
@@ -75,81 +75,6 @@ struct Smem {
     }
 };
 
-// The bf16 Q fragments of a warp's 16 rows: held in registers across the
-// walk at hd <= 128; at hd 256 (64 registers) read from shared memory at
-// each use instead. Unused for f32.
-template <typename T, int HD>
-struct QRegs {
-    static constexpr int N = (sizeof(T) == 2 && HD <= 128) ? HD / 16 : 0;
-    QFrag f[N > 0 ? N : 1];
-
-    __device__ __forceinline__ void load(const T* Qs, int warp) {
-        if constexpr (N > 0) {
-            constexpr int LD = Layout<T, HD>::LD;
-#pragma unroll
-            for (int kk = 0; kk < N; ++kk) {
-                nvcuda::wmma::load_matrix_sync(
-                    f[kk],
-                    reinterpret_cast<const __nv_bfloat16*>(Qs) +
-                        warp * 16 * LD + kk * 16,
-                    LD);
-            }
-        }
-    }
-};
-
-// S[16 x TK] = Q[16 x HD] K^T for one warp, into its f32 scratch. Qw:
-// the warp's 16 Q rows in shared memory (read where qf holds none).
-template <int HD, int TK, int LD, int SLD>
-__device__ __forceinline__ void scores_mma(
-    const QRegs<__nv_bfloat16, HD>& qf, const __nv_bfloat16* Qw,
-    const __nv_bfloat16* Ks, float* Sw) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int n = 0; n < TK / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-        wmma::fill_fragment(sf, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-            // K^T as a col-major B: element (k, n) sits at K[n][k].
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::col_major> kf;
-            wmma::load_matrix_sync(kf, Ks + n * 16 * LD + kk * 16, LD);
-            if constexpr (QRegs<__nv_bfloat16, HD>::N > 0) {
-                wmma::mma_sync(sf, qf.f[kk], kf, sf);
-            } else {
-                QFrag af;
-                wmma::load_matrix_sync(af, Qw + kk * 16, LD);
-                wmma::mma_sync(sf, af, kf, sf);
-            }
-        }
-        wmma::store_matrix_sync(Sw + n * 16, sf, SLD, wmma::mem_row_major);
-    }
-}
-
-// O-partial[16 x HD] = P[16 x TK] V for one warp, into its f32 scratch.
-template <int HD, int TK, int LD, int SLD, int PLD>
-__device__ __forceinline__ void pv_mma(const __nv_bfloat16* Pw,
-                                       const __nv_bfloat16* Vs, float* Sw) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int n = 0; n < HD / 16; ++n) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-        wmma::fill_fragment(of, 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < TK / 16; ++kk) {
-            wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> pf;
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::row_major> vf;
-            wmma::load_matrix_sync(pf, Pw + kk * 16, PLD);
-            wmma::load_matrix_sync(vf, Vs + kk * 16 * LD + n * 16, LD);
-            wmma::mma_sync(of, pf, vf, of);
-        }
-        wmma::store_matrix_sync(Sw + n * 16, of, SLD, wmma::mem_row_major);
-    }
-}
-
 // One warp's online-softmax state: row r = lane / 2 of its 16, columns
 // [half * TK / 2, +TK / 2) of S and [half * HD / 2, +HD / 2) of O.
 template <int HD>
@@ -165,14 +90,15 @@ struct RowState {
 };
 
 // Fold the staged K/V tile starting at kv position k_start into the
-// warp's rows. ok(col) says whether this lane's row keeps kv column col
-// of the tile; it is asked only when !interior.
+// warp's rows, in f32 FMA loops (the f32 prefill; bf16 takes the wgmma
+// kernel at every head dim). ok(col) says whether this lane's row keeps
+// kv column col of the tile; it is asked only when !interior.
 template <typename T, int HD, typename Mask>
-__device__ __forceinline__ void fold_tile(const QRegs<T, HD>& qf,
-                                          const Smem<T, HD>& sm, int warp,
+__device__ __forceinline__ void fold_tile(const Smem<T, HD>& sm, int warp,
                                           int lane, float scale,
                                           bool interior, Mask ok,
                                           RowState<HD>& st) {
+    static_assert(sizeof(T) == 4, "the prefill's tile fold is f32 only");
     using L = Layout<T, HD>;
     constexpr int TK = L::TK, LD = L::LD, SLD = L::SLD, PLD = L::PLD;
     constexpr int SC = TK / 2;  // S columns held by one lane
@@ -183,22 +109,15 @@ __device__ __forceinline__ void fold_tile(const QRegs<T, HD>& qf,
     T* Pw = sm.P + warp * 16 * PLD;
 
     // ---- S = Q K^T (unscaled) into the warp's scratch ----
-    if constexpr (sizeof(T) == 2) {
-        scores_mma<HD, TK, LD, SLD>(
-            qf, reinterpret_cast<const __nv_bfloat16*>(sm.Q) +
-                    warp * 16 * LD,
-            reinterpret_cast<const __nv_bfloat16*>(sm.K), Sw);
-    } else {
-        const T* qrow = sm.Q + (warp * 16 + r) * LD;
-        for (int j = 0; j < SC; ++j) {
-            const T* krow = sm.K + (half * SC + j) * LD;
-            float s = 0.0f;
+    const T* qrow = sm.Q + (warp * 16 + r) * LD;
+    for (int j = 0; j < SC; ++j) {
+        const T* krow = sm.K + (half * SC + j) * LD;
+        float s = 0.0f;
 #pragma unroll 8
-            for (int d = 0; d < HD; ++d) {
-                s = fmaf(to_float(qrow[d]), to_float(krow[d]), s);
-            }
-            Sw[r * SLD + half * SC + j] = s;
+        for (int d = 0; d < HD; ++d) {
+            s = fmaf(to_float(qrow[d]), to_float(krow[d]), s);
         }
+        Sw[r * SLD + half * SC + j] = s;
     }
     __syncwarp();
 
@@ -231,21 +150,12 @@ __device__ __forceinline__ void fold_tile(const QRegs<T, HD>& qf,
     __syncwarp();
 
     // ---- acc += P V ----
-    if constexpr (sizeof(T) == 2) {
-        pv_mma<HD, TK, LD, SLD, PLD>(
-            reinterpret_cast<const __nv_bfloat16*>(Pw),
-            reinterpret_cast<const __nv_bfloat16*>(sm.V), Sw);
-        __syncwarp();
+    for (int j = 0; j < TK; ++j) {
+        const float p = to_float(Pw[r * PLD + j]);
+        const T* vrow = sm.V + j * LD + half * OC;
 #pragma unroll
-        for (int c = 0; c < OC; ++c) st.acc[c] += Sw[r * SLD + half * OC + c];
-    } else {
-        for (int j = 0; j < TK; ++j) {
-            const float p = to_float(Pw[r * PLD + j]);
-            const T* vrow = sm.V + j * LD + half * OC;
-#pragma unroll
-            for (int c = 0; c < OC; ++c) {
-                st.acc[c] = fmaf(p, to_float(vrow[c]), st.acc[c]);
-            }
+        for (int c = 0; c < OC; ++c) {
+            st.acc[c] = fmaf(p, to_float(vrow[c]), st.acc[c]);
         }
     }
     __syncwarp();

@@ -166,6 +166,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&d)[M][N]) {
+#pragma unroll
+    for (int i = 0; i < M; ++i) fence_regs(d[i]);
+}
+
 // Accumulator fragments (m64nN, f32): thread t of warp w in the
 // warpgroup holds, for each 8-column block j, d[4j + e] at row
 // 16w + t / 4 + 8 (e / 2), column 8j + 2 (t % 4) + e % 2.

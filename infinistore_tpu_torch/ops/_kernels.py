@@ -42,10 +42,10 @@ _DECLS = {
     # causal, window, stream
     "istpu_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                            _I, _I, _F, _I, _I, _P],
-    # q, k, v, dout, lse, dvec, dk, dv, is_bf16, B, Sq, Skv, H, KV, D,
-    # scale, causal, window, stream
-    "istpu_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                            _I, _I, _I, _F, _I, _I, _P],
+    # q, k, v, dout, lse, dvec, dk, dv, partial (or null), splits,
+    # is_bf16, B, Sq, Skv, H, KV, D, scale, causal, window, stream
+    "istpu_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _I, _P],
     # q, k_pages, v_pages, page_table, seq_lens, out, ws_ml, ws_acc,
     # is_bf16, B, H, KV, D, scale, N, P, max_pages, window, row_tile,
     # n_splits, pages_per_split, stream

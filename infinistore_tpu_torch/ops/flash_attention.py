@@ -8,9 +8,11 @@ Counterpart of ``infinistore_tpu/ops/pallas_flash_attention.py``:
 ``flash_prefill_attention`` / ``_forward_impl`` (K1), ``_bwd_dq_kernel``
 and ``_bwd_dkv_kernel`` behind ``_flash_backward`` (K5, K6),
 ``_flash_with_vjp`` (:class:`FlashAttention`) and ``flash_prefill``.
-:func:`k1_schedule`, :func:`k5_schedule` and :func:`k6_schedule` are
-the bf16 kernels' tile walks in Python (their order, live tiles and
-interior tiles), for the tests and ``chip_smoke.py``.
+:func:`k1_schedule`, :func:`k5_schedule`, :func:`k6_schedule` and
+:func:`k6_wide_schedule` (K6 at capacity 256, over :func:`k6_splits`'s
+runs of q heads) are the bf16 kernels' tile walks in Python (their
+order, live tiles and interior tiles), for the tests and
+``chip_smoke.py``.
 
 :func:`flash_prefill` with no gradient to track takes the forward-only
 route: K1 for CUDA tensors, ``paged_attention.prefill_attention`` for CPU
@@ -144,9 +146,16 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal=True, window=0):
     dv = torch.empty_like(v)
     if not (dk.numel() and s_q):
         return dk.zero_(), dv.zero_()
+    splits = k6_splits(batch, s_kv, n_kv, n_heads // n_kv, hd, q.dtype,
+                       _kernels.sm_count(q.device))
+    # The splits' f32 sums, added in split order by the kernel's second
+    # pass.
+    partial = (torch.empty((splits, 2, *k.shape), dtype=torch.float32,
+                           device=k.device) if splits > 1 else None)
     err = _kernels.lib().istpu_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dvec.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        None if partial is None else partial.data_ptr(), splits,
         _DTYPES[q.dtype], batch, s_q, s_kv, n_heads, n_kv, hd,
         _kernels.softmax_scale(hd), int(bool(causal)), int(window),
         _kernels.stream_handle(q.device),
@@ -161,18 +170,41 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal=True, window=0):
 # flash_bwd_dq.cu, flash_bwd_dkv.cu and flash_tile.cuh)
 # ---------------------------------------------------------------------------
 
-# K1's bf16 tiles (flash_prefill.cu's kRows and kBK): 64 query rows per
-# consumer warpgroup, one or two consumers per CTA, 128 keys per kv tile.
-# The f32 variant keeps flash_tile.cuh's 64 x 64 tiles.
+# K1's bf16 tiles (flash_prefill.cu's kRows, kBK and kBKWide): 64 query
+# rows per consumer warpgroup, one or two consumers per CTA, 128 keys per
+# kv tile at hd <= 128 and 64 at capacity 256. The f32 variant keeps
+# flash_tile.cuh's 64 x 64 tiles.
 K1_ROWS = 64
 K1_BK = 128
+K1_BK_WIDE = 64
 # K5's bf16 tiles at hd <= 128 (flash_bwd_dq.cu's kRows and kBK): 64 q
 # rows per consumer warpgroup, one or two consumers per CTA, 64 keys per
 # kv tile. K6's (flash_bwd_dkv.cu's kRows, kBQ and kNC): 64 kv rows per
-# CTA, 64 q rows per stage, two consumers taking the stages in turn.
+# CTA, 64 q rows per stage, two consumers, which take the stages in turn
+# at hd <= 128 and at capacity 256 each take every stage into their half
+# of dK's and dV's columns.
 K5_ROWS = K5_BK = 64
 K6_ROWS = K6_BQ = 64
 K6_CONSUMERS = 2
+
+
+def k1_bk(hd):
+    """Keys per kv tile of K1's bf16 kernel at head dim ``hd``."""
+    return K1_BK if _kernels.kernel_head_dim(hd) <= 128 else K1_BK_WIDE
+
+
+def k6_splits(batch, s_kv, n_kv, group, hd, dtype, sm_count):
+    """Runs of q heads each kv head's group is cut into over K6's grid
+    (bf16 at capacity 256 only; 1 elsewhere): 1 where the ceil(s_kv / 64)
+    * batch * n_kv CTAs fill the card's SMs, else the least divisor of
+    the group that makes them do so, else the group."""
+    if dtype != torch.bfloat16 or _kernels.kernel_head_dim(hd) <= 128:
+        return 1
+    ctas = -(-s_kv // K6_ROWS) * batch * n_kv
+    if ctas >= sm_count:
+        return 1
+    return next((d for d in range(1, group + 1)
+                 if group % d == 0 and ctas * d >= sm_count), group)
 
 
 def k1_consumers(batch, s_q, n_heads, sm_count):
@@ -223,21 +255,22 @@ def interior_tile(q_start, k_start, s_q, s_kv, causal, window, bq, bk):
     return interior
 
 
-def k1_schedule(s_q, s_kv, causal=True, window=0, consumers=2):
-    """The tiles K1's bf16 kernel visits for one (batch, head), in launch
-    order (heaviest q tile first): a list of (q_start, [(k_start,
-    interior of each consumer's 64 rows), ...]) over the live kv tiles."""
-    bq = consumers * K1_ROWS
+def k1_schedule(s_q, s_kv, causal=True, window=0, consumers=2, hd=128):
+    """The tiles K1's bf16 kernel visits for one (batch, head) at head
+    dim ``hd``, in launch order (heaviest q tile first): a list of
+    (q_start, [(k_start, interior of each consumer's 64 rows), ...]) over
+    the live kv tiles."""
+    bq, bk = consumers * K1_ROWS, k1_bk(hd)
     n_qt = -(-s_q // bq)
     order = []
     for rank in range(n_qt):
         q_start = (n_qt - 1 - rank) * bq
         begin, end = kv_tile_range(q_start, s_q, s_kv, causal, window, bq,
-                                   K1_BK)
+                                   bk)
         order.append((q_start, [
-            (kt * K1_BK, tuple(
-                interior_tile(q_start + c * K1_ROWS, kt * K1_BK, s_q, s_kv,
-                              causal, window, K1_ROWS, K1_BK)
+            (kt * bk, tuple(
+                interior_tile(q_start + c * K1_ROWS, kt * bk, s_q, s_kv,
+                              causal, window, K1_ROWS, bk)
                 for c in range(consumers)))
             for kt in range(begin, end)]))
     return order
@@ -281,11 +314,11 @@ def k5_schedule(s_q, s_kv, causal=True, window=0, consumers=2):
 
 
 def k6_schedule(s_q, s_kv, group, causal=True, window=0):
-    """The stages K6's bf16 kernel walks for one (batch, kv head), in
-    launch order (kv tile 0 first): a list of (k_start, [(group member,
-    q_start, consumer, "interior" or "masked"), ...]), stage i going to
-    consumer i % K6_CONSUMERS. An empty list is a kv tile no query sees:
-    the kernel writes its dK and dV rows as zeros."""
+    """The stages K6's bf16 kernel walks at hd <= 128 for one (batch, kv
+    head), in launch order (kv tile 0 first): a list of (k_start,
+    [(group member, q_start, consumer, "interior" or "masked"), ...]),
+    stage i going to consumer i % K6_CONSUMERS. An empty list is a kv
+    tile no query sees: the kernel writes its dK and dV rows as zeros."""
     order = []
     for k_start in range(0, s_kv, K6_ROWS):
         begin, end = q_tile_range(k_start, s_q, s_kv, causal, window,
@@ -296,6 +329,28 @@ def k6_schedule(s_q, s_kv, group, causal=True, window=0):
             (g, q0, i % K6_CONSUMERS,
              _visit(True, q0, k_start, s_q, s_kv, causal, window))
             for i, (g, q0) in enumerate(walk)]))
+    return order
+
+
+def k6_wide_schedule(s_q, s_kv, group, splits, causal=True, window=0):
+    """The stages K6's bf16 kernel walks at capacity 256 for one (batch,
+    kv head), in launch order (kv tile 0 first, its splits side by side):
+    a list of (k_start, split, [(group member, q_start, "interior" or
+    "masked"), ...]), both consumers taking every stage (each into its
+    half of the columns). Split s walks members [s * group / splits,
+    (s + 1) * group / splits). An empty list writes the split's sums as
+    zeros."""
+    order = []
+    for k_start in range(0, s_kv, K6_ROWS):
+        begin, end = q_tile_range(k_start, s_q, s_kv, causal, window,
+                                  K6_BQ, K6_ROWS)
+        for split in range(splits):
+            lo, hi = split * group // splits, (split + 1) * group // splits
+            order.append((k_start, split, [
+                (g, qt * K6_BQ,
+                 _visit(True, qt * K6_BQ, k_start, s_q, s_kv, causal,
+                        window))
+                for g in range(lo, hi) for qt in range(begin, end)]))
     return order
 
 

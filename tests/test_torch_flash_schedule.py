@@ -4,9 +4,12 @@ against the JAX package's mask rules, on the CPU: every (query, key)
 pair that ``_tile_mask`` keeps lies in a visited tile, no visited tile is
 wholly masked, and a tile is interior exactly where its mask is all true
 and ``_interior_tile`` says so. At K1's bf16 tiles (one or two 64-row
-consumers over 128-key tiles) and at the 64 x 64 tiles of the f32
-variant, K3, K5 and K6; lengths one below, at and one above a tile
-multiple, windows, a cached prefix (s_kv > s_q) and no causal mask."""
+consumers over 128-key tiles, and over 64-key tiles at capacity 256) and
+at the 64 x 64 tiles of the f32 variant, K3, K5 and K6; lengths one
+below, at and one above a tile multiple, windows, a cached prefix (s_kv
+> s_q) and no causal mask. K6 at capacity 256 splits each kv head's
+group of q heads into runs (``k6_splits``): every kept (kv row, q head,
+query) pair lies in exactly one split's walk."""
 
 import os
 import re
@@ -31,11 +34,15 @@ SHAPES = (
     (511, 1024, True, 128), (65, 700, True, 127), (640, 640, True, 129),
     (1000, 1000, False, 0), (129, 63, False, 0), (63, 257, False, 0),
 )
-# (label, query rows per CTA, keys per tile, rows per consumer)
+# (label, query rows per CTA, keys per tile, rows per consumer, K1's
+# head dim or None for the f32 tiles)
 TILES = (
-    ("k1 two consumers", 2 * fa.K1_ROWS, fa.K1_BK, fa.K1_ROWS),
-    ("k1 one consumer", fa.K1_ROWS, fa.K1_BK, fa.K1_ROWS),
-    ("64x64", 64, 64, 64),
+    ("k1 two consumers", 2 * fa.K1_ROWS, fa.K1_BK, fa.K1_ROWS, 128),
+    ("k1 one consumer", fa.K1_ROWS, fa.K1_BK, fa.K1_ROWS, 128),
+    ("64x64", 64, 64, 64, None),
+    ("k1 hd256 two consumers", 2 * fa.K1_ROWS, fa.K1_BK_WIDE, fa.K1_ROWS,
+     256),
+    ("k1 hd256 one consumer", fa.K1_ROWS, fa.K1_BK_WIDE, fa.K1_ROWS, 256),
 )
 
 
@@ -46,11 +53,14 @@ def _full_mask(s_q, s_kv, causal, window, bq, bk):
     return np.asarray(_tile_mask(shape, 0, 0, s_q, s_kv, causal, window))
 
 
-def _walk(s_q, s_kv, causal, window, bq, bk, sub):
-    """The schedule at any tile: k1_schedule at K1's tiles, else the same
-    walk built from kv_tile_range and interior_tile at (bq, bk)."""
-    if bk == fa.K1_BK and sub == fa.K1_ROWS:
-        return fa.k1_schedule(s_q, s_kv, causal, window, bq // fa.K1_ROWS)
+def _walk(s_q, s_kv, causal, window, bq, bk, sub, hd):
+    """The schedule at any tile: k1_schedule at K1's tiles (head dim
+    ``hd``), else the same walk built from kv_tile_range and
+    interior_tile at (bq, bk)."""
+    if hd is not None:
+        assert (bk, sub) == (fa.k1_bk(hd), fa.K1_ROWS)
+        return fa.k1_schedule(s_q, s_kv, causal, window, bq // fa.K1_ROWS,
+                              hd)
     n_qt = -(-s_q // bq)
     walk = []
     for rank in range(n_qt):
@@ -66,9 +76,9 @@ def _walk(s_q, s_kv, causal, window, bq, bk, sub):
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "-".join(map(str, s)))
 def test_schedule_matches_jax_mask(shape, tiles):
     s_q, s_kv, causal, window = shape
-    _, bq, bk, sub = tiles
+    _, bq, bk, sub, hd = tiles
     mask = _full_mask(s_q, s_kv, causal, window, bq, bk)
-    walk = _walk(s_q, s_kv, causal, window, bq, bk, sub)
+    walk = _walk(s_q, s_kv, causal, window, bq, bk, sub, hd)
     n_qt = -(-s_q // bq)
     assert sorted(q0 for q0, _ in walk) == [i * bq for i in range(n_qt)]
     for q0, tiles_visited in walk:
@@ -98,9 +108,10 @@ def test_heaviest_q_tiles_first(shape):
     launch order."""
     s_q, s_kv, causal, window = shape
     for consumers in (1, 2):
-        counts = [len(t) for _, t in fa.k1_schedule(s_q, s_kv, causal,
-                                                     window, consumers)]
-        assert counts == sorted(counts, reverse=True)
+        for hd in (128, 256):
+            counts = [len(t) for _, t in fa.k1_schedule(
+                s_q, s_kv, causal, window, consumers, hd)]
+            assert counts == sorted(counts, reverse=True)
 
 
 @pytest.mark.parametrize("batch,s_q,n_heads,want", [
@@ -128,8 +139,34 @@ def test_tile_constants_match_csrc():
     """The Python twin's tile sizes are the kernels' own."""
     assert _constant("flash_prefill.cu", "kRows") == fa.K1_ROWS
     assert _constant("flash_prefill.cu", "kBK") == fa.K1_BK
+    assert _constant("flash_prefill.cu", "kBKWide") == fa.K1_BK_WIDE
     assert _constant("flash_tile.cuh", "BQ") == TILES[2][1]
     assert _constant("flash_tile.cuh", "BK") == TILES[2][2]
+    assert [fa.k1_bk(hd) for hd in (8, 64, 128, 136, 192, 256)] == [
+        fa.K1_BK] * 3 + [fa.K1_BK_WIDE] * 3
+
+
+def _body(path, signature):
+    """The text of the function whose definition starts with
+    ``signature`` in csrc/``path``, to its closing brace."""
+    with open(os.path.join(CSRC, path)) as f:
+        text = f.read()
+    start = text.index(signature)
+    depth, i = 0, text.index("{", start)
+    for j in range(i, len(text)):
+        depth += {"{": 1, "}": -1}.get(text[j], 0)
+        if depth == 0:
+            return text[start:j + 1]
+    raise AssertionError(f"{signature} in {path} has no end")
+
+
+@pytest.mark.parametrize("path", ["flash_prefill.cu", "flash_bwd_dkv.cu"])
+def test_bf16_routes_reach_no_tile_loop(path):
+    """K1 and K6 in bf16 go to the wgmma kernel at every capacity, hd 256
+    included; their f32 instantiations still take the tile loop."""
+    bf16 = _body(path, "int launch_bf16(")
+    assert "launch_tile" not in bf16 and "launch_wgmma" in bf16
+    assert "launch_tile<float, HD>" in _body(path, "int launch_f32(")
 
 
 
@@ -247,3 +284,70 @@ def test_bwd_tile_constants_match_csrc():
     assert _constant("flash_bwd_dkv.cu", "kRows") == fa.K6_ROWS
     assert _constant("flash_bwd_dkv.cu", "kBQ") == fa.K6_BQ
     assert _constant("flash_bwd_dkv.cu", "kNC") == fa.K6_CONSUMERS
+
+
+# ---- K6 at capacity 256: the group's q heads split over the grid ----
+
+K6_SPLITS = tuple((g, n) for g in (1, 4, 7, 8)
+                  for n in range(1, g + 1) if g % n == 0)
+
+
+@pytest.mark.parametrize("group,splits", K6_SPLITS,
+                         ids=lambda x: str(x))
+@pytest.mark.parametrize("shape", BWD_SHAPES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_k6_wide_schedule_covers_each_pair_once(shape, group, splits):
+    """K6's walk at capacity 256: kv tiles of 64 rows from 0 up, the
+    splits of each tile side by side; split s walks members [s * group /
+    splits, (s + 1) * group / splits) over exactly the q tiles that
+    _bwd_dkv_kernel's live rule keeps; every kept (kv row, q head, query)
+    pair of _tile_mask lies in exactly one split's stages and no dropped
+    pair in any; each stage is interior exactly where _interior_tile says
+    so and the mask is all true; a kv tile no query sees has no stage in
+    any split."""
+    s_q, s_kv, causal, window = shape
+    rows, bq = fa.K6_ROWS, fa.K6_BQ
+    walk = fa.k6_wide_schedule(s_q, s_kv, group, splits, causal, window)
+    assert [(k0, sp) for k0, sp, _ in walk] == [
+        (k0, sp) for k0 in range(0, s_kv, rows) for sp in range(splits)]
+    mask = _full_mask(s_q, s_kv, causal, window, bq, rows)
+    kept = mask[:s_q, :s_kv]
+    seen = np.zeros((group, s_q, s_kv), np.int32)
+    for k0, split, stages in walk:
+        lo, hi = split * group // splits, (split + 1) * group // splits
+        assert {g for g, _, _ in stages} <= set(range(lo, hi))
+        cols = mask[:, k0:k0 + rows]
+        want = [q0 for q0 in range(0, s_q, bq) if cols[q0:q0 + bq].any()]
+        assert [(g, q0) for g, q0, _ in stages] == [
+            (g, q0) for g in range(lo, hi) for q0 in want]
+        for g, q0, state in stages:
+            part = mask[q0:q0 + bq, k0:k0 + rows]
+            assert part.any()
+            jax_flag = bool(_interior_tile(q0, k0, bq, rows, s_q, s_kv,
+                                           causal, window))
+            assert (state == "interior") == jax_flag == bool(part.all())
+            seen[g, q0:q0 + bq, k0:k0 + rows] += kept[q0:q0 + bq,
+                                                      k0:k0 + rows]
+    assert (seen == kept[None].astype(np.int32)).all()
+
+
+@pytest.mark.parametrize("args,want", [
+    ((1, 2048, 1, 8, 256, "bfloat16"), 8),    # Gemma-2B: 32 CTAs alone
+    ((1, 2048, 16, 1, 256, "bfloat16"), 1),   # Gemma-7B: 512 CTAs
+    ((1, 2048, 2, 8, 256, "bfloat16"), 4),    # 64 CTAs: 4 x 64 fill 132
+    ((1, 1000, 2, 4, 192, "bfloat16"), 4),    # 32 CTAs, hd 192
+    ((1, 2048, 1, 7, 256, "bfloat16"), 7),    # a prime group: all or one
+    ((1, 8448, 1, 8, 256, "bfloat16"), 1),    # 132 CTAs fill the card
+    ((1, 2048, 1, 8, 128, "bfloat16"), 1),    # hd <= 128: no split
+    ((1, 2048, 1, 8, 256, "float32"), 1),     # f32: the tile loop
+])
+def test_k6_splits_by_shape(args, want):
+    """K6's split of the group: none where the grid fills an H100's 132
+    SMs, else the least divisor of the group that does, else the group;
+    only bf16 at capacity 256."""
+    import torch
+
+    batch, s_kv, n_kv, group, hd, dtype = args
+    got = fa.k6_splits(batch, s_kv, n_kv, group, hd, getattr(torch, dtype),
+                       132)
+    assert got == want and group % got == 0

@@ -37,19 +37,25 @@ import chip_smoke  # noqa: E402
 # release: the softmax and the P V wgmma that reads the stage's V tile.
 _FENCE_S = "            hp::fence_regs(s);\n"
 _SOFTMAX_PV = (
-    "            softmax_tile(s, pa, m, l, alpha,\n"
-    "                         interior_tile<kRows, kBK>(row0, kt * kBK, "
+    "            softmax_tile<BK>(s, pa, m, l, alpha,\n"
+    "                             interior_tile<kRows, BK>(row0, kt * BK, "
     "Sq, Skv,\n"
-    "                                                   causal, window),\n"
-    "                         r_lo, kt * kBK, quad, Sq, Skv, causal, "
+    "                                                      causal, window),\n"
+    "                             r_lo, kt * BK, quad, Sq, Skv, causal, "
     "window,\n"
-    "                         scale_log2);\n"
+    "                             scale_log2);\n"
     "#pragma unroll\n"
-    "            for (int i = 0; i < HD / 2; ++i) o[i] *= "
-    "alpha[(i >> 1) & 1];\n"
+    "            for (int oh = 0; oh < P::OH; ++oh) {\n"
+    "#pragma unroll\n"
+    "                for (int i = 0; i < P::ON / 2; ++i) {\n"
+    "                    o[oh][i] *= alpha[(i >> 1) & 1];\n"
+    "                }\n"
+    "            }\n"
     "            hp::fence_regs(o);\n"
     "            hp::wgmma_fence();\n"
-    "            issue_pv<HD, SW>(o, pa, tile(stage) + P::TILE_BYTES);\n"
+    "            issue_pv<HD, SW, BK, P::OH, P::ON>(o, pa,\n"
+    "                                                tile(stage) + "
+    "P::TILE_BYTES);\n"
     "            hp::wgmma_commit();\n"
     "            hp::wgmma_wait<0>();\n"
     "            hp::fence_regs(o);\n")
@@ -72,9 +78,9 @@ _DKV_TAIL_EARLY = (
 # (name, source file, original text, faulty text)
 FAULTS = (
     ("flash: skips the last kv tile", "flash_prefill.cu",
-     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
+     "kv_tiles<P::BQ, BK>(q_start, Sq, Skv, causal, window, kt_begin, "
      "kt_end);",
-     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
+     "kv_tiles<P::BQ, BK>(q_start, Sq, Skv, causal, window, kt_begin, "
      "kt_end);\n    kt_end -= (kt_end - kt_begin > 1);"),
     ("flash: window floor one tile high", "flash_tile.cuh",
      "begin = max(q_start + offset - window + 1, 0) / TK;",
@@ -83,16 +89,20 @@ FAULTS = (
      "(m[hi] + log2f(l[hi])) * kLn2;",
      "m[hi] * kLn2;"),
     ("flash: the diagonal tile treated as interior", "flash_prefill.cu",
-     "interior_tile<kRows, kBK>(row0, kt * kBK, Sq, Skv,\n"
-     "                                                   causal, window),",
-     "interior_tile<kRows, kBK>(row0, kt * kBK, Sq, Skv,\n"
-     "                                                   0, window),"),
+     "interior_tile<kRows, BK>(row0, kt * BK, Sq, Skv,\n"
+     "                                                      causal, window),",
+     "interior_tile<kRows, BK>(row0, kt * BK, Sq, Skv,\n"
+     "                                                      0, window),"),
     # A race: the stage is released once S is computed, before the P V
     # wgmma that reads its V tile, which the next load may overwrite.
     ("flash: a stage released before its P V wgmma completes",
      "flash_prefill.cu",
      _FENCE_S + _SOFTMAX_PV + _RELEASE,
      _FENCE_S + _RELEASE + _SOFTMAX_PV),
+    # hd 256: O's second half accumulated over V's first column blocks.
+    ("flash: hd-256 P V reads one half of V twice", "flash_prefill.cu",
+     "v + h * (ON * 2 / SW) * BK * SW + kk * 16 * SW",
+     "v + 0 * h * (ON * 2 / SW) * BK * SW + kk * 16 * SW"),
     ("bwd dq: skips the last live kv tile", "flash_bwd_dq.cu",
      "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
      "kt_end);",
@@ -102,7 +112,7 @@ FAULTS = (
      "begin = max(k_start - offset, 0) / TQ;",
      "begin = max(k_start - offset, 0) / TQ + (offset > 0);"),
     ("bwd dkv: only the group's first q head", "flash_bwd_dkv.cu",
-     "const int stages = group * n_qt;",
+     "const int stages = members * n_qt;",
      "const int stages = n_qt;"),
     # A race: the stage is released once dV += P^T dO and dK += dS^T Q are
     # issued, before they are waited for; the next load may overwrite the
@@ -112,6 +122,15 @@ FAULTS = (
     ("bwd dkv: hd-256 column half written at column 0", "flash_bwd_dkv.cu",
      "* KV + kvh) * D + c0 +",
      "* KV + kvh) * D + 0 * c0 +"),
+    # hd 256: each consumer's dK / dV half, and the group's splits.
+    ("bwd dkv: hd-256 consumers both read the first column half",
+     "flash_bwd_dkv.cu",
+     "const int half = c0 * 2 / SW * kBQ * SW;",
+     "const int half = 0 * c0 * 2 / SW * kBQ * SW;"),
+    ("bwd dkv: hd-256 the last split of the group left out of the sum",
+     "flash_bwd_dkv.cu",
+     "for (int p = 1; p < splits; ++p) {",
+     "for (int p = 1; p < splits - 1; ++p) {"),
     # The split-K paged kernel (K2, K3 and, over int8 pages, K4).
     ("split: the last page of each split skipped", "paged_split.cuh",
      "const int s_hi = min(s_lo + a.pages_per_split * a.P, t_end);",

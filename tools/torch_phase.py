@@ -27,6 +27,9 @@ PHASE is one of:
   at tp = 2; (c) Mixtral width at ep = 2; (d) the float32 engines and
   the MoE tp training step), then the checks that need one process's
   tree.
+- ``gemma``: phase 13, Gemma-1 at head dim 256: phase 4's main path at
+  google/gemma-7b's widths, then 2 training steps at google/gemma-2b's
+  widths and their kernel-vs-plain grads.
 
 With ``--readings`` a failed check in this process prints
 ``READING-ONLY FAIL: ...`` and the phase goes on, so that one call
@@ -77,6 +80,9 @@ PHASES = {
                      torch, np, report)),
     "mesh": ("12", "mesh",
              lambda cs, torch, np, report: cs.phase_mesh(torch, np, report)),
+    "gemma": ("13", "gemma",
+              lambda cs, torch, np, report: cs.phase_gemma(torch, np,
+                                                           report)),
 }
 
 
