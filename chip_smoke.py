@@ -203,7 +203,10 @@ Phases, in order; any failure exits non-zero before the result line:
     K1, K5 and K6 per step counted, then on fresh weights the loss and
     every leaf's grad with the kernels against the same Function on its
     plain leaves: held to TRAIN_TOL (bf16) at phase 9's 2 layers, read
-    at all 18 (the depth cut is listed under "reduced").
+    at all 18 (the depth cut is listed under "reduced"), where both
+    paths' grads are also read against an f32 plain reference on the
+    same weights and the kernels' worst leaf error is held to
+    DELTA_FACTOR x the plain leaves'.
 14. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
     K4's also carry graph_ms; K1's, K5's and K6's also carry "hd256":
     phases 2 and 8 at the Gemma-7B and Gemma-2B widths; tp_launches:
@@ -3504,18 +3507,22 @@ def bwd_readings(torch, fa, gen):
 
 
 def bwd_tiles(fa, case, sm_count):
-    """K5's and K6's bf16 schedules at a phase-8 case, summed over the
-    heads: a short description for the phase's line."""
-    _, sq, skv, causal, win, _, n_heads, n_kv = case
-    cons = fa.k1_consumers(1, sq, n_heads, sm_count)
+    """K5's bf16 schedule at a phase-8 case (and K6's at hd <= 128; its
+    capacity-256 walk has a line of its own), summed over the heads: a
+    short description for the phase's line."""
+    _, sq, skv, causal, win, hd, n_heads, n_kv = case
+    cons = fa.k5_consumers(1, sq, n_heads, hd, sm_count)
     k5 = fa.k5_schedule(sq, skv, causal, win, cons)
     live = sum(st != "dead" for _, t in k5 for _, sts in t for st in sts)
+    text = (f"; K5 {len(k5) * n_heads} CTAs of {cons} consumer(s), "
+            f"{live * n_heads} live consumer tiles")
+    if hd > 128:
+        return text
     k6 = fa.k6_schedule(sq, skv, n_heads // n_kv, causal, win)
     stages = [len(t) for _, t in k6]
-    return (f"; K5 {len(k5) * n_heads} CTAs of {cons} consumer(s), "
-            f"{live * n_heads} live consumer tiles; K6 {len(k6) * n_kv} "
-            f"CTAs, {sum(stages) * n_kv} stages (at most {max(stages)} in "
-            f"a CTA), {stages.count(0) * n_kv} dead kv tiles")
+    return (text + f"; K6 {len(k6) * n_kv} CTAs, {sum(stages) * n_kv} "
+            f"stages (at most {max(stages)} in a CTA), "
+            f"{stages.count(0) * n_kv} dead kv tiles")
 
 
 def sdpa_bwd_rounds(torch, fa, args, rounds=5, iters=10):
@@ -3659,8 +3666,7 @@ def phase_bwd(torch, fa, gen):
             f"{ms_dkv:.4f} plain_ms {plain_dkv:.4f} bound_ms "
             f"{dkv_bound[0]:.4f} ({dkv_bound[1]})"
             + (f"; K1 with lse {lse_ms:.4f} ms" if lse_ms else "") + yard
-            + (bwd_tiles(fa, case, sms) if dt == "bfloat16" and D <= 128
-               else ""))
+            + (bwd_tiles(fa, case, sms) if dt == "bfloat16" else ""))
         check(worst <= tol, f"flash backward disagrees ({case}): {rel}")
         if first:
             rows[dt] = dict(
@@ -5713,7 +5719,8 @@ GEMMA_2B = dict(GEMMA_7B, hidden_size=2048, intermediate_size=16384,
 GEMMA_TRAIN_STEPS = 2
 # The kernel-vs-plain grad check runs at phase 9's PARITY_LAYERS, where
 # TRAIN_TOL was set: bf16 rounding differences between the two paths
-# grow with depth (the 18-layer gap is printed beside it as a reading).
+# grow with depth (the 18-layer gap is printed beside it as a reading,
+# and each path's gap to an f32 reference is held by gemma_f32_gaps).
 GEMMA_SEEDS = dict(serve=SEED + 13, train=SEED + 14, parity=SEED + 15)
 # K1 at hd 256 (MHA and group 8), K2 at hd 256, K5 and K6 at hd 256.
 GEMMA_KERNELS = ("flash_prefill", "paged_decode", "flash_bwd_dq",
@@ -5726,6 +5733,46 @@ def gemma_config(hf, fields, **cut):
     bf16, page 16."""
     ns = type("HFConfig", (), {**fields, **cut})
     return hf.config_from_hf(ns, page_size=16, dtype="bfloat16")
+
+
+def gemma_f32_gaps(torch, llama, cfg, params, tokens, plain_prefill,
+                   grads_k, grads_p):
+    """The bf16 kernel path's and the bf16 plain path's leaf grads
+    (``grads_k``, ``grads_p``, of ``params`` at ``cfg``) against an f32
+    reference: the same weights widened to f32 through the plain leaves.
+    The kernels round where the plain leaves round, so the kernel path is
+    held to at most DELTA_FACTOR times the plain path's worst leaf error
+    (the rule the Gemma prefix hit keeps against the plain attention's
+    gap). Returns the readings."""
+    from infinistore_tpu_torch.parallel import mesh as pmesh
+
+    p32 = pmesh.tree_map(lambda _, t: t.detach().float(), params)
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    leaves32 = llama.trainable(p32)
+    saved = llama.flash_prefill
+    llama.flash_prefill = plain_prefill
+    try:
+        grads_f = torch.autograd.grad(llama.loss_fn(p32, c32, tokens),
+                                      leaves32)
+    finally:
+        llama.flash_prefill = saved
+    rel_k = [leaf_rel(a, b) for a, b in zip(grads_k, grads_f)]
+    rel_p = [leaf_rel(a, b) for a, b in zip(grads_p, grads_f)]
+    out = dict(kernel_vs_f32=max(rel_k), plain_vs_f32=max(rel_p),
+               kernel_leaf=rel_k.index(max(rel_k)),
+               plain_leaf=rel_p.index(max(rel_p)))
+    say(f"gemma-2b, {cfg.n_layers} layers, leaf grads against an f32 "
+        f"plain reference: bf16 kernels worst rel L2 "
+        f"{out['kernel_vs_f32']:.3e} (leaf {out['kernel_leaf']}), bf16 "
+        f"plain leaves {out['plain_vs_f32']:.3e} (leaf {out['plain_leaf']})"
+        f"; kernels / plain {out['kernel_vs_f32'] / out['plain_vs_f32']:.3f}"
+        f" (at most {DELTA_FACTOR:g})")
+    check(out["kernel_vs_f32"] <= DELTA_FACTOR * out["plain_vs_f32"],
+          f"gemma-2b grads at {cfg.n_layers} layers: the kernels sit "
+          f"further from f32 than {DELTA_FACTOR:g}x the plain leaves "
+          f"({out})")
+    del p32, leaves32, grads_f
+    return out
 
 
 def phase_gemma(torch, np, report):
@@ -5847,12 +5894,17 @@ def phase_gemma(torch, np, report):
             check(worst <= tol and loss_rel <= tol,
                   f"gemma-2b grads, kernels vs plain leaves: {worst}")
         parity[layers] = dict(loss_rel=loss_rel, worst_leaf_rel=worst)
+        if not checked:
+            parity[layers].update(gemma_f32_gaps(
+                torch, llama, pcfg, params, tokens, plain_prefill, grads_k,
+                grads_p))
         del params, leaves, grads_k, grads_p, loss_k, loss_p
         gc.collect()
         torch.cuda.empty_cache()
     reduced["parity_layers"] = (
         f"{PARITY_LAYERS} of {tcfg.n_layers} checked against TRAIN_TOL "
-        f"(phase 9's depth, where it was set); all {tcfg.n_layers} read")
+        f"(phase 9's depth, where it was set); all {tcfg.n_layers} read, "
+        f"and held against an f32 reference")
     report["train"] = dict(steps=steps, peak_GiB=peak, parity=parity)
 
     launches = dict.fromkeys(GEMMA_KERNELS, 0)

@@ -701,8 +701,8 @@ flash_bwd_dkv_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const size_t row = (((size_t)b * Skv + pos_k) * KV + kvh) * D + c0 +
                        half * (COLS / 2);
     const int cols = D - c0 - half * (COLS / 2);  // of this lane's columns
-    dk_acc.store(dk + row, pos_k < Skv, cols, Sw, lane);
-    dv_acc.store(dv + row, pos_k < Skv, cols, Sw, lane);
+    dk_acc.store(dk + row, pos_k < Skv, cols);
+    dv_acc.store(dv + row, pos_k < Skv, cols);
 }
 
 template <typename T, int HD>

@@ -12,36 +12,60 @@
 // FLOP/byte balance point, so the tensor cores are the limit (989
 // TFLOP/s bf16 dense), and only wgmma reaches their rate.
 //
-// Design of the bf16 kernel (hd 32, 64, 128). The TPU grid walks the kv
-// blocks innermost with the dq sum in VMEM scratch; Hopper blocks run in
-// no order, so one CTA owns one (batch * head, q tile of NC * 64 rows)
-// and loops over the live kv tiles itself, with K1's live range,
-// interior rule and mask (flash_tile.cuh) at 64-key tiles. It is the
-// flash prefill kernel's skeleton (flash_prefill.cu) with one more
-// product: one producer warpgroup loads Q and dO once and the kv head's
-// 64-row K and V tiles through a ring of shared-memory stages by TMA
-// (full / empty mbarriers, 128-byte swizzle, 64-byte at hd 32, out of
-// bounds zero fill); NC consumer warpgroups of 64 q rows each run S =
-// Q K^T and dP = dO V^T on wgmma (both operands K-major in shared memory,
-// issued together), form P = exp2(S * scale * log2 e - lse * log2 e) and
-// dS = P (dP - D) scale on the accumulator fragments in registers (masked
-// pairs exactly 0, the mask built only on boundary tiles), round dS to
-// bf16 as the TPU kernel rounds it (ds.astype(k.dtype)) straight into
-// the register A fragments of dQ += dS K, which reads K MN-major through
-// the transpose bit, as K1 reads V. S, dP, dS and dQ never pass through
-// shared memory; a stage is released once the dQ product that reads its
-// K has been waited for. A consumer whose own rows see none of a tile
-// skips its products. dQ goes out once, in q's dtype, through the
-// consumer's part of the Q tile by a TMA store, which writes no row past
-// Sq. Heavy q tiles (the most live kv tiles under a causal mask) launch
-// first; short sequences take one consumer per CTA so that the grid
-// fills the card. Tiles of 64 keys, not K1's 128: dQ (64 registers at hd
-// 128), S and dP (32 each) and dS (16) then fit a consumer's 240.
+// Design of the bf16 kernel (every capacity: hd 32, 64, 128 and 256).
+// The TPU grid walks the kv blocks innermost with the dq sum in VMEM
+// scratch; Hopper blocks run in no order, so one CTA owns one (batch *
+// head, q tile of NC * 64 rows) and loops over the live kv tiles itself,
+// with K1's live range, interior rule and mask (flash_tile.cuh) at 64-key
+// tiles. It is the flash prefill kernel's skeleton (flash_prefill.cu)
+// with one more product: one producer warpgroup loads Q and dO once and
+// the kv head's 64-row K and V tiles through a ring of shared-memory
+// stages by TMA (full / empty mbarriers, 128-byte swizzle, 64-byte at hd
+// 32, out of bounds zero fill); NC consumer warpgroups of 64 q rows each
+// run S = Q K^T and dP = dO V^T on wgmma (both operands K-major in
+// shared memory, issued together), form P = exp2(S * scale * log2 e -
+// lse * log2 e) and dS = P (dP - D) scale on the accumulator fragments in
+// registers (masked pairs exactly 0, the mask built only on boundary
+// tiles), round dS to bf16 as the TPU kernel rounds it
+// (ds.astype(k.dtype)) straight into the register A fragments of dQ +=
+// dS K, which reads K MN-major through the transpose bit, as K1 reads V.
+// S, dP, dS and dQ never pass through shared memory; a stage is released
+// once the dQ products that read its K have been waited for. A consumer
+// whose own rows see none of a tile skips its products. dQ goes out
+// once, in q's dtype, through the consumer's part of the Q tile by TMA
+// stores, which write no row past Sq and no column past D. Heavy q tiles
+// (the most live kv tiles under a causal mask) launch first. Tiles of
+// 64 keys, not K1's 128: dS is a third product's operand.
 //
-// The f32 variant, and bf16 at hd 256, keep flash_tile.cuh's tile loop
-// (wmma bf16, plain FMA loops for f32 so that f32 stays true f32): 4
-// warps of 16 q rows, dQ in registers across kv tiles of 64 rows (32 for
-// f32 at hd 256, so that the tiles fit in shared memory).
+// The tile sizes per head dim (Plan). A consumer thread holds dQ's
+// [64 x hd] f32 accumulator (hd / 2 registers), S and dP (32 each at
+// 64-key tiles) and dS's bf16 A fragments (16), against the 240
+// registers setmaxnreg gives each of two consumers (255 for a lone one);
+// shared memory holds Q and dO for the CTA's rows (2 * NC * 64 * hd * 2
+// bytes) and the ring of K + V stages (2 * 64 * hd * 2 bytes each) in
+// 227 KB.
+// - hd <= 128: dQ takes at most 64 registers. Two consumers per CTA
+//   (128-row q tiles) unless the grid would leave SMs idle, then one;
+//   the ring holds four stages.
+// - hd 256 (every D from 136 to 256; the column blocks past D are
+//   zero-filled on load and not stored): dQ [64 x 256] is 128 registers,
+//   two accumulators of 128 columns, and dQ += dS K is issued as two N =
+//   128 products over K's two halves of column blocks, as K1 issues P V
+//   at hd 256. One consumer per CTA: a thread holds 128 + 32 + 32 + 16 =
+//   208 registers, Q and dO take 64 KB and a stage 64 KB, so the ring
+//   holds two stages. Two consumers would leave room for one 64-key
+//   stage (128 KB of Q and dO), which is no ring; at 32-key tiles they
+//   fit three, but on an H100, timed in turns, that read 0.138 against
+//   this plan's 0.142 ms at Gemma-7B's 16 heads (within the spread
+//   between builds) and 0.121 against 0.070 ms at Gemma-2B's 8, so it is
+//   not kept. Splitting dQ's columns between two consumers of the same
+//   rows, as K6 splits dK and dV, would recompute S and dP in both: five
+//   products for three.
+//
+// The f32 variant keeps flash_tile.cuh's tile loop (plain FMA loops, so
+// that f32 stays true f32): 4 warps of 16 q rows, dQ in registers across
+// kv tiles of 64 rows (32 at hd 256, so that the tiles fit in shared
+// memory).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,7 +82,7 @@ using namespace istpu::tile;
 namespace hp = istpu::hopper;
 
 // ---------------------------------------------------------------------------
-// bf16 at hd <= 128: TMA ring and warp-specialised wgmma
+// bf16: TMA ring and warp-specialised wgmma
 // ---------------------------------------------------------------------------
 
 constexpr int kRows = 64;  // q rows per consumer warpgroup
@@ -74,12 +98,17 @@ struct Plan {
     // bf16 is BLOCKS column blocks of SW / 2 elements.
     static constexpr int SW = HD * 2 >= 128 ? 128 : HD * 2;
     static constexpr int BLOCKS = HD * 2 / SW;
+    // dQ's accumulators: OH parts of ON columns, one dS K wgmma (N = ON)
+    // each.
+    static constexpr int OH = HD > 128 ? 2 : 1;
+    static constexpr int ON = HD / OH;
     static constexpr int Q_BYTES = BQ * HD * 2;      // Q, and again dO
     static constexpr int TILE_BYTES = kBK * HD * 2;  // one K or V tile
     static constexpr int STAGE_BYTES = 2 * TILE_BYTES;
     static constexpr int FIT = (kSmemLimit - 1024 - 256 - 2 * Q_BYTES) /
                                STAGE_BYTES;
     static constexpr int STAGES = FIT < 4 ? FIT : 4;
+    static_assert(STAGES >= 2, "the ring needs two stages");
     // 1024 bytes of room to align the tiles, the tiles, the barriers.
     static constexpr size_t bytes() {
         return 1024 + 2 * Q_BYTES + (size_t)STAGES * STAGE_BYTES +
@@ -103,23 +132,28 @@ __device__ __forceinline__ void issue_abt(float (&d)[32],
     }
 }
 
-// D[64 x HD] += A[64 x 64] B, issued but not waited for: A bf16 register
-// fragments, B a staged 64-row tile read MN-major (transposed), 16 of
-// its rows a step.
-template <int HD, int SW>
-__device__ __forceinline__ void issue_ab(float (&d)[HD / 2],
+// dQ[64 x HD] += dS[64 x 64] K, issued but not waited for: dS bf16
+// register fragments, K a staged 64-row tile read MN-major (transposed),
+// 16 of its rows a step, one wgmma per part of dQ (part h reads K's
+// column blocks from h * ON * 2 / SW on).
+template <int SW, int OH, int ON>
+__device__ __forceinline__ void issue_ab(float (&d)[OH][ON / 2],
                                          const uint32_t (&a)[kBK / 16][4],
                                          const unsigned char* b) {
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint64_t desc = hp::smem_desc(b + kk * 16 * SW, kBK * SW,
-                                            8 * SW, SW);
-        if constexpr (HD == 128) {
-            hp::wgmma_rs_n128(d, a[kk], desc, 1);
-        } else if constexpr (HD == 64) {
-            hp::wgmma_rs_n64(d, a[kk], desc, 1);
-        } else {
-            hp::wgmma_rs_n32(d, a[kk], desc, 1);
+#pragma unroll
+        for (int h = 0; h < OH; ++h) {
+            const uint64_t desc = hp::smem_desc(
+                b + h * (ON * 2 / SW) * kBK * SW + kk * 16 * SW, kBK * SW,
+                8 * SW, SW);
+            if constexpr (ON == 128) {
+                hp::wgmma_rs_n128(d[h], a[kk], desc, 1);
+            } else if constexpr (ON == 64) {
+                hp::wgmma_rs_n64(d[h], a[kk], desc, 1);
+            } else {
+                hp::wgmma_rs_n32(d[h], a[kk], desc, 1);
+            }
         }
     }
 }
@@ -133,7 +167,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                           __grid_constant__ const CUtensorMap dqmap,
                           const float* __restrict__ lse,
                           const float* __restrict__ dvec, int Sq, int Skv,
-                          int H, int KV, int causal, int window,
+                          int H, int KV, int D, int causal, int window,
                           float scale) {
     using P = Plan<HD, NC>;
     constexpr int SW = P::SW;
@@ -229,9 +263,13 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
             dd[hi] = row < Sq ? dvec[(size_t)bh * Sq + row] : 0.0f;
         }
 
-        float dq[HD / 2];
+        // dQ's column c is part c / ON, dq[c / ON][4 (c % ON / 8) + ...].
+        float dq[P::OH][P::ON / 2];
 #pragma unroll
-        for (int i = 0; i < HD / 2; ++i) dq[i] = 0.0f;
+        for (int oh = 0; oh < P::OH; ++oh) {
+#pragma unroll
+            for (int i = 0; i < P::ON / 2; ++i) dq[oh][i] = 0.0f;
+        }
 
         const auto tile = [&](int st) { return sKV + st * P::STAGE_BYTES; };
         int stage = 0;
@@ -286,7 +324,7 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
 
                 hp::fence_regs(dq);
                 hp::wgmma_fence();
-                issue_ab<HD, SW>(dq, da, tile(stage));
+                issue_ab<SW, P::OH, P::ON>(dq, da, tile(stage));
                 hp::wgmma_commit();
                 hp::wgmma_wait<0>();
                 hp::fence_regs(dq);
@@ -309,16 +347,18 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
                 const int off = r * SW + byte % SW;
                 const int swz =
                     off ^ (((off >> 7) & (SW == 128 ? 7 : 3)) << 4);
+                const int part = j / (P::ON / 8);
+                const int x = 4 * (j % (P::ON / 8)) + 2 * hi;
                 *reinterpret_cast<__nv_bfloat162*>(
                     qc + byte / SW * P::BQ * SW + swz) =
-                    __floats2bfloat162_rn(dq[4 * j + 2 * hi],
-                                          dq[4 * j + 2 * hi + 1]);
+                    __floats2bfloat162_rn(dq[part][x], dq[part][x + 1]);
             }
         }
         hp::fence_async_shared();
         hp::named_barrier(1 + wg, 128);
         if (threadIdx.x % 128 == 0) {
-            for (int c = 0; c < P::BLOCKS; ++c) {
+            // Column blocks wholly past D hold zeros: not stored.
+            for (int c = 0; c < P::BLOCKS && c * SW / 2 < D; ++c) {
                 hp::tma_store_4d(&dqmap, qc + c * P::BQ * SW, c * SW / 2, h,
                                  row0, b);
             }
@@ -328,8 +368,9 @@ flash_bwd_dq_wgmma_kernel(__grid_constant__ const CUtensorMap qmap,
     }
 }
 
-// The tensor maps take the tensors' own D as their innermost dim (zero
-// fill past it on load, clipped on store), as K1's do.
+// The tensor maps take the tensors' own D as their innermost dim: a
+// column block that reaches past D is zero-filled on load and clipped on
+// store (one wholly past D is not stored), as K1's do.
 template <int HD, int NC>
 int launch_wgmma(const void* q, const void* k, const void* v,
                  const void* dout, const float* lse, const float* dvec,
@@ -350,7 +391,7 @@ int launch_wgmma(const void* q, const void* k, const void* v,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid(B * H, (Sq + P::BQ - 1) / P::BQ);
     kern<<<grid, P::THREADS, P::bytes(), stream>>>(
-        qm, km, vm, dom, dqm, lse, dvec, Sq, Skv, H, KV, causal, window,
+        qm, km, vm, dom, dqm, lse, dvec, Sq, Skv, H, KV, D, causal, window,
         scale);
     return (int)cudaGetLastError();
 }
@@ -362,7 +403,7 @@ int consumers(int B, int Sq, int H) {
 }
 
 // ---------------------------------------------------------------------------
-// f32, and bf16 at hd 256: flash_tile.cuh's tile loop
+// f32: flash_tile.cuh's tile loop
 // ---------------------------------------------------------------------------
 
 template <typename T, int HD>
@@ -455,7 +496,7 @@ flash_bwd_dq_tile_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 
     T* dst = dq + (((size_t)b * Sq + pos_q) * H + h) * D + half * (HD / 2);
-    acc.store(dst, pos_q < Sq, D - half * (HD / 2), Sw, lane);
+    acc.store(dst, pos_q < Sq, D - half * (HD / 2));
 }
 
 template <typename T, int HD>
@@ -476,16 +517,16 @@ int launch_tile(const void* q, const void* k, const void* v,
     return (int)cudaGetLastError();
 }
 
-// bf16: the wgmma kernel at hd <= 128, the tile loop at hd 256.
+// bf16: the wgmma kernel at every capacity; one consumer per CTA at hd
+// 256, else by consumers().
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* dvec,
                 void* dq, int B, int Sq, int Skv, int H, int KV, int D,
                 float scale, int causal, int window, cudaStream_t s) {
     if constexpr (HD > 128) {
-        return launch_tile<__nv_bfloat16, HD>(q, k, v, dout, lse, dvec, dq,
-                                              B, Sq, Skv, H, KV, D, scale,
-                                              causal, window, s);
+        return launch_wgmma<HD, 1>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
+                                   H, KV, D, scale, causal, window, s);
     } else if (consumers(B, Sq, H) == 1) {
         return launch_wgmma<HD, 1>(q, k, v, dout, lse, dvec, dq, B, Sq, Skv,
                                    H, KV, D, scale, causal, window, s);

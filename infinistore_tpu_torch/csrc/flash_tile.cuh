@@ -1,13 +1,12 @@
-// Tile code shared by the tile-loop flash prefill (flash_prefill.cu: f32)
-// and flash backward (flash_bwd_dq.cu: f32, and bf16 at hd 256;
-// flash_bwd_dkv.cu: f32) kernels.
+// Tile code shared by the f32 tile-loop flash prefill (flash_prefill.cu)
+// and flash backward (flash_bwd_dq.cu, flash_bwd_dkv.cu) kernels; bf16
+// takes the wgmma kernels at every head dim.
 // A CTA of 4 warps owns 64 rows, 16 per warp, staged in shared memory
-// with the tiles of TK rows it is folding (TK = 64, or 32 for f32 at hd
-// 256, so that the tiles fit in the 227 KB one block may use). bf16 runs
-// the tile products on the tensor cores (wmma 16x16x16, f32
-// accumulation); f32 runs plain FMA loops, so f32 stays true f32 (no
-// TF32). Softmax arithmetic is f32 in registers, two lanes per row, with
-// -1e30 as the masked logit. HD is the kernels' compile-time capacity;
+// with the tiles of TK rows it is folding (TK = 64, or 32 at hd 256, so
+// that the tiles fit in the 227 KB one block may use). The tile products
+// are plain FMA loops, so f32 stays true f32 (no TF32). Softmax
+// arithmetic is f32 in registers, two lanes per row, with -1e30 as the
+// masked logit. HD is the kernels' compile-time capacity;
 // the tensors' own head dim D (a multiple of 8, at most HD) strides the
 // rows in device memory, columns at or past D are staged as zero and
 // never stored. The dense kernels (K1, K5, K6) share one
@@ -19,7 +18,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -32,20 +30,17 @@ constexpr int BK = 64;  // kv rows per tile
 constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 
-using QFrag = nvcuda::wmma::fragment<nvcuda::wmma::matrix_a, 16, 16, 16,
-                                     __nv_bfloat16, nvcuda::wmma::row_major>;
-
 template <typename T, int HD>
 struct Layout {
+    static_assert(sizeof(T) == 4, "the tile loop is the f32 route");
     // Rows of the tiles a CTA walks over (keys; q rows in K6).
-    static constexpr int TK = (sizeof(T) == 4 && HD > 128) ? 32 : BK;
+    static constexpr int TK = HD > 128 ? 32 : BK;
     // Row strides (elements) of the shared tiles, padded against bank
-    // conflicts while keeping every wmma pointer 32-byte aligned.
-    static constexpr int LD = HD + (sizeof(T) == 2 ? 8 : 4);
-    // f32 scratch: bf16 also unpacks [16 x HD] products there, f32 only
-    // S [16 x TK].
-    static constexpr int SLD = (sizeof(T) == 2 && HD > TK ? HD : TK) + 4;
-    static constexpr int PLD = TK + (sizeof(T) == 2 ? 8 : 4);
+    // conflicts while keeping every row 16-byte aligned; the f32 scratch
+    // holds S [16 x TK], the P / dS tile [16 x TK].
+    static constexpr int LD = HD + 4;
+    static constexpr int SLD = TK + 4;
+    static constexpr int PLD = TK + 4;
     static constexpr size_t kTile = sizeof(T) * BQ * LD;       // 64 rows
     static constexpr size_t kWalkTile = sizeof(T) * TK * LD;   // TK rows
     static constexpr size_t kScratch = sizeof(float) * WARPS * 16 * SLD;
@@ -98,7 +93,6 @@ __device__ __forceinline__ void fold_tile(const Smem<T, HD>& sm, int warp,
                                           int lane, float scale,
                                           bool interior, Mask ok,
                                           RowState<HD>& st) {
-    static_assert(sizeof(T) == 4, "the prefill's tile fold is f32 only");
     using L = Layout<T, HD>;
     constexpr int TK = L::TK, LD = L::LD, SLD = L::SLD, PLD = L::PLD;
     constexpr int SC = TK / 2;  // S columns held by one lane
@@ -294,75 +288,37 @@ struct BwdSmem {
     }
 };
 
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16,
-                                       16, float>;
-
-// Sw[16 x TK] = A[16 x HD] B^T for one warp: A's 16 rows and B's TK
-// rows both `LD` apart in shared memory. bf16 on the tensor cores, f32
-// with FMA (lane: row lane / 2, columns [half * TK / 2, +TK / 2)).
+// Sw[16 x TK] = A[16 x HD] B^T for one warp, with FMA: A's 16 rows and
+// B's TK rows both `LD` apart in shared memory (lane: row lane / 2,
+// columns [half * TK / 2, +TK / 2)).
 template <typename T, int HD>
 __device__ __forceinline__ void abt(const T* A, const T* B, float* Sw,
                                     int lane) {
     using L = Layout<T, HD>;
     constexpr int TK = L::TK, LD = L::LD, SLD = L::SLD;
-    if constexpr (sizeof(T) == 2) {
-        using namespace nvcuda;
-        const __nv_bfloat16* a = reinterpret_cast<const __nv_bfloat16*>(A);
-        const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(B);
-        AccFrag sf[TK / 16];
-#pragma unroll
-        for (int n = 0; n < TK / 16; ++n) wmma::fill_fragment(sf[n], 0.0f);
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-            QFrag af;
-            wmma::load_matrix_sync(af, a + kk * 16, LD);
-#pragma unroll
-            for (int n = 0; n < TK / 16; ++n) {
-                // B^T as a col-major operand: element (k, n) sits at B[n][k].
-                wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                               wmma::col_major> bf;
-                wmma::load_matrix_sync(bf, b + n * 16 * LD + kk * 16, LD);
-                wmma::mma_sync(sf[n], af, bf, sf[n]);
-            }
-        }
-#pragma unroll
-        for (int n = 0; n < TK / 16; ++n) {
-            wmma::store_matrix_sync(Sw + n * 16, sf[n], SLD,
-                                    wmma::mem_row_major);
-        }
-    } else {
-        const int r = lane >> 1, half = lane & 1;
-        const T* arow = A + r * LD;
-        for (int j = 0; j < TK / 2; ++j) {
-            const T* brow = B + (half * TK / 2 + j) * LD;
-            float s = 0.0f;
+    const int r = lane >> 1, half = lane & 1;
+    const T* arow = A + r * LD;
+    for (int j = 0; j < TK / 2; ++j) {
+        const T* brow = B + (half * TK / 2 + j) * LD;
+        float s = 0.0f;
 #pragma unroll 8
-            for (int d = 0; d < HD; ++d) {
-                s = fmaf(to_float(arow[d]), to_float(brow[d]), s);
-            }
-            Sw[r * SLD + half * TK / 2 + j] = s;
+        for (int d = 0; d < HD; ++d) {
+            s = fmaf(to_float(arow[d]), to_float(brow[d]), s);
         }
+        Sw[r * SLD + half * TK / 2 + j] = s;
     }
 }
 
 // A warp's f32 accumulator of 16 rows x COLS columns (all HD, or one
-// half of them): wmma fragments for bf16, and for f32 the lane's row
-// lane / 2, columns [half * COLS / 2, +COLS / 2).
+// half of them): the lane's row lane / 2, columns [half * COLS / 2,
+// +COLS / 2).
 template <typename T, int HD, int COLS = HD>
 struct RowAcc {
-    AccFrag f[sizeof(T) == 2 ? COLS / 16 : 1];
-    float a[sizeof(T) == 2 ? 1 : COLS / 2];
+    float a[COLS / 2];
 
     __device__ RowAcc() {
-        if constexpr (sizeof(T) == 2) {
 #pragma unroll
-            for (int n = 0; n < COLS / 16; ++n) {
-                nvcuda::wmma::fill_fragment(f[n], 0.0f);
-            }
-        } else {
-#pragma unroll
-            for (int c = 0; c < COLS / 2; ++c) a[c] = 0.0f;
-        }
+        for (int c = 0; c < COLS / 2; ++c) a[c] = 0.0f;
     }
 
     // acc += Pw[16 x TK] B[TK x COLS]: Pw is the warp's P / dS tile
@@ -372,31 +328,13 @@ struct RowAcc {
                                            int lane) {
         using L = Layout<T, HD>;
         constexpr int TK = L::TK, LD = L::LD, PLD = L::PLD;
-        if constexpr (sizeof(T) == 2) {
-            using namespace nvcuda;
-            const __nv_bfloat16* p = reinterpret_cast<const __nv_bfloat16*>(Pw);
-            const __nv_bfloat16* b = reinterpret_cast<const __nv_bfloat16*>(B);
+        const int r = lane >> 1, half = lane & 1;
+        for (int j = 0; j < TK; ++j) {
+            const float pj = to_float(Pw[r * PLD + j]);
+            const T* brow = B + j * LD + half * (COLS / 2);
 #pragma unroll
-            for (int kk = 0; kk < TK / 16; ++kk) {
-                QFrag af;
-                wmma::load_matrix_sync(af, p + kk * 16, PLD);
-#pragma unroll
-                for (int n = 0; n < COLS / 16; ++n) {
-                    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                   wmma::row_major> bf;
-                    wmma::load_matrix_sync(bf, b + kk * 16 * LD + n * 16, LD);
-                    wmma::mma_sync(f[n], af, bf, f[n]);
-                }
-            }
-        } else {
-            const int r = lane >> 1, half = lane & 1;
-            for (int j = 0; j < TK; ++j) {
-                const float pj = to_float(Pw[r * PLD + j]);
-                const T* brow = B + j * LD + half * (COLS / 2);
-#pragma unroll
-                for (int c = 0; c < COLS / 2; ++c) {
-                    a[c] = fmaf(pj, to_float(brow[c]), a[c]);
-                }
+            for (int c = 0; c < COLS / 2; ++c) {
+                a[c] = fmaf(pj, to_float(brow[c]), a[c]);
             }
         }
     }
@@ -404,30 +342,9 @@ struct RowAcc {
     // Write the lane's half row (row lane / 2 of the warp's 16) to `dst`
     // (its first `cols` of COLS / 2 elements, at column half * COLS / 2
     // of the accumulator's columns: the others lie at or past the
-    // tensor's D) if `live`; Sw is the warp's f32 scratch, used to unpack
-    // the fragments.
-    __device__ __forceinline__ void store(T* dst, bool live, int cols,
-                                          float* Sw, int lane) {
-        constexpr int SLD = Layout<T, HD>::SLD;
-        const int r = lane >> 1, half = lane & 1;
-        if constexpr (sizeof(T) == 2) {
-#pragma unroll
-            for (int n = 0; n < COLS / 16; ++n) {
-                nvcuda::wmma::store_matrix_sync(Sw + n * 16, f[n], SLD,
-                                                nvcuda::wmma::mem_row_major);
-            }
-            __syncwarp();
-            if (live) {
-#pragma unroll
-                for (int c = 0; c < COLS / 2; ++c) {
-                    if (c < cols) {
-                        dst[c] = from_float<T>(
-                            Sw[r * SLD + half * (COLS / 2) + c]);
-                    }
-                }
-            }
-            __syncwarp();
-        } else if (live) {
+    // tensor's D) if `live`.
+    __device__ __forceinline__ void store(T* dst, bool live, int cols) {
+        if (live) {
 #pragma unroll
             for (int c = 0; c < COLS / 2; ++c) {
                 if (c < cols) dst[c] = a[c];

@@ -177,12 +177,12 @@ def flash_bwd_dkv(q, k, v, do, lse, dvec, causal=True, window=0):
 K1_ROWS = 64
 K1_BK = 128
 K1_BK_WIDE = 64
-# K5's bf16 tiles at hd <= 128 (flash_bwd_dq.cu's kRows and kBK): 64 q
-# rows per consumer warpgroup, one or two consumers per CTA, 64 keys per
-# kv tile. K6's (flash_bwd_dkv.cu's kRows, kBQ and kNC): 64 kv rows per
-# CTA, 64 q rows per stage, two consumers, which take the stages in turn
-# at hd <= 128 and at capacity 256 each take every stage into their half
-# of dK's and dV's columns.
+# K5's bf16 tiles (flash_bwd_dq.cu's kRows and kBK): 64 q rows per
+# consumer warpgroup, one or two consumers per CTA (k5_consumers), 64
+# keys per kv tile. K6's (flash_bwd_dkv.cu's kRows, kBQ and kNC): 64 kv
+# rows per CTA, 64 q rows per stage, two consumers, which take the stages
+# in turn at hd <= 128 and at capacity 256 each take every stage into
+# their half of dK's and dV's columns.
 K5_ROWS = K5_BK = 64
 K6_ROWS = K6_BQ = 64
 K6_CONSUMERS = 2
@@ -208,11 +208,19 @@ def k6_splits(batch, s_kv, n_kv, group, hd, dtype, sm_count):
 
 
 def k1_consumers(batch, s_q, n_heads, sm_count):
-    """Consumer warpgroups per CTA of K1's bf16 kernel (and K5's, whose
-    rule is the same): two (128-row q tiles) unless that launches fewer
-    CTAs than the card has SMs."""
+    """Consumer warpgroups per CTA of K1's bf16 kernel: two (128-row q
+    tiles) unless that launches fewer CTAs than the card has SMs."""
     ctas = -(-s_q // (2 * K1_ROWS)) * batch * n_heads
     return 1 if ctas < sm_count else 2
+
+
+def k5_consumers(batch, s_q, n_heads, hd, sm_count):
+    """Consumer warpgroups per CTA of K5's bf16 kernel: one at capacity
+    256 (two would leave shared memory for one K + V stage), else
+    :func:`k1_consumers`' rule."""
+    if _kernels.kernel_head_dim(hd) > 128:
+        return 1
+    return k1_consumers(batch, s_q, n_heads, sm_count)
 
 
 def kv_tile_range(q_start, s_q, s_kv, causal, window, bq, bk):

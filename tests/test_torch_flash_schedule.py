@@ -114,18 +114,33 @@ def test_heaviest_q_tiles_first(shape):
             assert counts == sorted(counts, reverse=True)
 
 
-@pytest.mark.parametrize("batch,s_q,n_heads,want", [
+CONSUMER_SHAPES = [
     (1, 2048, 32, 2),   # 16 x 32 = 512 CTAs of 128 rows
     (1, 256, 32, 1),    # the prefix-hit suffix: 2 x 32 = 64 < 132 SMs
     (2, 1024, 32, 2),
     (1, 17, 32, 1),
     (1, 1000, 16, 1),   # 8 x 16 = 128 < 132
     (1, 1056, 16, 2),   # 9 x 16 = 144
-])
+]
+
+
+@pytest.mark.parametrize("batch,s_q,n_heads,want", CONSUMER_SHAPES)
 def test_consumers_by_shape(batch, s_q, n_heads, want):
     """Two consumers (128-row q tiles) unless the grid would leave some of
     an H100's 132 SMs idle."""
     assert fa.k1_consumers(batch, s_q, n_heads, 132) == want
+
+
+@pytest.mark.parametrize("hd", (64, 128, 136, 192, 256))
+@pytest.mark.parametrize("batch,s_q,n_heads,want", CONSUMER_SHAPES)
+def test_k5_consumers_by_shape(batch, s_q, n_heads, want, hd):
+    """K5 takes K1's rule at hd <= 128 and one consumer at every head dim
+    of capacity 256, as its launch_bf16 does."""
+    assert fa.k5_consumers(batch, s_q, n_heads, hd, 132) == (
+        want if hd <= 128 else 1)
+    bf16 = _body("flash_bwd_dq.cu", "int launch_bf16(")
+    wide = bf16[bf16.index("if constexpr (HD > 128)"):]
+    assert wide.index("launch_wgmma<HD, 1>") < wide.index("}")
 
 
 def _constant(path, name):
@@ -160,10 +175,11 @@ def _body(path, signature):
     raise AssertionError(f"{signature} in {path} has no end")
 
 
-@pytest.mark.parametrize("path", ["flash_prefill.cu", "flash_bwd_dkv.cu"])
+@pytest.mark.parametrize("path", ["flash_prefill.cu", "flash_bwd_dkv.cu",
+                                  "flash_bwd_dq.cu"])
 def test_bf16_routes_reach_no_tile_loop(path):
-    """K1 and K6 in bf16 go to the wgmma kernel at every capacity, hd 256
-    included; their f32 instantiations still take the tile loop."""
+    """K1, K5 and K6 in bf16 go to the wgmma kernel at every capacity, hd
+    256 included; their f32 instantiations still take the tile loop."""
     bf16 = _body(path, "int launch_bf16(")
     assert "launch_tile" not in bf16 and "launch_wgmma" in bf16
     assert "launch_tile<float, HD>" in _body(path, "int launch_f32(")

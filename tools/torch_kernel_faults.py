@@ -75,6 +75,10 @@ _DKV_TAIL_EARLY = (
     "            hp::fence_regs(dv);\n"
     "            hp::fence_regs(dk);\n")
 
+# K5's live kv tiles of the CTA.
+_DQ_TILES = ("kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, "
+             "kt_begin, kt_end);")
+
 # (name, source file, original text, faulty text)
 FAULTS = (
     ("flash: skips the last kv tile", "flash_prefill.cu",
@@ -104,10 +108,22 @@ FAULTS = (
      "v + h * (ON * 2 / SW) * BK * SW + kk * 16 * SW",
      "v + 0 * h * (ON * 2 / SW) * BK * SW + kk * 16 * SW"),
     ("bwd dq: skips the last live kv tile", "flash_bwd_dq.cu",
-     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
-     "kt_end);",
-     "kv_tiles<P::BQ, kBK>(q_start, Sq, Skv, causal, window, kt_begin, "
-     "kt_end);\n    kt_end -= (kt_end - kt_begin > 1);"),
+     _DQ_TILES, _DQ_TILES + "\n    kt_end -= (kt_end - kt_begin > 1);"),
+    # hd 256: the last live kv tile, dQ's second column half, and the
+    # column blocks past D (at hd 136 the third block holds 8 real
+    # columns and 56 of zero fill).
+    ("bwd dq: hd-256 skips the last live kv tile", "flash_bwd_dq.cu",
+     _DQ_TILES,
+     _DQ_TILES + "\n    kt_end -= (HD > 128 && kt_end - kt_begin > 1);"),
+    ("bwd dq: hd-256 dQ's second half accumulated over K's first half",
+     "flash_bwd_dq.cu",
+     "b + h * (ON * 2 / SW) * kBK * SW + kk * 16 * SW",
+     "b + 0 * h * (ON * 2 / SW) * kBK * SW + kk * 16 * SW"),
+    ("bwd dq: hd-136 columns past D stored (the last block ends at D)",
+     "flash_bwd_dq.cu",
+     "hp::tma_store_4d(&dqmap, qc + c * P::BQ * SW, c * SW / 2, h,",
+     "hp::tma_store_4d(&dqmap, qc + c * P::BQ * SW, HD > 128 ? "
+     "min(c * SW / 2, D - SW / 2) : c * SW / 2, h,"),
     ("bwd dkv: q tiles start one late under a prefix", "flash_tile.cuh",
      "begin = max(k_start - offset, 0) / TQ;",
      "begin = max(k_start - offset, 0) / TQ + (offset > 0);"),

@@ -27,6 +27,9 @@ PHASE is one of:
   at tp = 2; (c) Mixtral width at ep = 2; (d) the float32 engines and
   the MoE tp training step), then the checks that need one process's
   tree.
+- ``bwd``: phase 8, the flash backward kernels (K1 with lse, K5 and
+  K6) against their plain versions at every BWD_CASES shape, with the
+  hd-256 rows timed beside one SDPA backward.
 - ``gemma``: phase 13, Gemma-1 at head dim 256: phase 4's main path at
   google/gemma-7b's widths, then 2 training steps at google/gemma-2b's
   widths and their kernel-vs-plain grads.
@@ -70,6 +73,12 @@ def _tp(cs, torch, np, report):
     cs.phase_tp(torch, np, pd, pq, gen, report)
 
 
+def _bwd(cs, torch, np, report):
+    from infinistore_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    report.update(cs.phase_bwd(torch, fa, gen))
+
+
 # name: (chip_smoke's phase number, the report's label, the runner)
 PHASES = {
     "moe": ("6c", "moe", _moe),
@@ -80,6 +89,7 @@ PHASES = {
                      torch, np, report)),
     "mesh": ("12", "mesh",
              lambda cs, torch, np, report: cs.phase_mesh(torch, np, report)),
+    "bwd": ("8", "flash backward", _bwd),
     "gemma": ("13", "gemma",
               lambda cs, torch, np, report: cs.phase_gemma(torch, np,
                                                            report)),
