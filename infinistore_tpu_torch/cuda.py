@@ -30,6 +30,14 @@ memory and the pool blocks, with no host staging.
 - **LayerStreamer**: per-layer offload overlapped with compute — the
   layer's device->host copy runs on a side stream behind an event, and
   an upload thread waits on that event.
+- **spans** (``CudaKVStore.stats``): each step of a page write and of a
+  page read is a :class:`~infinistore_tpu_torch.utils.profiling.Span`,
+  counted in ``stats`` and, under a torch profiler, recorded as a range:
+  ``store.allocate``, ``store.stage`` (STREAM: pinned buffer, D2H and
+  its sync; SHM: the copies into the pool), ``store.send``
+  (``write_cache``), ``store.commit`` (SHM); ``store.read`` (STREAM:
+  ``read_cache`` and its sync; SHM: ``pin``), ``store.h2d``,
+  ``store.release`` (SHM).
 
 CPU tensors take the same paths with plain memcpys (the tests run so).
 """
@@ -44,6 +52,7 @@ from ._device import resolve_device
 from ._native import FAKE_TOKEN, OK
 from .lib import InfinityConnection
 from .ops import kv_quant
+from .utils.profiling import Span
 
 # Offload/restore copy accounting. ``staging_copies`` counts extra
 # host->host copies and must stay 0 on SHM puts.
@@ -172,6 +181,16 @@ class CudaKVStore:
         # and rollbacks go through abort_for_keys.
         self._sharded = hasattr(conn, "shard_of")
         self._registered = {}  # pool_idx -> base address pinned by us
+        # <key>_ns / <key>_n of each span below (module docstring).
+        self.stats = {}
+        self._sp_allocate = Span(self.stats, "store.allocate",
+                                 "store_allocate")
+        self._sp_stage = Span(self.stats, "store.stage", "store_stage")
+        self._sp_send = Span(self.stats, "store.send", "store_send")
+        self._sp_commit = Span(self.stats, "store.commit", "store_commit")
+        self._sp_read = Span(self.stats, "store.read", "store_read")
+        self._sp_h2d = Span(self.stats, "store.h2d", "store_h2d")
+        self._sp_release = Span(self.stats, "store.release", "store_release")
         if self.device.type == "cuda" and conn.shm_connected:
             self.pin_pools()
 
@@ -273,15 +292,20 @@ class CudaKVStore:
         visible after ``sync``)."""
         n = len(blocks)
         if self.conn.shm_connected:
-            self._copy_into_pool(src, blocks, page_bytes)
-            self.conn.commit(blocks["token"][blocks["status"] == OK])
+            with self._sp_stage.of(pages=n, nbytes=n * page_bytes):
+                self._copy_into_pool(src, blocks, page_bytes)
+            with self._sp_commit.of(pages=n):
+                self.conn.commit(blocks["token"][blocks["status"] == OK])
             return
-        args = (self._host_bytes(src).numpy(),
-                [i * page_bytes for i in range(n)], page_bytes, blocks)
-        if self._sharded:
-            self.conn.write_cache(*args, keys)
-        else:
-            self.conn.write_cache(*args)
+        with self._sp_stage.of(pages=n, nbytes=n * page_bytes):
+            host = self._host_bytes(src).numpy()
+        with self._sp_send.of(pages=n, nbytes=n * page_bytes):
+            args = (host, [i * page_bytes for i in range(n)], page_bytes,
+                    blocks)
+            if self._sharded:
+                self.conn.write_cache(*args, keys)
+            else:
+                self.conn.write_cache(*args)
 
     # -- generic arrays --------------------------------------------------
 
@@ -301,7 +325,9 @@ class CudaKVStore:
             by_size.setdefault(src.numel(), []).append((k, src))
         for nbytes, group in by_size.items():
             keys = [k for k, _ in group]
-            blocks = self.conn.allocate(keys, nbytes)
+            with self._sp_allocate.of(pages=len(keys),
+                                      nbytes=len(keys) * nbytes):
+                blocks = self.conn.allocate(keys, nbytes)
             for i, (k, src) in enumerate(group):
                 try:
                     self._write_pages(src, blocks[i:i + 1], nbytes, [k])
@@ -327,7 +353,8 @@ class CudaKVStore:
             raise ValueError("len(keys) must equal pages.shape[0]")
         src = _as_bytes(pages.contiguous())
         page_bytes = src.numel() // max(n, 1)
-        blocks = self.conn.allocate(keys, page_bytes)
+        with self._sp_allocate.of(pages=n, nbytes=src.numel()):
+            blocks = self.conn.allocate(keys, page_bytes)
         try:
             self._write_pages(src, blocks, page_bytes, keys)
         except BaseException:
@@ -338,25 +365,32 @@ class CudaKVStore:
         return blocks
 
     def _read_into(self, out_bytes, keys, page_bytes):
+        n, nbytes = len(keys), out_bytes.numel()
         if self.conn.shm_connected:
-            lease, blocks = self.conn.pin(keys)
+            with self._sp_read.of(pages=n, nbytes=nbytes):
+                lease, blocks = self.conn.pin(keys)
             try:
                 # Synchronized inside: the copy is done before release.
-                self._copy_from_pool(out_bytes, blocks, page_bytes)
+                with self._sp_h2d.of(pages=n, nbytes=nbytes):
+                    self._copy_from_pool(out_bytes, blocks, page_bytes)
             finally:
-                self.conn.release(lease)
+                with self._sp_release.of(pages=n):
+                    self.conn.release(lease)
             return
         cuda = out_bytes.is_cuda
-        buf = (torch.empty(out_bytes.numel(), dtype=torch.uint8,
-                           pin_memory=True) if cuda else out_bytes)
-        self.conn.read_cache(
-            buf.numpy(), [(k, i * page_bytes) for i, k in enumerate(keys)],
-            page_bytes,
-        )
-        self.conn.sync()
+        with self._sp_read.of(pages=n, nbytes=nbytes):
+            buf = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+                   if cuda else out_bytes)
+            self.conn.read_cache(
+                buf.numpy(),
+                [(k, i * page_bytes) for i, k in enumerate(keys)],
+                page_bytes,
+            )
+            self.conn.sync()
         if cuda:
-            out_bytes.copy_(buf, non_blocking=True)
-            torch.cuda.current_stream(out_bytes.device).synchronize()
+            with self._sp_h2d.of(pages=n, nbytes=nbytes):
+                out_bytes.copy_(buf, non_blocking=True)
+                torch.cuda.current_stream(out_bytes.device).synchronize()
             copy_counters["h2d_copies"] += 1
             copy_counters["h2d_bytes"] += buf.numel()
 
@@ -388,7 +422,8 @@ class CudaKVStore:
             raise ValueError("len(keys) must equal pages.shape[0]")
         block = kv_quant.packed_page_bytes(tuple(pages.shape[1:]))
         packed = kv_quant.pack_pages(*kv_quant.quantize_kv_pages(pages))
-        blocks = self.conn.allocate(keys, block)
+        with self._sp_allocate.of(pages=n, nbytes=n * block):
+            blocks = self.conn.allocate(keys, block)
         try:
             self._write_pages(packed.reshape(-1), blocks, block, keys)
         except BaseException:

@@ -23,6 +23,17 @@ uncached tail, decode all slots in lockstep, offload finished pages.
 - **Speculative decoding** (``spec_k``), **chunked prefill**
   (``prefill_chunk``) and **multi-step bursts** (``host_steps``), with
   seeded per-request sampling on the host (numpy), as in the JAX engine.
+- **Spans and counters** (``ServingEngine.stats``, served at the HTTP
+  front end's ``/stats``): admission (``engine.admit`` with its children
+  ``engine.probe``, ``engine.restore``, ``engine.prefill``), decode
+  (``engine.decode``: ``engine.decode.dispatch`` queues the step's
+  kernels, ``engine.decode.wait`` waits for its tokens) and offload
+  (``engine.offload``: ``engine.offload.gather``, the store's put spans,
+  ``engine.offload.ack``) each add ``<key>_ns`` / ``<key>_n``
+  (:class:`~infinistore_tpu_torch.utils.profiling.Span`; under a torch
+  profiler also ranges with the request id); the store's own span
+  counters are folded in after each store call; ``queue_wait_*``,
+  ``step_*``, ``offload_bytes`` and ``restore_bytes`` are counters.
 - **Quantized wire (opt-in)**: ``ServingConfig(quantized_store=True)``
   moves pages to and from the store int8-packed (``ops/kv_quant.py``,
   quantized and packed on the device): about half the offload/restore
@@ -61,6 +72,7 @@ Where it differs from the JAX engine, and why:
 
 import hashlib
 import logging
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -70,6 +82,7 @@ from torch.distributed.tensor import DTensor
 from ._device import resolve_device
 from .lib import InfiniStoreKeyNotFound
 from .models import llama, moe
+from .utils.profiling import Span
 
 
 def content_page_digests(tokens, page_size, n_pages, namespace=""):
@@ -176,6 +189,7 @@ class _Work:
     #                       queued request retries admission every step
     #                       under pool pressure and must not re-hash and
     #                       re-probe each time (reset when prompt changes)
+    queued_ns: int = 0    # perf_counter_ns() when it (re-)entered the queue
 
     def __post_init__(self):
         if self.req.temperature > 0 and self.rng is None:
@@ -457,7 +471,31 @@ class ServingEngine:
             "offloaded_pages": 0, "preemptions": 0, "store_errors": 0,
             "restore_misses": 0, "spec_proposed": 0, "spec_accepted": 0,
             "chunk_steps": 0, "burst_steps": 0, "prefetched_pages": 0,
+            "queue_wait_ns": 0, "queue_wait_n": 0, "step_ns": 0,
+            "step_n": 0, "offload_bytes": 0, "restore_bytes": 0,
         }
+        # Spans over stats (module docstring): <key>_ns / <key>_n each.
+        self._sp_admit = Span(self.stats, "engine.admit", "admit")
+        self._sp_probe = Span(self.stats, "engine.probe", "probe")
+        self._sp_restore = Span(self.stats, "engine.restore", "restore")
+        self._sp_prefill = Span(self.stats, "engine.prefill", "prefill")
+        self._sp_decode = Span(self.stats, "engine.decode", "decode")
+        self._sp_dispatch = Span(self.stats, "engine.decode.dispatch",
+                                 "decode_dispatch")
+        self._sp_wait = Span(self.stats, "engine.decode.wait", "decode_wait")
+        self._sp_offload = Span(self.stats, "engine.offload", "offload")
+        self._sp_gather = Span(self.stats, "engine.offload.gather",
+                               "offload_gather")
+        self._sp_ack = Span(self.stats, "engine.offload.ack", "offload_ack")
+        # The store's own span counters (CudaKVStore.stats), folded into
+        # stats after each store call: _store_seen holds what was folded.
+        self._store_stats = getattr(store, "stats", None)
+        if not isinstance(self._store_stats, dict):
+            self._store_stats = None
+        self._store_seen = dict(self._store_stats or {})
+        for k in self._store_seen:
+            self.stats.setdefault(k, 0)
+        self._page_bytes = cfg.kv_page_bytes()
         # The store accelerates, it is never a dependency: after the
         # first store failure the engine serves store-less.
         self._store_ok = True
@@ -537,7 +575,8 @@ class ServingEngine:
                 f"request needs {need} pages > max_pages_per_seq "
                 f"{self.sc.max_pages_per_seq}"
             )
-        self.queue.append(_Work(req=req, prompt=list(req.prompt)))
+        self.queue.append(_Work(req=req, prompt=list(req.prompt),
+                                queued_ns=time.perf_counter_ns()))
         self.stats["requests"] += 1
 
     def _alloc(self, n):
@@ -552,6 +591,15 @@ class ServingEngine:
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         self.k_pages.index_copy_(1, idx, k_new.to(self.k_pages.dtype))
         self.v_pages.index_copy_(1, idx, v_new.to(self.v_pages.dtype))
+
+    def _fold_store_stats(self):
+        """Add the store's span counters accrued since the last fold."""
+        if self._store_stats is None:
+            return
+        seen = self._store_seen
+        for k, v in self._store_stats.items():
+            self.stats[k] = self.stats.get(k, 0) + v - seen.get(k, 0)
+            seen[k] = v
 
     def _agree(self, value, largest=False):
         """A store call's outcome as every rank of the mesh's inner dim
@@ -582,12 +630,12 @@ class ServingEngine:
         if cap == 0:
             return 0, []
         digests = self._digests(work.prompt, cap)
+        keys = content_page_keys(work.prompt, self.cfg.page_size, cap, 0,
+                                 "k", digests=digests)
         err = None
         try:
-            hit = self.store.cached_prefix_len(
-                content_page_keys(work.prompt, self.cfg.page_size, cap, 0,
-                                  "k", digests=digests)
-            )
+            with self._sp_probe.of(rid=work.req.request_id, pages=cap):
+                hit = self.store.cached_prefix_len(keys)
         except Exception as e:
             hit, err = -1, e
         hit = self._agree(hit)
@@ -692,19 +740,25 @@ class ServingEngine:
             # call; the digests come from the probe. Outcome: 0 restored,
             # 1 evicted, 2 failed (agreed over the mesh: the worst counts).
             outcome, err = 0, None
-            try:
-                kp, vp = llama.restore_prefix_pages(
-                    self.store, cfg,
-                    lambda li, kind: content_page_keys(
-                        work.prompt, page, hit, li, kind, digests=digests
-                    )[first_live:],
-                    hit - first_live,
-                    getter=self._get_pages,
-                )
-            except InfiniStoreKeyNotFound:
-                outcome = 1
-            except Exception as e:
-                outcome, err = 2, e
+            n_restore = (hit - first_live) * cfg.n_layers * 2
+            with self._sp_restore.of(rid=work.req.request_id,
+                                     pages=n_restore,
+                                     nbytes=n_restore * self._page_bytes):
+                try:
+                    kp, vp = llama.restore_prefix_pages(
+                        self.store, cfg,
+                        lambda li, kind: content_page_keys(
+                            work.prompt, page, hit, li, kind,
+                            digests=digests
+                        )[first_live:],
+                        hit - first_live,
+                        getter=self._get_pages,
+                    )
+                except InfiniStoreKeyNotFound:
+                    outcome = 1
+                except Exception as e:
+                    outcome, err = 2, e
+            self._fold_store_stats()
             outcome = self._agree(outcome, largest=True)
             if outcome == 1:
                 # Evicted between probe and restore: a miss for this
@@ -715,6 +769,7 @@ class ServingEngine:
                 self._store_failed("restore", err)
                 hit = 0
             else:
+                self.stats["restore_bytes"] += n_restore * self._page_bytes
                 kp = kp.to(self.device)
                 vp = vp.to(self.device)
                 if self.par is not None and self.par.split_heads:
@@ -783,26 +838,29 @@ class ServingEngine:
 
         suffix = work.prompt[hit * page:]
         s_real = len(suffix)
-        toks = self._to_device(np.asarray([suffix], dtype=np.int32))
-        if prefix_kvs is None:
-            # Cold admission: prefill, page out, pool write, last row.
-            # Dead prompt pages [0, skip) have no pool page.
-            row_dev, kp_s, vp_s = _admit_fused(self.params, cfg, toks,
-                                               model=self.model, **self._mkw)
-            self._pool_write(ids, kp_s[:, skip:], vp_s[:, skip:])
-        else:
-            # pos0 anchors the trimmed prefix's absolute rope positions.
-            with torch.no_grad():
-                logits, kvs = self.model.prefill_with_prefix(
-                    self.params, cfg, toks, prefix_kvs,
-                    pos0=first_live * page, **self._mkw,
-                )
-            # Page out the suffix KV into the pool: a hit implies
-            # skip = first_live <= hit, so every suffix page has an id.
-            kp_s, vp_s = _stack_pages(cfg, kvs)
-            self._pool_write(ids[hit - skip:], kp_s, vp_s)
-            row_dev = logits[0, s_real - 1]
-        row_host = row_dev.cpu().numpy()
+        with self._sp_prefill.of(rid=work.req.request_id):
+            toks = self._to_device(np.asarray([suffix], dtype=np.int32))
+            if prefix_kvs is None:
+                # Cold admission: prefill, page out, pool write, last
+                # row. Dead prompt pages [0, skip) have no pool page.
+                row_dev, kp_s, vp_s = _admit_fused(
+                    self.params, cfg, toks, model=self.model, **self._mkw)
+                self._pool_write(ids, kp_s[:, skip:], vp_s[:, skip:])
+            else:
+                # pos0 anchors the trimmed prefix's absolute rope
+                # positions.
+                with torch.no_grad():
+                    logits, kvs = self.model.prefill_with_prefix(
+                        self.params, cfg, toks, prefix_kvs,
+                        pos0=first_live * page, **self._mkw,
+                    )
+                # Page out the suffix KV into the pool: a hit implies
+                # skip = first_live <= hit, so every suffix page has an
+                # id.
+                kp_s, vp_s = _stack_pages(cfg, kvs)
+                self._pool_write(ids[hit - skip:], kp_s, vp_s)
+                row_dev = logits[0, s_real - 1]
+            row_host = row_dev.cpu().numpy()
         self.stats["prefill_tokens"] += s_real
 
         self.page_table[slot_idx] = row
@@ -894,25 +952,34 @@ class ServingEngine:
         if n_full <= lo:
             return
         new_digests = self._slot_digests(slot, n_full)[lo:]
+        n_pages = (n_full - lo) * cfg.n_layers * 2
         err = None
-        try:
-            sel = torch.as_tensor(slot.page_ids[lo:n_full], dtype=torch.long,
-                                  device=self.device)
-            keys = []
-            for li in range(cfg.n_layers):
-                for kind in ("k", "v"):
-                    keys.extend(content_page_keys([], 0, 0, li, kind,
-                                                  digests=new_digests))
-            pages = torch.stack([self.k_pages.index_select(1, sel),
-                                 self.v_pages.index_select(1, sel)], dim=1)
-            if self.par is not None and self.par.split_heads:
-                pages = self.par.gather_heads(pages)
-            if self.par is None or self.par.leader:
-                self._put_pages(keys,
-                                pages.reshape(-1, *cfg.kv_page_shape()))
-                self.store.conn.sync()
-        except Exception as e:
-            err = e
+        with self._sp_offload.of(rid=slot.work.req.request_id,
+                                 pages=n_pages,
+                                 nbytes=n_pages * self._page_bytes):
+            try:
+                sel = torch.as_tensor(slot.page_ids[lo:n_full],
+                                      dtype=torch.long, device=self.device)
+                keys = []
+                for li in range(cfg.n_layers):
+                    for kind in ("k", "v"):
+                        keys.extend(content_page_keys([], 0, 0, li, kind,
+                                                      digests=new_digests))
+                with self._sp_gather:
+                    pages = torch.stack([self.k_pages.index_select(1, sel),
+                                         self.v_pages.index_select(1, sel)],
+                                        dim=1)
+                    if self.par is not None and self.par.split_heads:
+                        pages = self.par.gather_heads(pages)
+                if self.par is None or self.par.leader:
+                    self._put_pages(keys,
+                                    pages.reshape(-1, *cfg.kv_page_shape()))
+                    with self._sp_ack:
+                        self.store.conn.sync()
+                    self.stats["offload_bytes"] += n_pages * self._page_bytes
+            except Exception as e:
+                err = e
+        self._fold_store_stats()
         if self._agree(int(err is not None), largest=True):
             # The output does not depend on the offload; losing it only
             # costs future cache hits.
@@ -962,6 +1029,7 @@ class ServingEngine:
         work.prompt = list(work.prompt) + slot.generated
         work.probe = None  # prompt changed: stale probe
         self._release(slot_idx, slot)
+        work.queued_ns = time.perf_counter_ns()
         self.queue.insert(0, work)
         self.stats["preemptions"] += 1
 
@@ -969,10 +1037,24 @@ class ServingEngine:
         """One engine iteration: admit into free slots, then decode one
         token (or a burst, or a verified draft) for every active slot.
         Returns the number of active slots decoded."""
+        t0 = time.perf_counter_ns()
+        try:
+            return self._step()
+        finally:
+            self.stats["step_ns"] += time.perf_counter_ns() - t0
+            self.stats["step_n"] += 1
+
+    def _step(self):
         for i in range(self.sc.max_slots):
             if self.slots[i] is None and self.queue:
-                if self._admit(i, self.queue[0]):
+                work = self.queue[0]
+                t0 = time.perf_counter_ns()
+                with self._sp_admit.of(rid=work.req.request_id):
+                    admitted = self._admit(i, work)
+                if admitted:
                     self.queue.pop(0)
+                    self.stats["queue_wait_ns"] += t0 - work.queued_ns
+                    self.stats["queue_wait_n"] += 1
 
         active = [
             (i, s) for i, s in enumerate(self.slots) if s is not None
@@ -1046,32 +1128,47 @@ class ServingEngine:
         if not active:
             return 0
 
-        # Steady state: the device already holds this step's inputs
-        # (previous greedy step's outputs, same active set, no page-table
-        # change), so nothing is uploaded.
-        key = (tuple(i for i, _ in active), self._pages_rev)
-        if (self._steady is not None and greedy
-                and self._steady[0] == key):
-            _, token_dev, lens_dev, rows_dev = self._steady
-        else:
-            token = np.zeros(self.sc.max_slots, dtype=np.int32)
-            seq_lens = np.zeros(self.sc.max_slots, dtype=np.int32)
-            rows = np.zeros_like(self.page_table)  # inactive -> scratch 0
-            for i, s in active:
-                token[i] = s.generated[-1]
-                seq_lens[i] = s.seq_len
-                rows[i] = self.page_table[i]
-            token_dev = self._to_device(token)
-            lens_dev = self._to_device(seq_lens)
-            rows_dev = self._to_device(rows)
+        with self._sp_decode:
+            # Steady state: the device already holds this step's inputs
+            # (previous greedy step's outputs, same active set, no
+            # page-table change), so nothing is uploaded.
+            key = (tuple(i for i, _ in active), self._pages_rev)
+            if (self._steady is not None and greedy
+                    and self._steady[0] == key):
+                _, token_dev, lens_dev, rows_dev = self._steady
+            else:
+                token = np.zeros(self.sc.max_slots, dtype=np.int32)
+                seq_lens = np.zeros(self.sc.max_slots, dtype=np.int32)
+                rows = np.zeros_like(self.page_table)  # inactive -> scratch 0
+                for i, s in active:
+                    token[i] = s.generated[-1]
+                    seq_lens[i] = s.seq_len
+                    rows[i] = self.page_table[i]
+                token_dev = self._to_device(token)
+                lens_dev = self._to_device(seq_lens)
+                rows_dev = self._to_device(rows)
+            # Dispatch queues the step's kernels; the one device-to-host
+            # copy of the next tokens waits for them.
+            if k > 1:
+                with self._sp_dispatch:
+                    toks_dev, lens_next = _decode_scan(
+                        self.params, self.cfg, token_dev, lens_dev,
+                        self.k_pages, self.v_pages, rows_dev, k,
+                        model=self.model, **self._mkw,
+                    )
+                with self._sp_wait:
+                    toks = toks_dev.cpu().numpy()  # [B, k]: the one copy
+            else:
+                with self._sp_dispatch:
+                    logits, nxt_dev, lens_next = _decode_fused(
+                        self.params, self.cfg, token_dev, lens_dev,
+                        self.k_pages, self.v_pages, rows_dev,
+                        model=self.model, **self._mkw,
+                    )
+                with self._sp_wait:
+                    nxt = nxt_dev.cpu().numpy()
 
         if k > 1:
-            toks_dev, lens_next = _decode_scan(
-                self.params, self.cfg, token_dev, lens_dev,
-                self.k_pages, self.v_pages, rows_dev, k, model=self.model,
-                **self._mkw,
-            )
-            toks = toks_dev.cpu().numpy()  # [B, k]: the one copy
             trimmed = False
             for i, s in active:
                 burst = [int(t) for t in toks[i]]
@@ -1094,11 +1191,6 @@ class ServingEngine:
             )
             return len(active)
 
-        logits, nxt_dev, lens_next = _decode_fused(
-            self.params, self.cfg, token_dev, lens_dev, self.k_pages,
-            self.v_pages, rows_dev, model=self.model, **self._mkw,
-        )
-        nxt = nxt_dev.cpu().numpy()
         # Reusable next step iff every emitted token is the device's
         # argmax (greedy); samplers, drafts and finishes invalidate.
         self._steady = (

@@ -26,6 +26,15 @@ the store-side span rings at window close, clips them to the window
 with the torch profiler timeline (CPU ops and, on a card, its CUDA
 kernels and copies) into a single Perfetto-loadable file, on one time
 axis (see :func:`_clock_offset_us`).
+
+The serving engine and ``CudaKVStore`` time their own layers with
+:class:`Span`: each span always adds its duration and one count to a
+counter pair of its owner's ``stats``, and while a torch profiler runs it
+also records a profiler range (a child of the range it runs inside,
+its request id, pages and bytes as arguments), on the clock of the
+profiler's device trace. A ``profile_window(trace_dir=...)`` file so
+holds the engine's and the store client's spans, the kernels and the
+store server's spans on one axis.
 """
 
 import glob
@@ -34,6 +43,9 @@ import json
 import os
 import time
 from contextlib import contextmanager
+
+import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Cumulative top-level stats COUNTERS worth windowing alongside the
 # per-op table: traffic, the reclaim pipeline counters and the read
@@ -67,6 +79,76 @@ _WINDOW_GAUGES = (
 # with the store's clock; the first one pays the profiler's warm-up.
 _MARKER = "profile_window.open"
 _N_MARKERS = 3
+
+
+def _open_range(name, rid, pages, nbytes):
+    """An entered profiler range named ``name`` whose arguments (shown
+    in traces recorded with ``record_shapes``) are the given ones."""
+    args = {}
+    if rid is not None:
+        args["rid"] = rid if isinstance(rid, (int, str)) else str(rid)
+    if pages is not None:
+        args["pages"] = int(pages)
+    if nbytes is not None:
+        args["bytes"] = int(nbytes)
+    # The C++ range of torch.profiler.record_function, which keeps
+    # keyword arguments (the Python one drops its argument string).
+    rng = torch._C._profiler._RecordFunctionFast(name, [], args)
+    rng.__enter__()
+    return rng
+
+
+class Span:
+    """A named timer that adds into the counter pair ``<key>_ns`` /
+    ``<key>_n`` of the dict ``stats`` (set to 0 here if absent):
+
+        admit = Span(engine.stats, "engine.admit", "admit")
+        with admit.of(rid=request_id):
+            ...
+
+    With no profiler running, a use costs a flag check and two reads of
+    ``time.perf_counter_ns``: no allocation, no formatting, no device
+    sync. While a torch profiler runs it also opens a profiler range
+    named ``name`` around the timed interval, with ``rid``, ``pages``
+    and ``bytes`` as its arguments. A span object times one interval at
+    a time: its owner uses it from one thread, and never inside itself.
+    """
+
+    __slots__ = ("name", "_stats", "_ns", "_n", "_t0", "_range", "_rid",
+                 "_pages", "_bytes")
+
+    def __init__(self, stats, name, key):
+        self.name = name
+        self._stats = stats
+        self._ns, self._n = f"{key}_ns", f"{key}_n"
+        stats.setdefault(self._ns, 0)
+        stats.setdefault(self._n, 0)
+        self._t0 = 0
+        self._range = self._rid = self._pages = self._bytes = None
+
+    def of(self, rid=None, pages=None, nbytes=None):
+        """This span, with the arguments its next profiler range takes."""
+        self._rid, self._pages, self._bytes = rid, pages, nbytes
+        return self
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = _open_range(self.name, self._rid, self._pages,
+                                      self._bytes)
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = time.perf_counter_ns() - self._t0
+        stats = self._stats
+        stats[self._ns] += dt
+        stats[self._n] += 1
+        self._rid = self._pages = self._bytes = None
+        rng = self._range
+        if rng is not None:
+            self._range = None
+            rng.__exit__(exc_type, exc, tb)
+        return False
 
 
 def _op_counts(stats):
@@ -215,13 +297,14 @@ def _merge_perfetto(trace_dir, store_events):
 
 
 def _start_profiler():
-    import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    # Shapes recorded: the program's spans carry their arguments
+    # (request id, pages, bytes) into the trace only so.
+    prof = profile(activities=activities, record_shapes=True)
     prof.start()
     return prof, _open_markers(record_function)
 
@@ -236,7 +319,8 @@ def profile_window(conn_or_server=None, trace_dir=None, trace=False):
     trace_dir: when set, wraps the window in ``torch.profiler`` (CPU
         activity, and CUDA activity where a card is present); its
         timeline lands there as ``torch.<pid>.<ns>.trace.json.gz``
-        (Chrome trace JSON, Perfetto-loadable).
+        (Chrome trace JSON, Perfetto-loadable), with the program's
+        :class:`Span` ranges and their arguments.
     trace: when True, also drain the STORE-side span rings at window
         close (requires ``conn_or_server`` to expose ``.trace()`` — an
         ``InfiniStoreServer`` whose config enables tracing; the rings
@@ -312,4 +396,4 @@ def profile_window(conn_or_server=None, trace_dir=None, trace=False):
                     _shifted(events, w.clock_offset_us or 0.0))
 
 
-__all__ = ["profile_window", "ProfileWindow"]
+__all__ = ["profile_window", "ProfileWindow", "Span"]
