@@ -36,6 +36,12 @@ Phases, in order; any failure exits non-zero before the result line:
    them, and hd 24, 48 and 192; each case's kernel_ms (eager) and
    graph_ms, its split plan, two launches byte-equal, and K2's graph_ms
    over the same pages dequantized, beside the byte bound.
+   3c. The decode graph's KV write (csrc/kv_write.cu, the fixed-shape
+   write a llama.DecodeGraph replays) against its plain version, byte for
+   byte, bf16 Mistral-7B rows over the Mistral cell's pool (8193 pages):
+   rows past the table, idle rows on scratch page 0, the pool's last
+   page, ids outside the pool, mixed, at batch 1 and 32; timed at batch
+   32 (kernel_ms, graph_ms) against its byte bound.
 4. The main path at Llama-3.1-8B width (random weights from a seed)
    through the port's own server on SHM: prefill 4 prompts streaming
    every layer's pages, find the prefix on a fresh connection, restore
@@ -57,6 +63,11 @@ Phases, in order; any failure exits non-zero before the result line:
    prefill, 4-step bursts, a pool small enough to preempt) serves 8
    more; the HTTP front end answers 4 concurrent requests over engine
    A. Launch counts show all three kernels ran (32 per model call);
+   every decode step replays the engine's one decode graph (its
+   counters; the KV write's launches). Apart from the counters, a
+   DecodeGraph at that width against the eager step: logits bit-equal
+   over 4 steps at batch 32, the pools equal, and K2 and the KV write
+   seen by a profiler in every replay;
    K3 is held to its plain version per layer on one speculative and one
    chunk step; every finished request is teacher-forced through one
    dense prefill, and a planted page-table fault shows that check bites.
@@ -207,8 +218,9 @@ Phases, in order; any failure exits non-zero before the result line:
     paths' grads are also read against an f32 plain reference on the
     same weights and the kernels' worst leaf error is held to
     DELTA_FACTOR x the plain leaves'.
-14. A JSON line of per-kernel numbers (six kernels; K2's, K3's and
-    K4's also carry graph_ms; K1's, K5's and K6's also carry "hd256":
+14. A JSON line of per-kernel numbers (six kernels and the decode
+    graph's KV write, phase 3c, launches from phase 6, with no mesh or
+    Gemma counts; K2's, K3's, K4's and the KV write's also carry graph_ms; K1's, K5's and K6's also carry "hd256":
     phases 2 and 8 at the Gemma-7B and Gemma-2B widths; tp_launches:
     launches on phase 10's path; parallel_launches: per rank on phase
     11's; mesh_launches: per rank on phase 12's; gemma_launches: on phase
@@ -853,6 +865,107 @@ def phase_decode_q(torch, pq, pd, gen):
                                     k2_bound_ms=k2_bms))
         del args, q, kq, ks, vq, vs, kd, vd
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the decode graph's KV write
+# ---------------------------------------------------------------------------
+
+# The Mistral-7B cell's pool and table (perfbench: 8193 pages of 16
+# tokens, 256 pages a sequence); its KV rows, 8 kv heads x 128, are
+# Llama-3.1-8B's too.
+KVW_PAGES, KVW_WIDTH, KVW_PAGE, KVW_HEADS, KVW_HD = 8193, 256, 16, 8, 128
+KVW_CASES = ("past_table", "idle_rows", "last_page", "ids_outside_pool",
+             "mixed")
+
+
+def kv_write_case(torch, name, batch, gen):
+    """(page, slot) int64 [batch] of one case, aimed as the decode step
+    aims them: the page of position seq_len in the row's table, or
+    KVW_PAGES (outside the pool) past the table."""
+    n, w, p = KVW_PAGES, KVW_WIDTH, KVW_PAGE
+    table = torch.randint(1, n, (batch, w), generator=gen)
+    lens = torch.randint(0, w * p, (batch,), generator=gen)
+    if name == "past_table":
+        lens[::2] = w * p + torch.arange(0, batch, 2)
+    elif name == "idle_rows":
+        # The engine's idle slots: no tokens, a table of scratch page 0;
+        # all aim at (0, 0), and the last of them writes.
+        table[1::2], lens[1::2] = 0, 0
+    elif name == "last_page":
+        table[:, -1], lens[:] = n - 1, w * p - 1
+    elif name == "ids_outside_pool":
+        # -1 wraps to the pool's last page; n and -n - 1 are dropped.
+        table[0::3], table[1::3], table[2::3] = -1, n, -n - 1
+    idx = lens // p
+    page = table.gather(1, idx.clamp(max=w - 1)[:, None])[:, 0]
+    return torch.where(idx < w, page, n), lens % p
+
+
+def phase_kv_write(torch, kw):
+    """The fixed-shape KV write (csrc/kv_write.cu) against its plain
+    version on the card, byte for byte, at bf16 Mistral-7B rows over the
+    cell's pool, at batch 1 and 32; timed at batch 32 against its byte
+    bound. Returns the batch-32 row of the kernels line."""
+    say("== phase 3c: the decode graph's KV write vs plain ==")
+    shape = (KVW_PAGES, KVW_PAGE, KVW_HEADS, KVW_HD)
+    dgen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    pools = [torch.randn(shape, dtype=torch.bfloat16, device="cuda",
+                         generator=dgen) for _ in range(2)]
+    row = {}
+    worst = 0.0
+    for batch in (1, 32):
+        for name in KVW_CASES:
+            gen = torch.Generator().manual_seed(
+                SEED + 100 * batch + KVW_CASES.index(name))
+            page, slot = (t.cuda() for t in kv_write_case(
+                torch, name, batch, gen))
+            k, v = (torch.randn(batch, 1, KVW_HEADS, KVW_HD,
+                                dtype=torch.bfloat16, device="cuda",
+                                generator=dgen) for _ in range(2))
+            want = [p.clone() for p in pools]
+            kw.kv_write_plain(*want, k, v, page, slot)
+            got = [p.clone() for p in pools]
+            before = kw.launches
+            kw.kv_write(*got, k, v, page, slot)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g.view(torch.int16), w.view(torch.int16))
+                       for g, w in zip(got, want))
+            err = max(abs_err(g, w) for g, w in zip(got, want))
+            worst = max(worst, err)
+            pg = page.clone()
+            pg[pg < 0] += KVW_PAGES
+            landed = int(((pg >= 0) & (pg < KVW_PAGES)).sum())
+            say(f"kv_write {name} batch {batch}: {landed} of {batch} rows "
+                f"land, byte-equal to the plain version: {same}, one "
+                f"launch: {kw.launches == before + 1}")
+            check(same, f"kv_write differs from its plain version "
+                  f"({name}, batch {batch})")
+            check(kw.launches == before + 1, "kv_write launch count")
+            if name in ("past_table", "ids_outside_pool") and batch > 1:
+                check(landed < batch, f"{name} dropped no row")
+            del want, got
+    # Timed on the last case (mixed, batch 32), writing in place.
+    kp, vp = pools
+
+    def kernel():
+        kw.kv_write(kp, vp, k, v, page, slot)
+
+    ms = cuda_ms(torch, kernel, 200)
+    dev_ms = graph_ms(torch, kernel)
+    plain_ms = cuda_ms(torch, lambda: kw.kv_write_plain(kp, vp, k, v, page,
+                                                        slot), 5, warmup=1)
+    row_bytes = KVW_HEADS * KVW_HD * 2
+    nbytes = 2 * 2 * batch * row_bytes + 2 * batch * 8  # k, v read + write
+    bms, by = bound_ms(0, nbytes, PEAK_BF16)
+    say(f"kv_write batch {batch}: kernel_ms {ms:.5f} graph_ms "
+        f"{dev_ms:.5f} plain_ms {plain_ms:.4f} bound_ms {bms:.6f} ({by}: "
+        f"{nbytes} bytes)")
+    row.update(err=worst, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+               bound_ms=bms, bound_by=by)
+    del pools, kp, vp
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1614,6 +1727,95 @@ def start_store(InfiniStoreServer, ServerConfig, cfg, n_tokens,
     return srv
 
 
+GRAPH_BATCH, GRAPH_STEPS = 32, 4
+
+
+def decode_graph_check(torch, llama, pd, kw, params, cfg):
+    """llama.DecodeGraph against the eager decode step on the same
+    inputs, read apart from the launch counters (a replay adds its
+    capture's launches to them, whatever it ran): GRAPH_STEPS steps at
+    batch GRAPH_BATCH over lengths 64-1024 and one idle slot on scratch
+    page 0, each fed the eager step's argmax. Each replayed step's
+    logits bit-equal to the eager step's (a replay that skipped or
+    misplaced a kernel would differ), the pools equal after the run, the
+    eager step launching no KV-write kernel, and a profiler started
+    after the capture seeing each replay's K2 (paged_split_kernel) and
+    KV write (kv_write_kernel) under their own names, L of each a step.
+    Returns
+    the readings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, n, P, L = GRAPH_BATCH, GRAPH_STEPS, cfg.page_size, cfg.n_layers
+    gen = torch.Generator().manual_seed(SEED + 66)
+    lens = torch.randint(64, 1025, (B,), generator=gen, dtype=torch.int32)
+    lens[-1] = 0
+    need = [-(-(int(s) + n) // P) for s in lens[:-1]]
+    table = torch.zeros(B, max(need), dtype=torch.int32)
+    nxt = 1
+    for i, m in enumerate(need):
+        table[i, :m] = torch.arange(nxt, nxt + m, dtype=torch.int32)
+        nxt += m
+    shape = (L, nxt, P, cfg.n_kv_heads, cfg.head_dim)
+    dgen = torch.Generator(device="cuda").manual_seed(SEED + 66)
+    k_e, v_e = (torch.randn(shape, dtype=cfg.torch_dtype, device="cuda",
+                            generator=dgen) for _ in range(2))
+    k_g, v_g = k_e.clone(), v_e.clone()
+    lens, table = lens.cuda(), table.cuda()
+    toks = [torch.randint(0, cfg.vocab_size, (B,), generator=gen,
+                          dtype=torch.int32).cuda()]
+    eager = []
+    kw0 = kw.launches
+    for s in range(n):
+        logits, _, _ = llama.decode_step(params, cfg, toks[s], lens + s,
+                                         k_e, v_e, table)
+        eager.append(logits)
+        toks.append(torch.argmax(logits, dim=-1).to(torch.int32))
+    eager_kv = kw.launches - kw0
+    graph = llama.DecodeGraph()
+    logits, _, _ = llama.decode_step(params, cfg, toks[0], lens, k_g, v_g,
+                                     table, graph=graph)
+    same = [torch.equal(logits, eager[0])]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for s in range(1, n):
+            logits, _, _ = llama.decode_step(params, cfg, toks[s], lens + s,
+                                             k_g, v_g, table, graph=graph)
+            same.append(torch.equal(logits, eager[s]))
+        torch.cuda.synchronize()
+    seen = collections.Counter()
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            # K2's split kernel (its merge kernel is paged_split_merge_*).
+            for key, frag in (("paged_split", "paged_split_kernel"),
+                              ("kv_write", "kv_write_kernel")):
+                seen[key] += frag in e.name
+    pools = torch.equal(k_g, k_e) and torch.equal(v_g, v_e)
+    out = dict(batch=B, steps=n, logits_bit_equal=sum(same),
+               pools_equal=pools, eager_kv_write_launches=eager_kv,
+               replays_profiled=n - 1, kernels_seen=dict(seen),
+               counters=dict(graph.counters))
+    say(f"decode graph vs eager step at batch {B}, {n} steps: logits "
+        f"bit-equal in {sum(same)}, pools equal {pools}, eager step's "
+        f"kv_write launches {eager_kv}; in {n - 1} profiled replays the "
+        f"trace holds {dict(seen)} (want {L * (n - 1)} of each); "
+        f"{dict(graph.counters)}")
+    check(all(same), "a replayed decode step's logits differ from the "
+          "eager step's")
+    check(pools, "the pools differ after replayed and eager steps")
+    check(eager_kv == 0, "the eager decode step launched the KV-write "
+          "kernel")
+    check(seen["paged_split"] == L * (n - 1)
+          and seen["kv_write"] == L * (n - 1),
+          f"the profiler saw {dict(seen)} in {n - 1} replays")
+    check(graph.counters == {"decode_graph_captures": 1,
+                             "decode_graph_replays": n},
+          f"decode graph counters {graph.counters}")
+    del graph, k_e, v_e, k_g, v_g, eager, logits
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_serving(torch, np, params, report):
     from infinistore_tpu_torch import (ClientConfig, InfiniStoreServer,
                                        InfinityConnection, ServerConfig,
@@ -1624,6 +1826,7 @@ def phase_serving(torch, np, params, report):
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops import paged_kv_write as kw
     from infinistore_tpu_torch.ops.paged_attention import (
         multi_token_paged_attention, prefill_attention)
     from infinistore_tpu_torch.serving_http import ServingHTTPServer
@@ -1677,6 +1880,7 @@ def phase_serving(torch, np, params, report):
         fa.reset_launches()
         pd.reset_launches()
         pv.reset_launches()
+        kw.reset_launches()
         model.calls.clear()
         finished = []  # (prompt, tokens) of every finished request
 
@@ -1718,26 +1922,37 @@ def phase_serving(torch, np, params, report):
 
         calls = dict(model.calls)
         k1, k2, k3 = fa.launches, pd.launches, pv.launches
+        kv = kw.launches
         n_pf = calls.get("prefill", 0) + calls.get("prefill_with_prefix", 0)
+        n_dec = calls.get("decode_step", 0)
         say(f"serving launches: flash_prefill {k1} (= {L} x {n_pf} "
-            f"prefills), paged_decode {k2} (= {L} x "
-            f"{calls.get('decode_step', 0)} decode steps), paged_verify "
-            f"{k3} (= {L} x {calls.get('verify_step', 0)} verify steps)")
+            f"prefills), paged_decode {k2} (= {L} x {n_dec} decode "
+            f"steps), kv_write {kv} (the same, every step replayed), "
+            f"paged_verify {k3} (= {L} x {calls.get('verify_step', 0)} "
+            f"verify steps)")
         check(k1 == L * n_pf and k1 > 0, "flash prefill launch count")
-        check(k2 == L * calls.get("decode_step", 0) and k2 > 0,
-              "paged decode launch count")
+        check(k2 == L * n_dec and k2 > 0, "paged decode launch count")
+        check(kv == L * n_dec, "kv_write launch count")
         check(k3 == L * calls.get("verify_step", 0) and k3 > 0,
               "paged verify launch count")
         report["launches"] = {"flash_prefill": k1, "paged_decode": k2,
-                              "paged_verify": k3}
+                              "paged_verify": k3, "kv_write": kv}
         tot = {k: eng_a.stats[k] + eng_b.stats[k] for k in eng_a.stats}
         say(f"engine stats (A + B): {json.dumps(tot)}")
+        # One decode graph an engine, replayed on every decode step.
+        check(tot["decode_graph_captures"] == 2
+              and tot["decode_graph_replays"] == n_dec,
+              f"decode graphs: {tot['decode_graph_captures']} captures, "
+              f"{tot['decode_graph_replays']} replays of {n_dec} steps")
         for key, lo in (("prefix_hit_pages", 1), ("spec_proposed", 1),
                         ("chunk_steps", 1), ("burst_steps", 1),
                         ("preemptions", 1)):
             check(tot[key] >= lo, f"serving never exercised {key}")
 
         # ---- checks outside the counted run ----
+        # What the replays computed, read apart from the counters.
+        report["decode_graph"] = decode_graph_check(torch, llama, pd, kw,
+                                                    params, cfg)
         # K3 against its plain version in every layer, on the engines'
         # own inputs: one speculative step (engine A, a proposer that
         # always drafts) and one 512-token chunk step (engine B).
@@ -1921,6 +2136,7 @@ def shard_engine_legs(torch, np, serving, llama, params, cfg, store, conn,
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops import paged_kv_write as kw
     from infinistore_tpu_torch.ops.paged_attention import prefill_attention
 
     L = cfg.n_layers
@@ -1937,6 +2153,7 @@ def shard_engine_legs(torch, np, serving, llama, params, cfg, store, conn,
     fa.reset_launches()
     pd.reset_launches()
     pv.reset_launches()
+    kw.reset_launches()
     finished = []
     cold = [serving.Request(f"s_cold_{i}", p, max_new_tokens=SHARD_NEW)
             for i, p in enumerate(prompts)]
@@ -1975,10 +2192,14 @@ def shard_engine_legs(torch, np, serving, llama, params, cfg, store, conn,
     check(k1 == L * n_pf and k1 > 0, "flash prefill launch count")
     check(k2 == L * calls.get("decode_step", 0) and k2 > 0,
           "paged decode launch count")
+    check(kw.launches == k2 and eng.stats["decode_graph_replays"]
+          == calls.get("decode_step", 0),
+          f"sharded serving: kv_write {kw.launches} launches, "
+          f"{eng.stats['decode_graph_replays']} decode graph replays")
     check(k3 == L * calls.get("verify_step", 0) and k3 > 0,
           "paged verify launch count")
     report["launches"] = {"flash_prefill": k1, "paged_decode": k2,
-                          "paged_verify": k3}
+                          "paged_verify": k3, "kv_write": kw.launches}
     report["health"] = health
     report["store_errors_after_kill"] = eng.stats["store_errors"] - errors
     report["restore_misses"] = eng.stats["restore_misses"]
@@ -3070,6 +3291,7 @@ def phase_moe(torch, np, report):
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops import paged_kv_write as kw
     from infinistore_tpu_torch.ops.paged_attention import (
         multi_token_paged_attention, prefill_attention)
 
@@ -3185,6 +3407,7 @@ def phase_moe(torch, np, report):
             fa.reset_launches()
             pd.reset_launches()
             pv.reset_launches()
+            kw.reset_launches()
             finished, rids = [], []
             with tape:
                 reqs = [serving.Request(f"r1_{i}", p,
@@ -3225,6 +3448,11 @@ def phase_moe(torch, np, report):
             serve["launches"] = {"flash_prefill": k1, "paged_decode": k2,
                                  "paged_verify": k3}
             tot = {k: eng_a.stats[k] + eng_b.stats[k] for k in eng_a.stats}
+            # The routed decode step stays eager: no graph, no KV write.
+            check(kw.launches == 0 and tot["decode_graph_captures"] == 0
+                  and tot["decode_graph_replays"] == 0,
+                  f"MoE serving replayed a decode graph (kv_write "
+                  f"{kw.launches}, {tot['decode_graph_replays']} replays)")
             for key in ("prefix_hit_pages", "spec_accepted", "chunk_steps",
                         "burst_steps"):
                 check(tot[key] > 0, f"MoE serving never exercised {key}")
@@ -5945,6 +6173,7 @@ def main():
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
     from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops import paged_kv_write as kvw_mod
     from infinistore_tpu_torch.ops.paged_attention import (
         multi_token_paged_attention, paged_decode_attention,
         prefill_attention)
@@ -5969,6 +6198,7 @@ def main():
         timed("decode", phase_decode, torch, pd, paged_decode_attention,
               gen)
         k4 = timed("decode int8", phase_decode_q, torch, pq, pd, gen)
+        kvw = timed("kv write", phase_kv_write, torch, kvw_mod)
         t0 = time.perf_counter()
         params = llama.init_params(
             torch.Generator(device="cuda").manual_seed(SEED),
@@ -6087,6 +6317,19 @@ def main():
         # on it).
         row["gemma_launches"] = gemma_report["launches"].get(row["name"],
                                                              0)
+    # The decode graph's KV write replaces no TPU kernel (the JAX package
+    # writes with XLA's scatter); only single-device engines replay it,
+    # so it has no launches on the mesh and Gemma paths.
+    kernels.append({
+        "name": "kv_write", "route": "cuda",
+        "source": "infinistore_tpu_torch/csrc/kv_write.cu",
+        "replaces": "infinistore_tpu/ops/paged_attention.py:26 (XLA "
+                    "scatter, mode=drop)",
+        "launches": serve_report["launches"]["kv_write"],
+        "max_abs_err": kvw["err"], "ms": kvw["ms"],
+        "graph_ms": kvw["graph_ms"], "plain_ms": kvw["plain_ms"],
+        "bound_ms": kvw["bound_ms"], "bound_by": kvw["bound_by"],
+        "library_ms": None})
     main_path = {k: v for k, v in report.items()
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))

@@ -15,6 +15,12 @@ recompute backward (kernels K5 and K6 on the card), and the optimizer is
 ``torch.optim.AdamW`` with optax's ``adamw`` defaults (:func:`adamw`).
 ``decode_step`` and ``verify_step`` run without grad.
 
+``decode_step(..., graph=DecodeGraph())`` replays the dense
+single-device step on the card as one CUDA graph (the JAX package gets
+the same from ``jit``): the same kernels on the same data, with the KV
+write of ``ops.paged_kv_write`` (a fixed shape) in place of the eager
+scatter, whose ``torch.nonzero`` a graph cannot hold.
+
 Int8 weight-only quantization (``quantize_params``,
 ``init_params_quantized``): every 2-D matmul weight becomes an
 ``{"int8", "scale"}`` leaf (per output column; per row for the
@@ -46,9 +52,11 @@ import torch
 import torch.nn.functional as F
 
 from .._device import disable_tf32, resolve_device
+from ..ops import paged_flash_decode, paged_kv_write
 from ..ops.flash_attention import flash_prefill
 from ..ops.paged_attention import drop_mode_rows, scatter_rows
 from ..ops.paged_flash_decode import decode_attention
+from ..ops.paged_kv_write import write_kv_rows
 from ..ops.paged_flash_verify import verify_attention
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -494,7 +502,7 @@ def prefill_with_prefix(params, cfg: LlamaConfig, tokens, prefix_kvs,
 
 @torch.no_grad()
 def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
-                page_table, ffn=None, tp=None):
+                page_table, ffn=None, tp=None, graph=None):
     """One decode step over paged KV.
 
     token:      [batch] int — current input token
@@ -507,8 +515,28 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
     arrays). Attention covers seq_lens + 1 tokens. ``ffn(layer, x)``
     replaces the dense MLP, as in :func:`_forward_stack`. Under ``tp``
     the pages hold this rank's kv heads and each rank's attention is the
-    rank-local launch over them. Returns (logits [batch, vocab] float32,
+    rank-local launch over them. ``graph``, a :class:`DecodeGraph` the
+    caller keeps from step to step, replays the dense single-device step
+    as one CUDA graph when the tensors lie on the card (CPU tensors take
+    the eager step); its logits are then the graph's static output, which
+    the next call overwrites. Returns (logits [batch, vocab] float32,
     k_pages, v_pages)."""
+    if graph is not None and token.device.type == "cuda":
+        if ffn is not None or tp is not None:
+            raise ValueError("a DecodeGraph holds the dense single-device "
+                             "step: no ffn, no tp")
+        return graph(params, cfg, token, seq_lens, k_pages, v_pages,
+                     page_table)
+    return _decode(params, cfg, token, seq_lens, k_pages, v_pages,
+                   page_table, ffn, tp)
+
+
+def _decode(params, cfg, token, seq_lens, k_pages, v_pages, page_table,
+            ffn=None, tp=None, fixed_write=False):
+    """The body of :func:`decode_step`. ``fixed_write``: the KV write of
+    ``ops.paged_kv_write`` (a fixed shape, no host sync: what a CUDA graph
+    can hold) in place of ``drop_mode_rows`` + ``scatter_rows``; both
+    drop the same targets and write the same rows."""
     disable_tf32()
     final_ln = _tp_begin(params, cfg, tp)
     b = token.shape[0]
@@ -524,21 +552,136 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
     target_page = torch.where(in_table, target_page.long(), n_pages)
     slot = seq_lens % cfg.page_size
     lens = (seq_lens + 1).to(torch.int32)
-    # Every layer writes the same (page, slot): find the targets once
-    # (the scatter drops those outside the pool, as JAX's mode="drop").
-    entries, rows = drop_mode_rows(target_page[:, None], slot[:, None],
-                                   n_pages, cfg.page_size)
+    if fixed_write:
+        slot = slot.long()
+
+        def write(li, k, v):
+            write_kv_rows(k_pages[li], v_pages[li], k, v, target_page, slot)
+    else:
+        # Every layer writes the same (page, slot): find the targets once
+        # (the scatter drops those outside the pool, as JAX's mode="drop").
+        entries, rows = drop_mode_rows(target_page[:, None], slot[:, None],
+                                       n_pages, cfg.page_size)
+
+        def write(li, k, v):
+            scatter_rows(k_pages[li], k, entries, rows)
+            scatter_rows(v_pages[li], v, entries, rows)
 
     for li, layer in enumerate(_layers(params, tp)):
         q, k, v = _qkv(layer, x, cfg, positions, tp)
-        kp = scatter_rows(k_pages[li], k, entries, rows)
-        vp = scatter_rows(v_pages[li], v, entries, rows)
-        attn = decode_attention(q[:, 0].contiguous(), kp, vp, page_table,
-                                lens, window=cfg.window)
+        write(li, k, v)
+        attn = decode_attention(q[:, 0].contiguous(), k_pages[li],
+                                v_pages[li], page_table, lens,
+                                window=cfg.window)
         x = x + _attn_out(layer, attn.reshape(b, 1, -1), tp)
         x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
     x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x[:, 0], tp), k_pages, v_pages
+
+
+def _leaf_addresses(tree, out):
+    """The device addresses of a parameter tree's tensors, appended to
+    ``out`` in the tree's own order (a cheaper walk than
+    :func:`param_leaves`: it runs on every replayed step)."""
+    for v in tree.values() if isinstance(tree, dict) else tree:
+        if isinstance(v, torch.Tensor):
+            out.append(v.data_ptr())
+        else:
+            _leaf_addresses(v, out)
+    return out
+
+
+class DecodeGraph:
+    """:func:`decode_step`'s dense forward on one card as one CUDA graph:
+    captured at the first call, replayed at every later one.
+
+    Its owner (the serving engine) keeps it across steps and passes it as
+    ``decode_step(..., graph=)``. The graph holds the whole step (embed,
+    every layer's q/k/v, KV write, K2, output projection and MLP, the
+    final norm and the logits): the eager step's kernels in its order, on
+    its data, but with the KV write of ``ops.paged_kv_write`` (a fixed
+    shape, no host sync). A call copies ``token``, ``seq_lens`` and
+    ``page_table`` into the graph's static inputs and replays; weights
+    and pools are read where they lay at capture, so the step is captured
+    anew whenever a leaf's or a pool's address, an input's shape or dtype,
+    or the config differs from the capture's (checked on every call).
+
+    The logits a call returns are the graph's static output: the next
+    call overwrites them, so a caller reads them (argmax, a sampled row)
+    before it calls again.
+
+    ``counters`` (a dict; the engine passes its stats) gains
+    ``decode_graph_captures`` and ``decode_graph_replays``. The kernel
+    launch counters (``paged_flash_decode.launches``,
+    ``paged_kv_write.launches``) count each replay as the launches its
+    capture recorded; the warm-up and the capture, which run or record
+    no step of the caller's, leave them as they were."""
+
+    COUNTED = (paged_flash_decode, paged_kv_write)
+
+    def __init__(self, counters=None):
+        self.counters = {} if counters is None else counters
+        for key in ("decode_graph_captures", "decode_graph_replays"):
+            self.counters.setdefault(key, 0)
+        self._key = None
+        self._graph = self._inputs = self._logits = None
+        self._launches = ()
+
+    @staticmethod
+    def _key_of(params, cfg, inputs, k_pages, v_pages):
+        return (cfg, _leaf_addresses(params, []),
+                tuple((t.data_ptr(), t.shape, t.dtype)
+                      for t in (k_pages, v_pages)),
+                tuple((t.shape, t.dtype, t.device) for t in inputs))
+
+    def __call__(self, params, cfg, token, seq_lens, k_pages, v_pages,
+                 page_table):
+        inputs = (token, seq_lens, page_table)
+        key = self._key_of(params, cfg, inputs, k_pages, v_pages)
+        if key != self._key:
+            self._capture(key, params, cfg, inputs, k_pages, v_pages)
+        for static, new in zip(self._inputs, inputs):
+            static.copy_(new)
+        self._graph.replay()
+        self.counters["decode_graph_replays"] += 1
+        for module, n in self._launches:
+            module.launches += n
+        # The static logits: valid until the next call replays.
+        return self._logits, k_pages, v_pages
+
+    def _capture(self, key, params, cfg, inputs, k_pages, v_pages):
+        self._key = self._graph = self._inputs = self._logits = None
+        device = inputs[0].device
+        static = tuple(t.clone() for t in inputs)
+
+        def body():
+            token, seq_lens, page_table = static
+            return _decode(params, cfg, token, seq_lens, k_pages, v_pages,
+                           page_table, fixed_write=True)[0]
+
+        before = [m.launches for m in self.COUNTED]
+        try:
+            with torch.cuda.device(device):
+                graph = torch.cuda.CUDAGraph()
+                # Warm up on a side stream (lazy set-up, the library's
+                # handles for that stream), then capture on it.
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    body()
+                torch.cuda.current_stream().wait_stream(side)
+                start = [m.launches for m in self.COUNTED]
+                with torch.cuda.graph(graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    logits = body()
+                self._launches = tuple(
+                    (m, m.launches - n) for m, n in zip(self.COUNTED, start))
+        finally:
+            for m, n in zip(self.COUNTED, before):
+                m.launches = n
+        self._key, self._graph = key, graph
+        self._inputs, self._logits = static, logits
+        self.counters["decode_graph_captures"] += 1
 
 
 @torch.no_grad()

@@ -62,6 +62,8 @@ _DECLS = {
     # n_splits, pages_per_split, stream
     "istpu_paged_verify": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _F, _I, _I, _I, _I, _I, _I, _I, _P],
+    # k, v, k_pages, v_pages, page, slot, B, N, P, row_bytes, stream
+    "istpu_kv_write": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

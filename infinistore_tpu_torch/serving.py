@@ -33,7 +33,15 @@ uncached tail, decode all slots in lockstep, offload finished pages.
   (:class:`~infinistore_tpu_torch.utils.profiling.Span`; under a torch
   profiler also ranges with the request id); the store's own span
   counters are folded in after each store call; ``queue_wait_*``,
-  ``step_*``, ``offload_bytes`` and ``restore_bytes`` are counters.
+  ``step_*``, ``offload_bytes``, ``restore_bytes`` and
+  ``decode_graph_captures`` / ``decode_graph_replays`` are counters.
+- **The decode step as one CUDA graph**: on a card, with no mesh, and
+  for a model family that offers one (``llama.DecodeGraph``; the MoE's
+  routed step stays eager), every single-token decode step, alone or in
+  a burst, replays the whole forward as one graph captured at the first
+  step: ``engine.decode.dispatch`` then holds the graph's key check, the
+  input copies, the replay and the argmax, and ``engine.decode.wait``
+  the card's step.
 - **Quantized wire (opt-in)**: ``ServingConfig(quantized_store=True)``
   moves pages to and from the store int8-packed (``ops/kv_quant.py``,
   quantized and packed on the device): about half the offload/restore
@@ -266,11 +274,27 @@ def _stack_pages(cfg, kvs):
     return llama.kv_to_pages(cfg, k, v)
 
 
+def _decode_graph(model, device, mesh_kw, stats):
+    """The ``model.DecodeGraph`` an engine passes to every single-token
+    decode step (``decode_step(..., graph=)``), or None where the engine
+    cannot hold one: off the card, under a mesh (``mesh_kw``, the model
+    calls' tp / ep argument), or for a model family whose decode step
+    takes no graph (the MoE's: its routed FFN stays eager). The graph
+    adds its capture and replay counts to ``stats``."""
+    graph_cls = getattr(model, "DecodeGraph", None)
+    if graph_cls is None or device.type != "cuda" or mesh_kw:
+        return None
+    return graph_cls(stats)
+
+
 def _decode_fused(params, cfg, token, seq_lens, k_pages, v_pages, rows,
                   model=llama, **kw):
     """One decode step with the pools updated in place: model forward +
     device argmax + seq_lens advance. Returns (logits, next tokens,
-    next lens)."""
+    next lens); with ``graph=`` in ``kw`` the logits are the graph's
+    static output, valid until the next step replays it, so the caller
+    reads them (argmax here, a sampled row through _LazyHost) before
+    then."""
     logits, _, _ = model.decode_step(params, cfg, token, seq_lens, k_pages,
                                      v_pages, rows, **kw)
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -473,7 +497,12 @@ class ServingEngine:
             "chunk_steps": 0, "burst_steps": 0, "prefetched_pages": 0,
             "queue_wait_ns": 0, "queue_wait_n": 0, "step_ns": 0,
             "step_n": 0, "offload_bytes": 0, "restore_bytes": 0,
+            "decode_graph_captures": 0, "decode_graph_replays": 0,
         }
+        # The single-token decode step replayed as one CUDA graph, where
+        # this engine can hold one (_decode_graph).
+        graph = _decode_graph(model, self.device, self._mkw, self.stats)
+        self._gkw = {} if graph is None else {"graph": graph}
         # Spans over stats (module docstring): <key>_ns / <key>_n each.
         self._sp_admit = Span(self.stats, "engine.admit", "admit")
         self._sp_probe = Span(self.stats, "engine.probe", "probe")
@@ -1154,7 +1183,7 @@ class ServingEngine:
                     toks_dev, lens_next = _decode_scan(
                         self.params, self.cfg, token_dev, lens_dev,
                         self.k_pages, self.v_pages, rows_dev, k,
-                        model=self.model, **self._mkw,
+                        model=self.model, **self._mkw, **self._gkw,
                     )
                 with self._sp_wait:
                     toks = toks_dev.cpu().numpy()  # [B, k]: the one copy
@@ -1163,7 +1192,7 @@ class ServingEngine:
                     logits, nxt_dev, lens_next = _decode_fused(
                         self.params, self.cfg, token_dev, lens_dev,
                         self.k_pages, self.v_pages, rows_dev,
-                        model=self.model, **self._mkw,
+                        model=self.model, **self._mkw, **self._gkw,
                     )
                 with self._sp_wait:
                     nxt = nxt_dev.cpu().numpy()
@@ -1196,6 +1225,8 @@ class ServingEngine:
         self._steady = (
             (key, nxt_dev, lens_next, rows_dev) if greedy else None
         )
+        # Read before the next step: under a decode graph the logits are
+        # its static output, which the next replay overwrites.
         lhost = _LazyHost(logits)
         for i, s in active:
             if s.work.req.temperature > 0:

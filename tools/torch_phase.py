@@ -7,6 +7,12 @@ script runs it.
 
 PHASE is one of:
 
+- ``kv_write``: phase 3c, the decode graph's KV write against its plain
+  version, byte for byte, and its time.
+- ``serving``: phase 6, serving at Llama-3.1-8B width (two engines
+  replaying decode graphs, the HTTP front end) and the decode graph
+  against the eager step, on the bf16 model made from the script's
+  seed.
 - ``moe``: phase 6c, the MoE family at Mixtral-8x7B width, and its
   training step.
 - ``sharded``: phase 6d, the sharded store tier at Llama-3.1-8B width,
@@ -58,6 +64,19 @@ def _moe(cs, torch, np, report):
     cs.phase_moe_train(torch, np, report)
 
 
+def _kv_write(cs, torch, np, report):
+    from infinistore_tpu_torch.ops import paged_kv_write
+    report.update(cs.phase_kv_write(torch, paged_kv_write))
+
+
+def _serving(cs, torch, np, report):
+    from infinistore_tpu_torch.models import llama
+    params = llama.init_params(
+        torch.Generator(device="cuda").manual_seed(cs.SEED),
+        llama.LLAMA31_8B, "cuda")
+    cs.phase_serving(torch, np, params, report)
+
+
 def _sharded(cs, torch, np, report):
     from infinistore_tpu_torch.models import llama
     params = llama.init_params(
@@ -81,6 +100,8 @@ def _bwd(cs, torch, np, report):
 
 # name: (chip_smoke's phase number, the report's label, the runner)
 PHASES = {
+    "kv_write": ("3c", "kv write", _kv_write),
+    "serving": ("6", "serving", _serving),
     "moe": ("6c", "moe", _moe),
     "sharded": ("6d", "sharded", _sharded),
     "tp": ("10", "tensor parallel", _tp),
