@@ -2,7 +2,10 @@
 ``BENCHMARK.json``: nothing here names a configuration, a mix, a cell
 or a metric.
 
-- ``configs/<config>.json``: the configuration (``harness.model``);
+- ``configs/<config>.json``: the configuration, and
+  ``families/<family>.py`` the model family its ``family`` key names
+  (``harness.model``), with the reference ``reference/<name>.py`` that
+  family reads;
 - ``traffic/<traffic>.json``: the mix, and ``traffic/<kind>.py`` the
   generator its ``kind`` names (``harness.traffic``);
 - ``workloads/<cell>.json``: the cell's engine and store sizes, its
@@ -71,6 +74,17 @@ def _module(root, folder, name):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def family(name, root=ROOT):
+    """The module ``families/<name>.py`` (what it defines is in
+    ``harness/model.py``)."""
+    return _module(root, "families", name)
+
+
+def reference(name, root=ROOT):
+    """The module ``reference/<name>.py``: a plain reference."""
+    return _module(root, "reference", name)
 
 
 def reader(metric, root=ROOT):

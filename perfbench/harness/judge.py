@@ -1,6 +1,7 @@
 """How ``correct`` is decided: after the window, a sample of the
 requests the timed path finished (drawn from the seed, the longest among
-them) goes through the plain reference over its prompt and its served
+them) goes through the plain reference of the configuration's family
+(its ``logits``: ``harness.model``) over its prompt and its served
 tokens, and the number compared is the widest gap by which a served
 token's reference logit lies below the reference's best at its position.
 Greedy decoding serves the program's best, so a sound program leaves
@@ -13,7 +14,7 @@ that a lower precision puts first at each of those positions.
 import numpy as np
 import torch
 
-from reference import plain
+from .model import family
 
 # Served tokens the sample reaches: some hundreds, beside the longest
 # request.
@@ -53,18 +54,18 @@ def gaps(weights, g, turns, quant=None, routes_of=None):
     program's choices (``routes_of(rid, length)``; without it the
     reference routes itself and there are none), and with ``quant``
     under the lower precision too (then each turn's are a pair)."""
+    logits = family(g).logits
     served, control, margins = [], [], []
     for t in turns:
         seq = t.prompt + t.tokens[:-1]
         pos = list(range(len(t.prompt) - 1, len(seq)))
         routes = None if routes_of is None else _routes(routes_of, t)
-        ref, margin = plain.logits(weights, g, seq, pos, routes=routes)
+        ref, margin = logits(weights, g, seq, pos, routes=routes)
         best = ref.max(-1).values
         toks = torch.as_tensor(t.tokens, device=ref.device)[:, None]
         served.append((best - ref.gather(1, toks)[:, 0]).cpu())
         if quant is not None:
-            low, low_margin = plain.logits(weights, g, seq, pos, quant,
-                                           routes)
+            low, low_margin = logits(weights, g, seq, pos, quant, routes)
             pick = low.argmax(-1, keepdim=True)
             control.append((best - ref.gather(1, pick)[:, 0]).cpu())
             margin = [margin, low_margin]

@@ -2,9 +2,28 @@
 benchmark's counter around the model's calls.
 
 A configuration file (``configs/<name>.json``) holds the published
-``config.json`` keys, with ``family`` naming the program's model module
-(``llama`` or ``moe``) and ``assumed`` the sizes the source does not
-give (page size, the MoE capacity factor).
+``config.json`` keys, with ``family`` naming its model family and
+``assumed`` the sizes the source does not give (the page size, and what
+its family needs besides). The family is a file of its own,
+``families/<family>.py`` (``catalog.family``), which defines:
+
+- ``geometry(conf)``: the sizes the yardstick and the reference need
+  (:func:`common`'s keys and ``window``, ``experts``, ``top_k``), with
+  ``plan``, the layers in groups in layer order (each group's ``count``,
+  ``window``, ``n_heads``, ``n_kv``, ``hd`` and ``token_flops``, the
+  operations of one token through one of its layers' weights:
+  ``harness.work``), and ``routed``, the indices of the layers whose
+  routing is recorded. It raises on a key that changes the model and
+  that the family does not run (:func:`check_keys`);
+- ``program_config(conf)``: (the program's model module, its config);
+- ``make_weights(g, seed, device)``: the tree the program serves;
+- ``logits(weights, g, tokens, positions, quant=None, routes=None)``:
+  its plain reference (``reference/<name>.py``, ``catalog.reference``);
+- ``route_attr``: the program module's routing function that
+  :class:`ModelSpy` wraps, or None.
+
+The functions below of those names find the family by the file's
+``family`` key (and a geometry's).
 """
 
 import time
@@ -12,10 +31,54 @@ import time
 import torch
 from torch.profiler import record_function
 
+from . import catalog
 
-def geometry(conf):
-    """The sizes the yardstick needs, from a configuration file."""
-    moe = conf["family"] == "moe"
+# Keys of a configuration file that do not change the model as served:
+# the benchmark's own, the published file's names and token ids, and
+# settings that act only in training.
+INERT = frozenset({
+    "source", "family", "reduced", "published", "assumed", "deployment",
+    "architectures", "model_type", "bos_token_id", "eos_token_id",
+    "initializer_range", "use_cache", "attention_dropout"})
+
+# The config.json keys :func:`common` and :func:`program_sizes` read.
+COMMON = frozenset({
+    "vocab_size", "hidden_size", "num_hidden_layers",
+    "num_attention_heads", "num_key_value_heads", "head_dim",
+    "intermediate_size", "rms_norm_eps", "rope_theta", "torch_dtype",
+    "max_position_embeddings"})
+
+
+def check_keys(conf, reads, fixed):
+    """Raise ValueError on a key of ``conf`` that is neither inert, nor
+    read by the family (``reads``), nor at the one value the family runs
+    (``fixed``: key -> value)."""
+    unknown = sorted(set(conf) - INERT - COMMON - set(reads) - set(fixed))
+    if unknown:
+        raise ValueError(f"family {conf['family']!r} does not run "
+                         f"{', '.join(unknown)}")
+    for key, value in fixed.items():
+        if key in conf and conf[key] != value:
+            raise ValueError(f"family {conf['family']!r} runs only "
+                             f"{key}={value!r}, not {conf[key]!r}")
+
+
+def one_window(conf):
+    """The window every layer shares, ``sliding_window`` (0: none).
+    ``layer_types``, where given, has to name the one kind of layer that
+    this window makes."""
+    window = conf.get("sliding_window") or 0
+    kinds = set(conf.get("layer_types") or ())
+    if kinds and kinds != {"sliding_attention" if window
+                           else "full_attention"}:
+        raise ValueError(
+            f"family {conf['family']!r} runs one window on every layer, "
+            f"not layer_types {sorted(kinds)} with sliding_window {window}")
+    return window
+
+
+def common(conf):
+    """The sizes every family reads from a configuration file."""
     return {
         "vocab": conf["vocab_size"], "d": conf["hidden_size"],
         "layers": conf["num_hidden_layers"],
@@ -24,60 +87,61 @@ def geometry(conf):
         "hd": conf.get("head_dim") or (conf["hidden_size"]
                                        // conf["num_attention_heads"]),
         "ff": conf["intermediate_size"],
-        "window": conf.get("sliding_window") or 0,
-        "experts": conf["num_local_experts"] if moe else 0,
-        "top_k": conf["num_experts_per_tok"] if moe else 0,
         "eps": conf["rms_norm_eps"], "theta": float(conf["rope_theta"]),
         "page": conf["assumed"]["page_size"],
         "dtype": conf["torch_dtype"],
     }
 
 
-def program_config(conf):
-    """(the program's model module, its config) for a configuration."""
-    from infinistore_tpu_torch.models import llama, moe
-
-    g = geometry(conf)
-    common = dict(
+def program_sizes(g, conf):
+    """The fields every program config takes, from geometry ``g``."""
+    return dict(
         vocab_size=g["vocab"], d_model=g["d"], n_layers=g["layers"],
         n_heads=g["n_heads"], n_kv_heads=g["n_kv"], d_ff=g["ff"],
         max_seq=conf["max_position_embeddings"], page_size=g["page"],
         rope_theta=g["theta"], window=g["window"], norm_eps=g["eps"],
         dtype=g["dtype"],
         head_dim_override=0 if g["hd"] == g["d"] // g["n_heads"] else g["hd"])
-    if g["experts"]:
-        return moe, moe.MoEConfig(
-            n_experts=g["experts"], top_k=g["top_k"],
-            capacity_factor=conf["assumed"]["capacity_factor"], **common)
-    return llama, llama.LlamaConfig(act=conf["hidden_act"], **common)
 
 
-def _shapes(g):
-    """Each layer's matrices in draw order, and the router's shape."""
-    d, q, kv, ff, e = (g["d"], g["n_heads"] * g["hd"],
-                       g["n_kv"] * g["hd"], g["ff"], g["experts"])
-    layer = {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d)}
-    if e:
-        layer.update(e_gate=(e, d, ff), e_up=(e, d, ff), e_down=(e, ff, d))
-    else:
-        layer.update(w_gate=(d, ff), w_up=(d, ff), w_down=(ff, d))
-    return layer
+def family(g):
+    """The family module of geometry ``g``."""
+    return catalog.family(g["family"], g["root"])
+
+
+def geometry(conf, root=catalog.ROOT):
+    """The sizes the yardstick needs, from a configuration file (its
+    family's ``geometry``, with the family's name and root)."""
+    return {**catalog.family(conf["family"], root).geometry(conf),
+            "family": conf["family"], "root": root}
+
+
+def program_config(conf, root=catalog.ROOT):
+    """(the program's model module, its config) for a configuration."""
+    return catalog.family(conf["family"], root).program_config(conf)
+
+
+def make_weights(g, seed, device):
+    """The tree the program serves, drawn by ``g``'s family."""
+    return family(g).make_weights(g, seed, device)
 
 
 CHUNK = 1 << 30  # elements per generator call
 
 
-def make_weights(g, seed, device):
+def draw(g, seed, device, layers):
     """The tree the program serves, drawn on ``device`` from ``seed`` in
-    a few large calls: every matrix a view of one buffer in the served
-    dtype, normal with std d**-0.5; a MoE router float32 (one buffer);
-    norms at one."""
+    a few large calls: every matrix (the embedding, the output head,
+    then each layer's ``layers[i]``, {leaf: shape} in draw order) a view
+    of one buffer in the served dtype, normal with std d**-0.5; then a
+    float32 router [d, experts] for each layer in ``g["routed"]`` (one
+    buffer); norms at one."""
     dt = getattr(torch, g["dtype"])
     gen = torch.Generator(device=device).manual_seed(int(seed) % (1 << 63))
     std = g["d"] ** -0.5
-    shapes = _shapes(g)
-    per_layer = sum(int(torch.Size(s).numel()) for s in shapes.values())
-    total = 2 * g["vocab"] * g["d"] + g["layers"] * per_layer
+    total = 2 * g["vocab"] * g["d"] + sum(
+        int(torch.Size(s).numel()) for shapes in layers
+        for s in shapes.values())
     buf = torch.empty(total, dtype=dt, device=device)
     for lo in range(0, total, CHUNK):
         buf[lo:lo + CHUNK].normal_(0.0, std, generator=gen)
@@ -90,23 +154,24 @@ def make_weights(g, seed, device):
         at += n
         return view
 
-    ones = torch.ones((2 * g["layers"] + 1, g["d"]), dtype=dt,
+    ones = torch.ones((2 * len(layers) + 1, g["d"]), dtype=dt,
                       device=device)
+    routed = {li: i for i, li in enumerate(g["routed"])}
     routers = None
-    if g["experts"]:
-        routers = torch.empty((g["layers"], g["d"], g["experts"]),
+    if routed:
+        routers = torch.empty((len(routed), g["d"], g["experts"]),
                               dtype=torch.float32, device=device)
         routers.normal_(0.0, std, generator=gen)
     embed = take((g["vocab"], g["d"]))
     lm_head = take((g["d"], g["vocab"]))
-    layers = []
-    for li in range(g["layers"]):
+    tree = []
+    for li, shapes in enumerate(layers):
         layer = {name: take(shape) for name, shape in shapes.items()}
         layer["ln1"], layer["ln2"] = ones[2 * li], ones[2 * li + 1]
-        if routers is not None:
-            layer["router"] = routers[li]
-        layers.append(layer)
-    return {"embed": embed, "layers": layers, "final_ln": ones[-1],
+        if li in routed:
+            layer["router"] = routers[routed[li]]
+        tree.append(layer)
+    return {"embed": embed, "layers": tree, "final_ln": ones[-1],
             "lm_head": lm_head}
 
 
@@ -117,20 +182,23 @@ class ModelSpy:
     lengths). The engine is attached after it is built, for the live
     rows' lengths (host state: no device read).
 
-    With ``routing`` (a routed family), the module's ``_route`` is
-    wrapped for the spy's life (``close`` puts it back) so that the
-    experts chosen for every token of every call are kept, by request
-    and position, for the reference to follow (``routes``)."""
+    With ``route_attr`` (a routed family's), that routing function of
+    the module is wrapped for the spy's life (``close`` puts it back) so
+    that the experts chosen for every token of every call at each of the
+    ``routed`` layers are kept, by request and position, for the
+    reference to follow (``routes``)."""
 
-    def __init__(self, module, routing=False):
+    def __init__(self, module, route_attr=None, routed=()):
         self._m = module
         self.calls = []
         self.engine = None
-        self.entries = []  # (rows, per-layer [tokens, top_k] experts)
+        self.entries = []  # (rows, per routed layer [tokens, top_k])
+        self.routed = list(routed)
         self._current = None
+        self._attr = route_attr
         self._route = None
-        if routing:
-            self._route = module._route
+        if route_attr is not None:
+            self._route = getattr(module, route_attr)
 
             def route(*args, **kw):
                 r = self._route(*args, **kw)
@@ -138,11 +206,11 @@ class ModelSpy:
                     self._current[1].append(r.expert)
                 return r
 
-            module._route = route
+            setattr(module, route_attr, route)
 
     def close(self):
         if self._route is not None:
-            self._m._route = self._route
+            setattr(self._m, self._attr, self._route)
             self._route = None
 
     def _begin(self, rows):
@@ -184,9 +252,10 @@ class ModelSpy:
         return out
 
     def routes(self, rid, length):
-        """[layers, length, top_k] experts the program chose for
-        positions 0..length-1 of request ``rid``, or None where a
-        position went unrecorded (its pages came from the store)."""
+        """[routed layers, length, top_k] experts the program chose for
+        positions 0..length-1 of request ``rid`` (row i: layer
+        ``routed[i]``), or None where a position went unrecorded (its
+        pages came from the store)."""
         table = None
         for rows, experts in self.entries:
             if rows[0] == "prefill":
@@ -199,9 +268,13 @@ class ModelSpy:
             picks = [(p, i) for p, i in picks if p < length]
             if not picks:
                 continue
-            stacked = torch.stack(experts)  # [layers, tokens, top_k]
+            stacked = torch.stack(experts)  # [routed, tokens, top_k]
+            if stacked.shape[0] != len(self.routed):
+                raise RuntimeError(
+                    f"{stacked.shape[0]} routing calls in one model call "
+                    f"of {len(self.routed)} routed layers")
             if table is None:
-                table = torch.full((stacked.shape[0], length,
+                table = torch.full((len(self.routed), length,
                                     stacked.shape[2]), -1, dtype=torch.long)
             pos = torch.tensor([p for p, _ in picks])
             idx = torch.tensor([i for _, i in picks],

@@ -75,22 +75,25 @@ def idle_share(run):
 
 def _launch_bounds(run, kind):
     """Least seconds of the K1 (prefill) or K2 (decode) launches of the
-    traced stretch's model calls, one launch per layer each."""
+    traced stretch's model calls, one launch per layer each, at its
+    layer group's window and heads (``work.plan``)."""
     g, tr = run.geometry, run.trace
     total = 0.0
     for c in run.calls:
         if not (tr.lo <= c[0] < tr.hi) or c[1] != kind:
             continue
-        if kind == "prefill":
-            flops, nbytes = work.k1_work(c[2], c[3] + c[2], g["window"],
-                                         g["n_heads"], g["n_kv"], g["hd"])
-        else:
-            # Every row of the engine's batch is launched: a free slot
-            # attends its one scratch token.
-            rows = list(c[2]) + [1] * (run.batch_rows - len(c[2]))
-            flops, nbytes = work.k2_work(rows, g["window"], g["n_heads"],
-                                         g["n_kv"], g["hd"])
-        total += g["layers"] * work.bound_s(flops, nbytes)
+        call = 0.0
+        for grp in work.plan(g):
+            heads = (grp["window"], grp["n_heads"], grp["n_kv"], grp["hd"])
+            if kind == "prefill":
+                flops, nbytes = work.k1_work(c[2], c[3] + c[2], *heads)
+            else:
+                # Every row of the engine's batch is launched: a free
+                # slot attends its one scratch token.
+                rows = list(c[2]) + [1] * (run.batch_rows - len(c[2]))
+                flops, nbytes = work.k2_work(rows, *heads)
+            call += grp["count"] * work.bound_s(flops, nbytes)
+        total += call
     return total
 
 

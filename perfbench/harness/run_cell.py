@@ -13,7 +13,7 @@ import torch
 
 from . import catalog, judge, stats, trace
 from .driver import Clock, Driver
-from .model import ModelSpy, geometry, make_weights, program_config
+from .model import ModelSpy, family, geometry, make_weights, program_config
 from .record import Run
 from .store import Store, StoreSpy
 from .traffic import build
@@ -114,8 +114,9 @@ def run(name, seed, seconds, traced, device, t_start, bench=None,
     cell = catalog.cell(name, root)
     conf = catalog.config(entry["config"], root)
     mix = catalog.traffic(entry["traffic"], root)
-    g = geometry(conf)
-    module, cfg = program_config(conf)
+    g = geometry(conf, root)
+    module, cfg = program_config(conf, root)
+    route_attr = family(g).route_attr
 
     weights = make_weights(g, seed, device)
     served = weights if params_hook is None else params_hook(
@@ -124,7 +125,7 @@ def run(name, seed, seconds, traced, device, t_start, bench=None,
     spy_model = None
     try:
         spy_store = StoreSpy(store.kv)
-        spy_model = ModelSpy(module, routing=bool(g["experts"]))
+        spy_model = ModelSpy(module, route_attr, g["routed"])
         engine = serving.ServingEngine(
             served, cfg, serving.ServingConfig(
                 model_id=f"{entry['config']}-{seed}", **cell["engine"]),
@@ -173,7 +174,7 @@ def run(name, seed, seconds, traced, device, t_start, bench=None,
         if tracer is not None:
             record.trace = tracer.summary()
         lag = sorted(driver.lag)
-        routes_of = spy_model.routes if g["experts"] else None
+        routes_of = spy_model.routes if route_attr else None
     finally:
         if spy_model is not None:
             spy_model.close()

@@ -12,11 +12,15 @@ move the yardstick:
   read once);
 - :func:`k2_work` from ``chip_smoke.py`` ``decode_bound``.
 
-:func:`step_flops` counts a model call's useful operations: each
-processed token through every weight it needs (for a routed layer, its
-``top_k`` experts, not a dispatch's padding), attention over the causal
-(windowed) pairs, and the output head only for rows whose logits are
-needed (a prefill's last row, each decode row).
+:func:`prefill_flops` and :func:`decode_flops` count a model call's
+useful operations, layer group by layer group of the geometry's
+:func:`plan`: each processed token through every weight it needs (for a
+routed layer, its ``top_k`` experts, not a dispatch's padding; a
+group's ``token_flops``), attention over the causal pairs of the
+group's window, and the output head only for rows whose logits are
+needed (a prefill's last row, each decode row). Each group counts
+``count`` times one layer, and the groups are summed from 0, so a stack
+of one group counts as ``layers`` times one layer.
 """
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor rate and HBM3 bandwidth,
@@ -58,8 +62,9 @@ def k2_work(lens, window, n_heads, n_kv, hd, esize=2):
 
 
 def token_flops(m):
-    """Operations of one token through one layer's weights (model dict
-    ``m`` from ``harness.model.geometry``)."""
+    """Operations of one token through one layer's weights, a layer of a
+    stack whose layers are alike (model dict ``m``: :func:`plan`'s keys
+    and ``d``, ``ff``, ``experts``, ``top_k``)."""
     d, q, kv = m["d"], m["n_heads"] * m["hd"], m["n_kv"] * m["hd"]
     attn = d * q + 2 * d * kv + q * d
     if m["experts"]:
@@ -69,19 +74,38 @@ def token_flops(m):
     return 2.0 * (attn + ffn)
 
 
+def uniform_plan(m):
+    """One group of ``m["layers"]`` layers alike (:func:`token_flops`)."""
+    return [{"count": m["layers"], "window": m["window"],
+             "n_heads": m["n_heads"], "n_kv": m["n_kv"], "hd": m["hd"],
+             "token_flops": token_flops(m)}]
+
+
+def plan(m):
+    """The layers of model dict ``m`` in groups, in layer order: each
+    group's ``count`` of layers, their ``window`` (0: none), ``n_heads``,
+    ``n_kv``, ``hd`` and ``token_flops``. A dict without ``plan`` is one
+    group (:func:`uniform_plan`)."""
+    return m["plan"] if "plan" in m else uniform_plan(m)
+
+
 def prefill_flops(m, s, prefix):
     """A prefill of ``s`` tokens over ``prefix`` cached ones."""
-    pairs = causal_pairs(s, prefix + s, m["window"])
-    return (m["layers"] * (s * token_flops(m)
-                           + 4.0 * m["n_heads"] * m["hd"] * pairs)
-            + 2.0 * m["d"] * m["vocab"])
+    total = 0.0
+    for grp in plan(m):
+        pairs = causal_pairs(s, prefix + s, grp["window"])
+        total += grp["count"] * (s * grp["token_flops"]
+                                 + 4.0 * grp["n_heads"] * grp["hd"] * pairs)
+    return total + 2.0 * m["d"] * m["vocab"]
 
 
 def decode_flops(m, contexts):
     """A decode step of rows whose new token attends ``contexts``
     tokens (the live rows only)."""
-    w = m["window"]
-    toks = sum(min(c, w) if w else c for c in contexts)
-    return (m["layers"] * (len(contexts) * token_flops(m)
-                           + 4.0 * m["n_heads"] * m["hd"] * toks)
-            + 2.0 * m["d"] * m["vocab"] * len(contexts))
+    total = 0.0
+    for grp in plan(m):
+        w = grp["window"]
+        toks = sum(min(c, w) if w else c for c in contexts)
+        total += grp["count"] * (len(contexts) * grp["token_flops"]
+                                 + 4.0 * grp["n_heads"] * grp["hd"] * toks)
+    return total + 2.0 * m["d"] * m["vocab"] * len(contexts)

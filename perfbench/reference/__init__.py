@@ -1,1 +1,2 @@
-"""The plain reference the benchmark judges the program by (plain.py)."""
+"""The plain references the benchmark judges the program by: a file
+each, read by the family files that name it (``families/``)."""

@@ -1,10 +1,11 @@
-"""The plain reference: the forward pass of the benchmark's two
-families, written from the published model descriptions (Hugging Face
-``MistralForCausalLM`` and ``MixtralForCausalLM``), in float32 with TF32
-off, one sequence at a time and one layer at a time, with no kernel, no
-cache and no batching. It imports nothing of the program.
+"""The plain reference of the ``llama`` and ``moe`` families
+(``families/``): their forward pass, written from the published model
+descriptions (Hugging Face ``MistralForCausalLM`` and
+``MixtralForCausalLM``), in float32 with TF32 off, one sequence at a
+time and one layer at a time, with no kernel, no cache and no batching.
+It imports nothing of the program.
 
-It reads the weights the benchmark drew (``harness.model.make_weights``:
+It reads the weights the benchmark drew (``harness.model.draw``:
 the same leaf names and [in, out] layout) and widens each layer's
 matrices to float32 as it reaches them, so it fits beside them.
 
@@ -13,8 +14,9 @@ scale per output column (per row for the embedding, by absolute maximum,
 as weight-only int8 serving does) before it is widened; the router
 stays float32.
 
-``routes`` makes a routed layer follow given choices: the experts a
-served sequence's tokens were sent to ([layers, tokens, top_k]), with
+``routes`` makes a routed layer (those of ``g["routed"]``) follow given
+choices: the experts a served sequence's tokens were sent to ([routed
+layers, tokens, top_k], row i for layer ``g["routed"][i]``), with
 the gates still this reference's router probabilities, renormalised.
 Which experts a token goes to is a discrete decision that rounding can
 flip where two experts nearly tie, and a flip sends every later layer
@@ -124,15 +126,17 @@ def moe_ffn(layer, h, top_k, quant, choice=None):
 @torch.no_grad()
 def logits(weights, g, tokens, positions, quant=None, routes=None):
     """(logits [len(positions), vocab] float32, the routing margins of
-    every token at every routed layer, [layers, tokens]) of one sequence
-    ``tokens`` (a list of ids, position 0 first) at ``positions``. ``g``
-    is the configuration's sizes (``harness.model.geometry``)."""
+    every token at every routed layer, [routed layers, tokens]) of one
+    sequence ``tokens`` (a list of ids, position 0 first) at
+    ``positions``. ``g`` is the configuration's sizes
+    (``harness.model.geometry``)."""
     _plain_matmuls()
     dev = weights["embed"].device
     ids = torch.as_tensor(tokens, device=dev)
     x = widen(weights["embed"], quant, axis=-1)[ids]
     pos = torch.arange(len(tokens), device=dev)
     s, hd, eps = len(tokens), g["hd"], g["eps"]
+    routed = {li: i for i, li in enumerate(g["routed"])}
     margins = []
     for li, layer in enumerate(weights["layers"]):
         h = rms_norm(x, layer["ln1"].float(), eps)
@@ -143,9 +147,9 @@ def logits(weights, g, tokens, positions, quant=None, routes=None):
         a = attention(q, k, v, g["window"]).reshape(s, -1)
         x = x + a @ widen(layer["wo"], quant)
         h = rms_norm(x, layer["ln2"].float(), eps)
-        if g["experts"]:
-            out, m = moe_ffn(layer, h, g["top_k"], quant,
-                             None if routes is None else routes[li, :s])
+        if li in routed:
+            out, m = moe_ffn(layer, h, g["top_k"], quant, None
+                             if routes is None else routes[routed[li], :s])
             margins.append(m)
             x = x + out
         else:

@@ -1,8 +1,9 @@
 """A tiny stand-in of the benchmark for the CPU tests: a copy of
-``perfbench/``'s data files and readers in a temporary directory, with a
-tiny dense and a tiny MoE configuration, tiny mixes and two cells, and a
-``BENCHMARK.json`` naming them (the real one's metrics on the backlog
-cell, the chat metrics of ``SERVE`` on the sessions cell)."""
+``perfbench/``'s data files, readers, families and references in a
+temporary directory, with a tiny dense and a tiny MoE configuration,
+tiny mixes and two cells, and a ``BENCHMARK.json`` naming them (the
+real one's metrics on the backlog cell, the chat metrics of ``SERVE`` on
+the sessions cell)."""
 
 import json
 import os
@@ -73,8 +74,9 @@ def _dump(path, obj):
 def make_root(tmp):
     """A benchmark root under ``tmp``; returns (root, BENCHMARK dict)."""
     root = os.path.join(str(tmp), "perfbench")
-    shutil.copytree(os.path.join(ROOT, "metrics"),
-                    os.path.join(root, "metrics"))
+    for folder in ("metrics", "families", "reference"):
+        shutil.copytree(os.path.join(ROOT, folder),
+                        os.path.join(root, folder))
     os.makedirs(os.path.join(root, "traffic"))
     for kind in ("sessions", "backlog"):
         shutil.copy(os.path.join(ROOT, "traffic", f"{kind}.py"),
