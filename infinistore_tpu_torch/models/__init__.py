@@ -1,6 +1,7 @@
 """Model families of the port: ``llama`` (with the HF Llama, Qwen2,
-Mistral and Gemma-1 checkpoints through ``hf``) and the sparse-MoE
-``moe`` (Mixtral)."""
+Mistral and Gemma-1 checkpoints through ``hf``), the sparse-MoE ``moe``
+(Mixtral) and ``afmoe`` (Arcee Trinity: sliding and full layers, dense
+and routed layers, a sigmoid router with a shared expert)."""
 
 from .llama import (  # noqa: F401
     LlamaConfig,

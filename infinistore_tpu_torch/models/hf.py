@@ -1,5 +1,6 @@
 """HuggingFace checkpoints into the port's models: Llama (with llama3
-``rope_scaling``), Qwen2, Mistral, Gemma-1 and Mixtral.
+``rope_scaling``), Qwen2, Mistral, Gemma-1 and Mixtral; and the config
+of an AFMoE (Trinity) model, whose weights are not mapped (below).
 
 The counterpart of ``infinistore_tpu/models/hf.py``, with the same
 config mapping and the same hard errors (a checkpoint feature the models
@@ -20,9 +21,12 @@ from .llama import LlamaConfig
 
 
 def config_from_hf(hf_cfg, page_size=16, dtype="float32"):
-    """Map a HF Llama-family config onto :class:`LlamaConfig`. Raises
-    NotImplementedError on checkpoint features the model does not
-    implement."""
+    """Map a HF Llama-family config onto :class:`LlamaConfig`, or an
+    ``afmoe`` one onto :class:`~.afmoe.AfmoeConfig`
+    (:func:`afmoe_config_from_hf`). Raises NotImplementedError on
+    checkpoint features the model does not implement."""
+    if getattr(hf_cfg, "model_type", "") == "afmoe":
+        return afmoe_config_from_hf(hf_cfg, page_size, dtype)
     scaling = getattr(hf_cfg, "rope_scaling", None)
     rope_scaling = ()
     if scaling:
@@ -112,6 +116,69 @@ def config_from_hf(hf_cfg, page_size=16, dtype="float32"):
     )
 
 
+def afmoe_config_from_hf(hf_cfg, page_size=16, dtype="float32"):
+    """Map a HF ``afmoe`` (Arcee Trinity) config onto
+    :class:`~.afmoe.AfmoeConfig`: ``layer_types`` (or, without them,
+    every ``global_attn_every_n_layers``-th layer full) give each layer
+    its window and RoPE switch, and ``mup_enabled`` scales the embedding
+    by sqrt(hidden_size). Raises NotImplementedError on what the model
+    does not run: a ``score_func`` other than sigmoid, more than one
+    expert group, ``rope_scaling``, an activation other than silu.
+
+    A checkpoint's weights are not mapped: their names are
+    ``modeling_afmoe.py``'s, which were not at hand when this was
+    written, so :func:`load_hf` refuses an afmoe model."""
+    from .afmoe import AfmoeConfig, layer_pattern
+
+    score = getattr(hf_cfg, "score_func", "sigmoid")
+    if score != "sigmoid":
+        raise NotImplementedError(
+            f"score_func {score!r}: the AFMoE router is sigmoid top-k")
+    for key in ("n_group", "num_expert_groups", "num_limited_groups",
+                "topk_group"):
+        n = getattr(hf_cfg, key, None) or 1
+        if n != 1:
+            raise NotImplementedError(
+                f"{key}={n}: grouped expert selection is not implemented")
+    if getattr(hf_cfg, "rope_scaling", None):
+        raise NotImplementedError(
+            "rope_scaling is not supported by the AFMoE model (its "
+            "sliding layers apply unscaled RoPE)")
+    if getattr(hf_cfg, "hidden_act", "silu") not in ("silu", "swish"):
+        raise NotImplementedError(
+            f"hidden_act {hf_cfg.hidden_act!r}: the AFMoE MLPs are SwiGLU")
+    n_layers = hf_cfg.num_hidden_layers
+    types = getattr(hf_cfg, "layer_types", None)
+    if not types:
+        every = int(hf_cfg.global_attn_every_n_layers)
+        types = ["full_attention" if (i + 1) % every == 0
+                 else "sliding_attention" for i in range(n_layers)]
+    windows, rope_on = layer_pattern(types, hf_cfg.sliding_window)
+    d = hf_cfg.hidden_size
+    hd = getattr(hf_cfg, "head_dim", None)
+    derived = d // hf_cfg.num_attention_heads
+    return AfmoeConfig(
+        vocab_size=hf_cfg.vocab_size, d_model=d, n_layers=n_layers,
+        n_heads=hf_cfg.num_attention_heads,
+        n_kv_heads=hf_cfg.num_key_value_heads,
+        d_ff=hf_cfg.intermediate_size,
+        d_expert=hf_cfg.moe_intermediate_size,
+        n_experts=hf_cfg.num_experts, top_k=hf_cfg.num_experts_per_tok,
+        n_shared=getattr(hf_cfg, "num_shared_experts", 0) or 0,
+        n_dense_layers=hf_cfg.num_dense_layers,
+        route_scale=float(getattr(hf_cfg, "route_scale", 1.0)),
+        route_norm=bool(getattr(hf_cfg, "route_norm", True)),
+        layer_windows=windows, layer_rope=rope_on,
+        max_seq=hf_cfg.max_position_embeddings, page_size=page_size,
+        rope_theta=float(hf_cfg.rope_theta),
+        norm_eps=float(hf_cfg.rms_norm_eps),
+        embed_scale=(float(d) ** 0.5 if getattr(hf_cfg, "mup_enabled",
+                                                False) else 1.0),
+        head_dim_override=hd if (hd is not None and hd != derived) else 0,
+        dtype=dtype,
+    )
+
+
 def _state_dict(model_or_state_dict):
     sd = model_or_state_dict
     return sd.state_dict() if hasattr(sd, "state_dict") else sd
@@ -185,6 +252,10 @@ def load_hf(model_or_state_dict, hf_cfg=None, page_size=16,
     if hf_cfg is None:
         hf_cfg = model_or_state_dict.config
     cfg = config_from_hf(hf_cfg, page_size=page_size, dtype=dtype)
+    if not isinstance(cfg, LlamaConfig):
+        raise NotImplementedError(
+            "an afmoe checkpoint's weight names are not mapped "
+            "(afmoe_config_from_hf maps its config only)")
     return cfg, params_from_hf(model_or_state_dict, cfg, device)
 
 
@@ -286,5 +357,6 @@ def load_hf_moe(model_or_state_dict, hf_cfg=None, page_size=16,
     return cfg, moe_params_from_hf(model_or_state_dict, cfg, device)
 
 
-__all__ = ["config_from_hf", "params_from_hf", "load_hf",
-           "moe_config_from_hf", "moe_params_from_hf", "load_hf_moe"]
+__all__ = ["config_from_hf", "afmoe_config_from_hf", "params_from_hf",
+           "load_hf", "moe_config_from_hf", "moe_params_from_hf",
+           "load_hf_moe"]

@@ -15,6 +15,14 @@ recompute backward (kernels K5 and K6 on the card), and the optimizer is
 ``torch.optim.AdamW`` with optax's ``adamw`` defaults (:func:`adamw`).
 ``decode_step`` and ``verify_step`` run without grad.
 
+The one decoder loop serves every family: a config with
+``layer_windows`` and ``layer_rope`` (:func:`layer_kinds`) gives each
+layer its own window and RoPE switch, and a layer's optional leaves add
+per-head q/k norms (``q_norm``, ``k_norm``), a sigmoid output gate
+(``wg``) and post-attention / post-MLP norms (``ln_post_attn``,
+``ln_post_mlp``), as its optional ``bq``/``bk``/``bv``/``bo`` add
+biases (``models.afmoe`` uses them all).
+
 ``decode_step(..., graph=DecodeGraph())`` replays the dense
 single-device step on the card as one CUDA graph (the JAX package gets
 the same from ``jit``): the same kernels on the same data, with the KV
@@ -321,8 +329,21 @@ def _proj(h, layer, w, b_, shape=None):
     return out if shape is None else out.reshape(shape)
 
 
-def _qkv(layer, x, cfg, positions, tp=None):
-    """q, k, v of this rank's heads (all heads without ``tp``)."""
+def layer_kinds(cfg):
+    """(window, RoPE on) of each layer: a config's ``layer_windows`` and
+    ``layer_rope`` where it has them (``models.afmoe``: sliding layers
+    with RoPE beside full layers without), else every layer at
+    ``cfg.window`` with RoPE."""
+    windows = getattr(cfg, "layer_windows", ()) or (cfg.window,) * cfg.n_layers
+    ropes = getattr(cfg, "layer_rope", ()) or (True,) * cfg.n_layers
+    return list(zip(windows, ropes))
+
+
+def _qkv(layer, x, cfg, positions, tp=None, rope_on=True):
+    """q, k, v of this rank's heads (all heads without ``tp``), and h,
+    the normed input the attention's output gate reads. A layer with
+    ``q_norm`` / ``k_norm`` leaves ([hd]) RMS-normalises each head of q
+    and k before RoPE; ``rope_on`` False leaves them unrotated."""
     b, s = x.shape[0], x.shape[1]
     h = rms_norm(x, layer["ln1"], cfg.norm_eps, cfg.norm_plus_one)
     n_heads, n_kv = cfg.n_heads, cfg.n_kv_heads
@@ -332,19 +353,47 @@ def _qkv(layer, x, cfg, positions, tp=None):
     q = _proj(h, layer, "wq", "bq", (b, s, n_heads, cfg.head_dim))
     k = _proj(h, layer, "wk", "bk", (b, s, n_kv, cfg.head_dim))
     v = _proj(h, layer, "wv", "bv", (b, s, n_kv, cfg.head_dim))
-    q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
-    k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
-    return q, k, v
+    q_norm = layer.get("q_norm")
+    if q_norm is not None:
+        q = rms_norm(q, q_norm, cfg.norm_eps, cfg.norm_plus_one)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps, cfg.norm_plus_one)
+    if rope_on:
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
+    return q, k, v, h
 
 
-def _attn_out(layer, attn_flat, tp=None):
+def _attn_out(layer, attn_flat, h, cfg, tp=None):
     """The attention output projection; under ``tp`` row-parallel: the
-    partial products are summed over tp, then ``bo`` is added once."""
+    partial products are summed over tp, then ``bo`` is added once. A
+    layer with a ``wg`` leaf ([d, heads x hd]) first gates the heads'
+    output by sigmoid(h @ wg); one with ``ln_post_attn`` RMS-normalises
+    the projection (the sandwich norm)."""
+    gate = layer.get("wg")
+    if gate is not None:
+        attn_flat = attn_flat * torch.sigmoid(_matmul(h, gate))
     if tp is None:
-        return _proj(attn_flat, layer, "wo", "bo")
-    out = _row_parallel(attn_flat, layer["wo"], tp)
-    bias = layer.get("bo")
-    return out if bias is None else out + bias
+        out = _proj(attn_flat, layer, "wo", "bo")
+    else:
+        out = _row_parallel(attn_flat, layer["wo"], tp)
+        bias = layer.get("bo")
+        out = out if bias is None else out + bias
+    return _post_norm(layer, "ln_post_attn", out, cfg)
+
+
+def _post_norm(layer, name, y, cfg):
+    """y through the layer's norm leaf ``name`` where it has one (the
+    post-attention and post-MLP sandwich norms), else y."""
+    w = layer.get(name)
+    return y if w is None else rms_norm(y, w, cfg.norm_eps,
+                                        cfg.norm_plus_one)
+
+
+def _ffn_out(layer, x, cfg, ffn, tp):
+    """The MLP (or the family's ``ffn``) of x, through the layer's
+    post-MLP norm where it has one."""
+    y = _mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x)
+    return _post_norm(layer, "ln_post_mlp", y, cfg)
 
 
 def _act(cfg, x):
@@ -442,24 +491,28 @@ def _forward_stack(params, cfg: LlamaConfig, tokens, prefix_kvs=None,
     positions = (pos0 + prefix_len
                  + torch.arange(s, device=tokens.device))[None].expand(b, s)
     kvs = []
+    kinds = layer_kinds(cfg)
     for li, layer in enumerate(_layers(params, tp)):
         x, kv = decoder_layer(layer, x, cfg, positions,
                               None if prefix_kvs is None else prefix_kvs[li],
-                              ffn, tp)
+                              ffn, tp, kinds[li])
         kvs.append(kv)
     x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x, tp), kvs
 
 
 def decoder_layer(layer, x, cfg: LlamaConfig, positions, prefix_kv=None,
-                  ffn=None, tp=None):
+                  ffn=None, tp=None, kind=None):
     """One layer of the dense decoder stack: x [batch, s, d_model] at rope
     ``positions`` [batch, s] -> (x after the layer, its (k, v)). With
     ``prefix_kv`` ((k, v) [batch, P, n_kv, hd], post-RoPE) attention
     covers prefix + suffix; ``ffn`` and ``tp`` as :func:`_forward_stack`
-    takes them. The pipeline's stages run layers through it."""
+    takes them; ``kind`` is the layer's (window, RoPE on) of
+    :func:`layer_kinds` (None: ``cfg.window`` with RoPE). The pipeline's
+    stages run layers through it."""
     b, s = x.shape[:2]
-    q, k, v = _qkv(layer, x, cfg, positions, tp)
+    window, rope_on = (cfg.window, True) if kind is None else kind
+    q, k, v, h = _qkv(layer, x, cfg, positions, tp, rope_on)
     if prefix_kv is None:
         k_full, v_full = k, v
     else:
@@ -467,9 +520,9 @@ def decoder_layer(layer, x, cfg: LlamaConfig, positions, prefix_kv=None,
         k_full = torch.cat([pk.to(k.dtype), k], dim=1)
         v_full = torch.cat([pv.to(v.dtype), v], dim=1)
     attn = flash_prefill(q.contiguous(), k_full.contiguous(),
-                         v_full.contiguous(), causal=True, window=cfg.window)
-    x = x + _attn_out(layer, attn.reshape(b, s, -1), tp)
-    x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
+                         v_full.contiguous(), causal=True, window=window)
+    x = x + _attn_out(layer, attn.reshape(b, s, -1), h, cfg, tp)
+    x = x + _ffn_out(layer, x, cfg, ffn, tp)
     return x, (k, v)
 
 
@@ -567,14 +620,16 @@ def _decode(params, cfg, token, seq_lens, k_pages, v_pages, page_table,
             scatter_rows(k_pages[li], k, entries, rows)
             scatter_rows(v_pages[li], v, entries, rows)
 
+    kinds = layer_kinds(cfg)
     for li, layer in enumerate(_layers(params, tp)):
-        q, k, v = _qkv(layer, x, cfg, positions, tp)
+        window, rope_on = kinds[li]
+        q, k, v, h = _qkv(layer, x, cfg, positions, tp, rope_on)
         write(li, k, v)
         attn = decode_attention(q[:, 0].contiguous(), k_pages[li],
                                 v_pages[li], page_table, lens,
-                                window=cfg.window)
-        x = x + _attn_out(layer, attn.reshape(b, 1, -1), tp)
-        x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
+                                window=window)
+        x = x + _attn_out(layer, attn.reshape(b, 1, -1), h, cfg, tp)
+        x = x + _ffn_out(layer, x, cfg, ffn, tp)
     x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x[:, 0], tp), k_pages, v_pages
 
@@ -732,14 +787,16 @@ def verify_step(params, cfg: LlamaConfig, tokens, seq_lens, k_pages,
     entries, rows = drop_mode_rows(target_page, slot, n_pages, page)
     lens = seq_lens.to(torch.int32)
 
+    kinds = layer_kinds(cfg)
     for li, layer in enumerate(_layers(params, tp)):
-        q, k, v = _qkv(layer, x, cfg, positions, tp)
+        window, rope_on = kinds[li]
+        q, k, v, h = _qkv(layer, x, cfg, positions, tp, rope_on)
         kp = scatter_rows(k_pages[li], k, entries, rows)
         vp = scatter_rows(v_pages[li], v, entries, rows)
         attn = verify_attention(q.contiguous(), kp, vp, page_table, lens,
-                                window=cfg.window)
-        x = x + _attn_out(layer, attn.reshape(b, m, -1), tp)
-        x = x + (_mlp(layer, x, cfg, tp) if ffn is None else ffn(layer, x))
+                                window=window)
+        x = x + _attn_out(layer, attn.reshape(b, m, -1), h, cfg, tp)
+        x = x + _ffn_out(layer, x, cfg, ffn, tp)
     x = rms_norm(x, final_ln, cfg.norm_eps, cfg.norm_plus_one)
     return _logits(params, x, tp), k_pages, v_pages
 

@@ -34,7 +34,9 @@ uncached tail, decode all slots in lockstep, offload finished pages.
   profiler also ranges with the request id); the store's own span
   counters are folded in after each store call; ``queue_wait_*``,
   ``step_*``, ``offload_bytes``, ``restore_bytes`` and
-  ``decode_graph_captures`` / ``decode_graph_replays`` are counters.
+  ``decode_graph_captures`` / ``decode_graph_replays`` are counters. A
+  model family that times its own layers (``models.afmoe``: ``moe.route``
+  and ``moe.experts``) adds its spans to the same ``stats``.
 - **The decode step as one CUDA graph**: on a card, with no mesh, and
   for a model family that offers one (``llama.DecodeGraph``; the MoE's
   routed step stays eager), every single-token decode step, alone or in
@@ -403,7 +405,9 @@ class ServingEngine:
     """Continuous-batching engine over the store for any model family of
     the port that exposes prefill / prefill_with_prefix / decode_step /
     verify_step over the shared KV page contract: ``model=llama`` with a
-    ``LlamaConfig`` (the default) or ``model=moe`` with a ``MoEConfig``.
+    ``LlamaConfig`` (the default), ``model=moe`` with a ``MoEConfig`` or
+    ``model=afmoe`` with an ``AfmoeConfig`` (one device; its
+    ``LayerSpans`` add the routed block's spans to ``stats``).
     The engine reads only the config fields both share; decode steps
     advance live rows only, so the MoE family's validity mask keeps idle
     slots out of expert capacity.
@@ -503,6 +507,11 @@ class ServingEngine:
         # this engine can hold one (_decode_graph).
         graph = _decode_graph(model, self.device, self._mkw, self.stats)
         self._gkw = {} if graph is None else {"graph": graph}
+        # A family that times its own layers (models.afmoe's
+        # LayerSpans) adds them to stats: every model call takes them.
+        spans_cls = getattr(model, "LayerSpans", None)
+        if spans_cls is not None:
+            self._mkw = {**self._mkw, "spans": spans_cls(self.stats)}
         # Spans over stats (module docstring): <key>_ns / <key>_n each.
         self._sp_admit = Span(self.stats, "engine.admit", "admit")
         self._sp_probe = Span(self.stats, "engine.probe", "probe")
@@ -1029,7 +1038,11 @@ class ServingEngine:
         they go back to the free list (offloaded first) and live KV stays
         O(window) per slot. The page-table entries keep pointing at the
         freed pages: the kernels skip sub-floor positions and the plain
-        versions mask them, so reused contents are never seen."""
+        versions mask them, so reused contents are never seen.
+        ``cfg.window`` is the stack's widest window: 0 where any layer
+        attends every position (``models.afmoe``'s mixed stacks), so
+        such an engine frees nothing here and skips no page at
+        admission."""
         window = getattr(self.cfg, "window", 0)
         if not window:
             return
