@@ -37,11 +37,17 @@ memory and the pool blocks, with no host staging.
   its sync; SHM: the copies into the pool), ``store.send``
   (``write_cache``), ``store.commit`` (SHM); ``store.read`` (STREAM:
   ``read_cache`` and its sync; SHM: ``pin``), ``store.h2d``,
-  ``store.release`` (SHM).
+  ``store.release`` (SHM). Each thread that calls the store counts into
+  spans of its own; ``stats`` sums them, so a write-behind thread's puts
+  and the caller's reads never share a timer.
+- **staging** (``stage_pages``): a copy of device pages in pinned host
+  memory, for a put made later (from another thread) after the device
+  pages are reused.
 
 CPU tensors take the same paths with plain memcpys (the tests run so).
 """
 
+import contextlib
 import queue
 import threading
 
@@ -169,6 +175,20 @@ def _abort_uncommitted(conn, blocks, keys=None):
             pass
 
 
+class _Spans:
+    """One thread's spans over its own counters (module docstring)."""
+
+    def __init__(self):
+        self.stats = {}
+        self.allocate = Span(self.stats, "store.allocate", "store_allocate")
+        self.stage = Span(self.stats, "store.stage", "store_stage")
+        self.send = Span(self.stats, "store.send", "store_send")
+        self.commit = Span(self.stats, "store.commit", "store_commit")
+        self.read = Span(self.stats, "store.read", "store_read")
+        self.h2d = Span(self.stats, "store.h2d", "store_h2d")
+        self.release = Span(self.stats, "store.release", "store_release")
+
+
 class CudaKVStore:
     """KV-page interface over an :class:`InfinityConnection` or a
     :class:`~infinistore_tpu_torch.sharded.ShardedConnection`, with
@@ -180,19 +200,41 @@ class CudaKVStore:
         # A sharded connection routes by key: writes carry the key list
         # and rollbacks go through abort_for_keys.
         self._sharded = hasattr(conn, "shard_of")
+        # put_kv_pages holds the connection (InfinityConnection.in_use):
+        # a close from another thread waits for its copies into the pool.
+        self._in_use = getattr(conn, "in_use", contextlib.nullcontext)
         self._registered = {}  # pool_idx -> base address pinned by us
-        # <key>_ns / <key>_n of each span below (module docstring).
-        self.stats = {}
-        self._sp_allocate = Span(self.stats, "store.allocate",
-                                 "store_allocate")
-        self._sp_stage = Span(self.stats, "store.stage", "store_stage")
-        self._sp_send = Span(self.stats, "store.send", "store_send")
-        self._sp_commit = Span(self.stats, "store.commit", "store_commit")
-        self._sp_read = Span(self.stats, "store.read", "store_read")
-        self._sp_h2d = Span(self.stats, "store.h2d", "store_h2d")
-        self._sp_release = Span(self.stats, "store.release", "store_release")
+        # Each calling thread's spans (thread -> _Spans); a thread that
+        # has ended leaves its counts in _ended.
+        self._spans_of = {}
+        self._spans_lock = threading.Lock()
+        self._local = threading.local()
+        self._ended = {k: 0 for k in self._spans().stats}
         if self.device.type == "cuda" and conn.shm_connected:
             self.pin_pools()
+
+    def _spans(self):
+        """The calling thread's spans."""
+        sp = getattr(self._local, "spans", None)
+        if sp is None:
+            sp = self._local.spans = _Spans()
+            with self._spans_lock:
+                self._spans_of[threading.current_thread()] = sp
+        return sp
+
+    @property
+    def stats(self):
+        """``<key>_ns`` / ``<key>_n`` of every span (module docstring),
+        summed over the threads that called this store: a new dict."""
+        with self._spans_lock:
+            for t in [t for t in self._spans_of if not t.is_alive()]:
+                for k, v in self._spans_of.pop(t).stats.items():
+                    self._ended[k] += v
+            out = dict(self._ended)
+            for sp in self._spans_of.values():
+                for k, v in sp.stats.items():
+                    out[k] += v
+        return out
 
     # -- pools -----------------------------------------------------------
 
@@ -291,15 +333,16 @@ class CudaKVStore:
         commit (SHM), or a pipelined ``write_cache`` (STREAM and sharded,
         visible after ``sync``)."""
         n = len(blocks)
+        sp = self._spans()
         if self.conn.shm_connected:
-            with self._sp_stage.of(pages=n, nbytes=n * page_bytes):
+            with sp.stage.of(pages=n, nbytes=n * page_bytes):
                 self._copy_into_pool(src, blocks, page_bytes)
-            with self._sp_commit.of(pages=n):
+            with sp.commit.of(pages=n):
                 self.conn.commit(blocks["token"][blocks["status"] == OK])
             return
-        with self._sp_stage.of(pages=n, nbytes=n * page_bytes):
+        with sp.stage.of(pages=n, nbytes=n * page_bytes):
             host = self._host_bytes(src).numpy()
-        with self._sp_send.of(pages=n, nbytes=n * page_bytes):
+        with sp.send.of(pages=n, nbytes=n * page_bytes):
             args = (host, [i * page_bytes for i in range(n)], page_bytes,
                     blocks)
             if self._sharded:
@@ -325,8 +368,8 @@ class CudaKVStore:
             by_size.setdefault(src.numel(), []).append((k, src))
         for nbytes, group in by_size.items():
             keys = [k for k, _ in group]
-            with self._sp_allocate.of(pages=len(keys),
-                                      nbytes=len(keys) * nbytes):
+            with self._spans().allocate.of(pages=len(keys),
+                                           nbytes=len(keys) * nbytes):
                 blocks = self.conn.allocate(keys, nbytes)
             for i, (k, src) in enumerate(group):
                 try:
@@ -343,6 +386,23 @@ class CudaKVStore:
 
     # -- paged KV --------------------------------------------------------
 
+    def stage_pages(self, pages):
+        """``pages`` in host memory, for a :meth:`put_kv_pages` made
+        after the device pages are reused: a CUDA tensor is copied into a
+        new pinned tensor of its shape (one D2H, synchronized, timed as
+        ``store.stage``); a CPU tensor is returned as it is."""
+        if not pages.is_cuda:
+            return pages.contiguous()
+        nbytes = pages.numel() * pages.element_size()
+        with self._spans().stage.of(pages=pages.shape[0], nbytes=nbytes):
+            host = torch.empty(pages.shape, dtype=pages.dtype,
+                               pin_memory=True)
+            host.copy_(pages, non_blocking=True)
+            torch.cuda.current_stream(pages.device).synchronize()
+        copy_counters["d2h_copies"] += 1
+        copy_counters["d2h_bytes"] += nbytes
+        return host
+
     def put_kv_pages(self, keys, pages, sync=False):
         """Store pages [n_pages, ...] (page i under keys[i]) with one
         allocate for the batch. SHM: written and committed when this
@@ -353,10 +413,11 @@ class CudaKVStore:
             raise ValueError("len(keys) must equal pages.shape[0]")
         src = _as_bytes(pages.contiguous())
         page_bytes = src.numel() // max(n, 1)
-        with self._sp_allocate.of(pages=n, nbytes=src.numel()):
+        with self._spans().allocate.of(pages=n, nbytes=src.numel()):
             blocks = self.conn.allocate(keys, page_bytes)
         try:
-            self._write_pages(src, blocks, page_bytes, keys)
+            with self._in_use():
+                self._write_pages(src, blocks, page_bytes, keys)
         except BaseException:
             _abort_uncommitted(self.conn, blocks, keys)
             raise
@@ -366,19 +427,20 @@ class CudaKVStore:
 
     def _read_into(self, out_bytes, keys, page_bytes):
         n, nbytes = len(keys), out_bytes.numel()
+        sp = self._spans()
         if self.conn.shm_connected:
-            with self._sp_read.of(pages=n, nbytes=nbytes):
+            with sp.read.of(pages=n, nbytes=nbytes):
                 lease, blocks = self.conn.pin(keys)
             try:
                 # Synchronized inside: the copy is done before release.
-                with self._sp_h2d.of(pages=n, nbytes=nbytes):
+                with sp.h2d.of(pages=n, nbytes=nbytes):
                     self._copy_from_pool(out_bytes, blocks, page_bytes)
             finally:
-                with self._sp_release.of(pages=n):
+                with sp.release.of(pages=n):
                     self.conn.release(lease)
             return
         cuda = out_bytes.is_cuda
-        with self._sp_read.of(pages=n, nbytes=nbytes):
+        with sp.read.of(pages=n, nbytes=nbytes):
             buf = (torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
                    if cuda else out_bytes)
             self.conn.read_cache(
@@ -388,7 +450,7 @@ class CudaKVStore:
             )
             self.conn.sync()
         if cuda:
-            with self._sp_h2d.of(pages=n, nbytes=nbytes):
+            with sp.h2d.of(pages=n, nbytes=nbytes):
                 out_bytes.copy_(buf, non_blocking=True)
                 torch.cuda.current_stream(out_bytes.device).synchronize()
             copy_counters["h2d_copies"] += 1
@@ -422,7 +484,7 @@ class CudaKVStore:
             raise ValueError("len(keys) must equal pages.shape[0]")
         block = kv_quant.packed_page_bytes(tuple(pages.shape[1:]))
         packed = kv_quant.pack_pages(*kv_quant.quantize_kv_pages(pages))
-        with self._sp_allocate.of(pages=n, nbytes=n * block):
+        with self._spans().allocate.of(pages=n, nbytes=n * block):
             blocks = self.conn.allocate(keys, block)
         try:
             self._write_pages(packed.reshape(-1), blocks, block, keys)

@@ -18,6 +18,7 @@ lib.py:330-707). Differences, all TPU-driven:
 
 import asyncio
 import collections
+import contextlib
 import ctypes as ct
 import json
 import logging
@@ -41,6 +42,11 @@ from ._native import (
 from .config import TYPE_AUTO, TYPE_SHM, TYPE_STREAM, ClientConfig
 
 _LOG_LEVEL_TO_NATIVE = {"debug": 0, "info": 1, "warning": 2, "error": 3}
+
+# Native handles that close() could not free because another thread's
+# call was still inside one (InfinityConnection.in_use): kept, never
+# freed, so that call returns into live memory.
+_UNFREED_HANDLES = []
 
 
 class InfiniStoreError(Exception):
@@ -379,6 +385,12 @@ class InfinityConnection:
         # harvest-on-reconnect discipline as the pin-cache tallies):
         # ring_posts, doorbells, ring_fallbacks.
         self._fabric_base = [0, 0, 0, 0, 0]
+        # Calls inside the native handle (in_use) and whether close()
+        # has begun: close() waits for those calls before it frees the
+        # handle, and refuses new ones meanwhile.
+        self._users = 0
+        self._users_cv = threading.Condition()
+        self._closing = False
 
     # ------------------------------------------------------------------
     # connection lifecycle
@@ -412,6 +424,8 @@ class InfinityConnection:
         )
         if not h:
             raise Exception("Failed to create connection")
+        with self._users_cv:
+            self._closing = False
         if self._lib.ist_conn_connect(h) != 0:
             self._lib.ist_conn_destroy(h)  # never published: safe to free
             raise Exception(
@@ -446,6 +460,13 @@ class InfinityConnection:
         return 0
 
     def close(self):
+        # New calls are refused from here on; calls another thread has
+        # inside the handle (in_use: a write-behind worker's allocate,
+        # write or sync) end first, up to the connection's timeout.
+        with self._users_cv:
+            self._closing = True
+            self._users_cv.wait_for(lambda: not self._users,
+                                    timeout=self.config.timeout_ms / 1000)
         # Under _reconnect_lock: close() DESTROYS native handles, and
         # both the reconnect machinery and client_stats() (documented
         # for exactly the poll-from-another-thread pattern) read
@@ -453,6 +474,38 @@ class InfinityConnection:
         # telemetry read could dereference a freed Connection*.
         with self._reconnect_lock:
             self._close_locked()
+
+    @contextlib.contextmanager
+    def in_use(self):
+        """A stretch of calls on this connection, on any thread, that
+        ``close`` waits for before it frees the native handle and unmaps
+        the pools (the SHM copies into them included). Once ``close`` has
+        begun it raises as a closed connection does."""
+        with self._users_cv:
+            if self._closing:
+                raise Exception("Not connected to any instance")
+            self._users += 1
+        try:
+            yield
+        finally:
+            with self._users_cv:
+                self._users -= 1
+                if not self._users:
+                    self._users_cv.notify_all()
+
+    def _free_handle(self, h):
+        """``ist_conn_destroy(h)`` once no call is inside the handle:
+        ``ist_conn_close`` woke any that waited. A call still inside
+        after that keeps the handle alive for good (_UNFREED_HANDLES)."""
+        with self._users_cv:
+            idle = self._users_cv.wait_for(lambda: not self._users,
+                                           timeout=2.0)
+        if not idle:
+            _UNFREED_HANDLES.append(h)
+            Logger.warning("close: a call is still inside the connection; "
+                           "its native handle is left unfreed")
+            return
+        self._lib.ist_conn_destroy(h)
 
     def _close_locked(self):
         # After a FAILED reconnect, self._h still points at a handle
@@ -485,10 +538,10 @@ class InfinityConnection:
                 except Exception:
                     pass
             self._lib.ist_conn_close(self._h)
-            self._lib.ist_conn_destroy(self._h)
+            self._free_handle(self._h)
         self._h = None
         for h in self._dead_handles:  # handles parked by reconnects
-            self._lib.ist_conn_destroy(h)
+            self._free_handle(h)
         self._dead_handles = []
         self.connected = False
         self.shm_connected = False
@@ -871,16 +924,17 @@ class InfinityConnection:
         Duplicated keys come back with ``token == FAKE_TOKEN`` and are
         skipped on write (first-writer-wins dedup, reference
         infinistore.cpp:353-359)."""
-        self._check()
-        tid = self._stamp_trace()
-        t0 = time.perf_counter()
-        try:
-            return self._run_reconnecting(
-                lambda: self._allocate_once(keys, page_size_in_bytes),
-                keys=keys,
-            )
-        finally:
-            self._record_op("allocate", t0, tid)
+        with self.in_use():
+            self._check()
+            tid = self._stamp_trace()
+            t0 = time.perf_counter()
+            try:
+                return self._run_reconnecting(
+                    lambda: self._allocate_once(keys, page_size_in_bytes),
+                    keys=keys,
+                )
+            finally:
+                self._record_op("allocate", t0, tid)
 
     def _allocate_once(self, keys, page_size_in_bytes):
         blob = pack_keys(keys)
@@ -1057,10 +1111,12 @@ class InfinityConnection:
         than allocation) still raises here. Do not mutate ``cache``
         before ``sync()`` — the copy may not have happened yet (same
         contract as posting an RDMA WRITE from a user buffer)."""
-        self._check()
-        self._write_async_native(
-            cache, offsets, page_size, remote_blocks, self._record_status
-        )
+        with self.in_use():
+            self._check()
+            self._write_async_native(
+                cache, offsets, page_size, remote_blocks,
+                self._record_status
+            )
         return 0
 
     def _record_status(self, status):
@@ -1522,19 +1578,20 @@ class InfinityConnection:
         native/src/server.h commit-race note). In lease mode this also
         flushes the pending deferred-commit batch first, so leased puts
         are committed and visible once sync returns."""
-        self._check()
-        t0 = time.perf_counter()
-        try:
-            if self.config.use_lease:
-                self._telemetry.bump("lease_flushes")
-                self._lib.ist_lease_flush(self._h)
-            st = self._lib.ist_sync(self._h, self.config.timeout_ms)
-            if st != OK:
-                raise InfiniStoreError(st, "sync failed")
-            self._raise_async_errors()
-            return 0
-        finally:
-            self._record_op("sync", t0, self.last_trace_id)
+        with self.in_use():
+            self._check()
+            t0 = time.perf_counter()
+            try:
+                if self.config.use_lease:
+                    self._telemetry.bump("lease_flushes")
+                    self._lib.ist_lease_flush(self._h)
+                st = self._lib.ist_sync(self._h, self.config.timeout_ms)
+                if st != OK:
+                    raise InfiniStoreError(st, "sync failed")
+                self._raise_async_errors()
+                return 0
+            finally:
+                self._record_op("sync", t0, self.last_trace_id)
 
     def _raise_async_errors(self):
         if self.config.use_lease:
@@ -1787,13 +1844,14 @@ class InfinityConnection:
         """Abort uncommitted allocation tokens so their keys become
         allocatable again (used to undo partially-failed batch allocates;
         the reference has no such undo and leaks uncommitted entries)."""
-        self._check()
-        toks = np.ascontiguousarray(tokens, dtype=np.uint64)
-        st = self._lib.ist_abort(
-            self._h,
-            toks.ctypes.data_as(ct.POINTER(ct.c_uint64)),
-            len(toks),
-        )
+        with self.in_use():
+            self._check()
+            toks = np.ascontiguousarray(tokens, dtype=np.uint64)
+            st = self._lib.ist_abort(
+                self._h,
+                toks.ctypes.data_as(ct.POINTER(ct.c_uint64)),
+                len(toks),
+            )
         if st != OK:
             raise InfiniStoreError(st, "abort failed")
 

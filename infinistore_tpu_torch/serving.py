@@ -20,6 +20,10 @@ uncached tail, decode all slots in lockstep, offload finished pages.
 - **Offload on finish**, **windowed release** and **preemption through
   the store**: full pages go to the store before their pool pages are
   reused; a preempted sequence resumes through the prefix-hit path.
+  While the engine has other work, a finish or a windowed release
+  stages its pages to host memory and hands them to the engine's
+  write-behind thread, which puts them and waits for the ack; the step
+  goes on at once (at most ``OFFLOADS_IN_FLIGHT`` wait for their ack).
 - **Speculative decoding** (``spec_k``), **chunked prefill**
   (``prefill_chunk``) and **multi-step bursts** (``host_steps``), with
   seeded per-request sampling on the host (numpy), as in the JAX engine.
@@ -28,12 +32,18 @@ uncached tail, decode all slots in lockstep, offload finished pages.
   ``engine.probe``, ``engine.restore``, ``engine.prefill``), decode
   (``engine.decode``: ``engine.decode.dispatch`` queues the step's
   kernels, ``engine.decode.wait`` waits for its tokens) and offload
-  (``engine.offload``: ``engine.offload.gather``, the store's put spans,
-  ``engine.offload.ack``) each add ``<key>_ns`` / ``<key>_n``
+  (``engine.offload``, the step's own part, counted as ``offload_step``:
+  ``engine.offload.gather``, the store's put spans and
+  ``engine.offload.ack``, or, behind the step, the staging and
+  ``engine.offload.room_wait``; on the write-behind thread
+  ``engine.offload.write`` around the put and ``engine.offload.ack``)
+  each add ``<key>_ns`` / ``<key>_n``
   (:class:`~infinistore_tpu_torch.utils.profiling.Span`; under a torch
   profiler also ranges with the request id); the store's own span
   counters are folded in after each store call; ``queue_wait_*``,
-  ``step_*``, ``offload_bytes``, ``restore_bytes`` and
+  ``step_*``, ``offload_bytes``, ``restore_bytes``, ``offload_ns`` /
+  ``offload_n`` (one offload's own work, wherever it ran),
+  ``offload_behind_n`` (offloads handed to the write-behind thread) and
   ``decode_graph_captures`` / ``decode_graph_replays`` are counters. A
   model family that times its own layers (``models.afmoe``: ``moe.route``
   and ``moe.experts``) adds its spans to the same ``stats``.
@@ -80,9 +90,13 @@ Where it differs from the JAX engine, and why:
   restored page; under ep rank 0 puts its own pages.
 """
 
+import contextlib
 import hashlib
 import logging
+import queue
+import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -93,6 +107,18 @@ from ._device import resolve_device
 from .lib import InfiniStoreKeyNotFound
 from .models import llama, moe
 from .utils.profiling import Span
+
+# Offloads handed to the write-behind thread and not yet acknowledged, at
+# most. Each holds its pages in pinned host memory (a 4096-token request
+# of Mistral-7B: 512 MiB); a step that would hand over one more first
+# waits for the oldest. Chosen from a measurement on one H100 (PERF.md).
+OFFLOADS_IN_FLIGHT = 3
+# The write-behind thread puts an offload in runs of whole pages (every
+# layer's k and v) of about this many bytes, each with its ack: the
+# store's connection serves one message at a time, so an admission's
+# probe waits behind one run, not behind the whole offload; and a probe
+# finds a page only once all its layers are in.
+OFFLOAD_RUN_BYTES = 16 << 20
 
 
 def content_page_digests(tokens, page_size, n_pages, namespace=""):
@@ -401,6 +427,95 @@ def _checksum(x, shape=None, offsets=None):
     return total
 
 
+class _Offload:
+    """One offload handed to the write-behind thread: its keys and host
+    pages (page-major), the put to make and the keys a run puts, what
+    the engine counts once it is back, and what came back (the thread's
+    time, its span increments, an error, or ``dropped`` after an earlier
+    failure)."""
+
+    __slots__ = ("keys", "host", "put", "run", "rid", "pages", "nbytes",
+                 "step_ns", "work_ns", "stats", "err", "dropped")
+
+    def __init__(self, keys, host, put, run, rid, pages, nbytes):
+        self.keys, self.host, self.put, self.run = keys, host, put, run
+        self.rid, self.pages, self.nbytes = rid, pages, nbytes
+        self.step_ns = self.work_ns = 0
+        self.stats, self.err, self.dropped = {}, None, False
+
+
+class _WriteBehind:
+    """An engine's write-behind thread. It writes the offloads handed to
+    it in order, in runs of whole pages: ``put(keys, host pages)``
+    (allocate and send), then ``store.conn.sync()`` (the ack), then the
+    next run; then it lets go of the host pages and hands the offload
+    back on ``done``. After a failure it writes nothing more:
+    later offloads come back dropped. The thread runs while offloads
+    wait and ends when none does; it is a daemon, and a connection closed
+    under it ends it through the error. It writes nothing of the
+    engine's: its spans count into its own dict, whose increments ride
+    back on each offload, and the engine's thread folds them."""
+
+    def __init__(self, store):
+        self.store = store
+        self.done = queue.SimpleQueue()
+        self.in_flight = 0  # handed over and not taken back (engine's)
+        self._jobs = deque()
+        self._lock = threading.Lock()
+        self._thread = None
+        self._failed = False
+        self._stats = {}
+        self._sp_write = Span(self._stats, "engine.offload.write",
+                              "offload_write")
+        self._sp_ack = Span(self._stats, "engine.offload.ack", "offload_ack")
+
+    def submit(self, job):
+        with self._lock:
+            self._jobs.append(job)
+            if self._thread is None:
+                thread = threading.Thread(target=self._run, daemon=True,
+                                          name="offload-write-behind")
+                try:
+                    thread.start()
+                except BaseException:
+                    self._jobs.pop()
+                    raise
+                self._thread = thread
+        self.in_flight += 1
+
+    def _run(self):
+        while True:
+            with self._lock:
+                if not self._jobs:
+                    self._thread = None
+                    return
+                job = self._jobs.popleft()
+            self._write(job)
+
+    def _write(self, job):
+        seen = dict(self._stats)
+        t0 = time.perf_counter_ns()
+        try:
+            if self._failed:
+                job.dropped = True
+            else:
+                with self._sp_write.of(rid=job.rid, pages=len(job.keys),
+                                       nbytes=job.nbytes):
+                    for a in range(0, len(job.keys), job.run):
+                        job.put(job.keys[a:a + job.run],
+                                job.host[a:a + job.run])
+                        with self._sp_ack:
+                            self.store.conn.sync()
+        except Exception as e:
+            job.err = e
+            self._failed = True
+        finally:
+            job.host = None
+            job.work_ns = time.perf_counter_ns() - t0
+            job.stats = {k: v - seen[k] for k, v in self._stats.items()}
+            self.done.put(job)
+
+
 class ServingEngine:
     """Continuous-batching engine over the store for any model family of
     the port that exposes prefill / prefill_with_prefix / decode_step /
@@ -502,6 +617,8 @@ class ServingEngine:
             "queue_wait_ns": 0, "queue_wait_n": 0, "step_ns": 0,
             "step_n": 0, "offload_bytes": 0, "restore_bytes": 0,
             "decode_graph_captures": 0, "decode_graph_replays": 0,
+            "offload_ns": 0, "offload_n": 0, "offload_behind_n": 0,
+            "offload_write_ns": 0, "offload_write_n": 0,
         }
         # The single-token decode step replayed as one CUDA graph, where
         # this engine can hold one (_decode_graph).
@@ -521,16 +638,18 @@ class ServingEngine:
         self._sp_dispatch = Span(self.stats, "engine.decode.dispatch",
                                  "decode_dispatch")
         self._sp_wait = Span(self.stats, "engine.decode.wait", "decode_wait")
-        self._sp_offload = Span(self.stats, "engine.offload", "offload")
+        self._sp_offload = Span(self.stats, "engine.offload",
+                                "offload_step")
         self._sp_gather = Span(self.stats, "engine.offload.gather",
                                "offload_gather")
         self._sp_ack = Span(self.stats, "engine.offload.ack", "offload_ack")
+        self._sp_room = Span(self.stats, "engine.offload.room_wait",
+                             "offload_room_wait")
+        # The write-behind thread (_WriteBehind), made at its first use.
+        self._behind = None
         # The store's own span counters (CudaKVStore.stats), folded into
         # stats after each store call: _store_seen holds what was folded.
-        self._store_stats = getattr(store, "stats", None)
-        if not isinstance(self._store_stats, dict):
-            self._store_stats = None
-        self._store_seen = dict(self._store_stats or {})
+        self._store_seen = dict(self._store_counts() or {})
         for k in self._store_seen:
             self.stats.setdefault(k, 0)
         self._page_bytes = cfg.kv_page_bytes()
@@ -630,12 +749,18 @@ class ServingEngine:
         self.k_pages.index_copy_(1, idx, k_new.to(self.k_pages.dtype))
         self.v_pages.index_copy_(1, idx, v_new.to(self.v_pages.dtype))
 
+    def _store_counts(self):
+        """The store's span counters as they stand, or None."""
+        counts = getattr(self.store, "stats", None)
+        return counts if isinstance(counts, dict) else None
+
     def _fold_store_stats(self):
         """Add the store's span counters accrued since the last fold."""
-        if self._store_stats is None:
+        counts = self._store_counts()
+        if counts is None:
             return
         seen = self._store_seen
-        for k, v in self._store_stats.items():
+        for k, v in counts.items():
             self.stats[k] = self.stats.get(k, 0) + v - seen.get(k, 0)
             seen[k] = v
 
@@ -968,17 +1093,32 @@ class ServingEngine:
         """The KV appended this step lands at position seq_len."""
         return self._ensure_pages(slot_idx, slot, slot.seq_len)
 
-    def _offload_full_pages(self, slot, hi=None):
+    def _offload_full_pages(self, slot, hi=None, behind=False):
         """Persist the slot's new full pages [lo, hi) to the store
         (finish, preemption and windowed release). Full pages only —
         partial tail pages would poison page-granular prefix matching —
         and not [0, cached_pages) (the store has them) nor [0, released)
-        (offloaded when they left the window). One batched put over
-        every (layer, kind), then ``conn.sync()``: the pages are durable
-        in the store before their pool pages can be reused. Under tp the
-        kv heads are gathered and tp rank 0 puts the whole pages (under
-        ep ep rank 0 puts its own, whole); the ranks' agreement on the
-        outcome waits for its sync."""
+        (offloaded when they left the window). The pages go page-major,
+        each page's every (layer, kind) together: one batched put, then
+        ``conn.sync()``.
+
+        With ``behind`` (finish and windowed release while the engine
+        has other work) the gathered pages are staged to host memory and
+        handed to the write-behind thread, which puts them and waits for
+        the ack, a run of whole pages at a time (OFFLOAD_RUN_BYTES); the
+        pool pages are free once this returns, and a probe misses a page
+        until its run is acknowledged. Otherwise
+        (preemption; always under a mesh, whose ranks agree on the
+        outcome, and on the int8 wire, whose put quantizes on the
+        device) the offload waits for those in flight, then for its own
+        ack: the pages are durable in the store before their pool pages
+        can be reused. Under tp the kv heads are gathered and tp rank 0
+        puts the whole pages (under ep ep rank 0 puts its own, whole);
+        the ranks' agreement on the outcome waits for its sync."""
+        behind = (behind and self.par is None
+                  and not self.sc.quantized_store)
+        if not behind:
+            self._wait_offloads(0)
         if (self.store is None or not self._store_ok
                 or not slot.work.req.cache):
             return
@@ -990,40 +1130,114 @@ class ServingEngine:
         if n_full <= lo:
             return
         new_digests = self._slot_digests(slot, n_full)[lo:]
-        n_pages = (n_full - lo) * cfg.n_layers * 2
-        err = None
-        with self._sp_offload.of(rid=slot.work.req.request_id,
-                                 pages=n_pages,
-                                 nbytes=n_pages * self._page_bytes):
+        group = cfg.n_layers * 2  # store pages a pool page makes
+        n_pages = (n_full - lo) * group
+        nbytes = n_pages * self._page_bytes
+        rid = slot.work.req.request_id
+        job = err = None
+        queued = 0
+        t0 = time.perf_counter_ns()
+        with self._sp_offload.of(rid=rid, pages=n_pages, nbytes=nbytes):
             try:
                 sel = torch.as_tensor(slot.page_ids[lo:n_full],
                                       dtype=torch.long, device=self.device)
-                keys = []
-                for li in range(cfg.n_layers):
-                    for kind in ("k", "v"):
-                        keys.extend(content_page_keys([], 0, 0, li, kind,
-                                                      digests=new_digests))
+                by_kind = [content_page_keys([], 0, 0, li, kind,
+                                             digests=new_digests)
+                           for li in range(cfg.n_layers)
+                           for kind in ("k", "v")]
+                keys = [k for page in zip(*by_kind) for k in page]
                 with self._sp_gather:
                     pages = torch.stack([self.k_pages.index_select(1, sel),
                                          self.v_pages.index_select(1, sel)],
                                         dim=1)
                     if self.par is not None and self.par.split_heads:
                         pages = self.par.gather_heads(pages)
-                if self.par is None or self.par.leader:
-                    self._put_pages(keys,
-                                    pages.reshape(-1, *cfg.kv_page_shape()))
+                    # [L, 2, n, ...] -> page-major [n, L, 2, ...].
+                    pages = pages.movedim(2, 0).contiguous()
+                pages = pages.reshape(-1, *cfg.kv_page_shape())
+                if behind:
+                    queued = self._wait_offloads(OFFLOADS_IN_FLIGHT - 1)
+                    stage = getattr(self.store, "stage_pages", None)
+                    host = pages.cpu() if stage is None else stage(pages)
+                    run = group * max(1, OFFLOAD_RUN_BYTES
+                                      // (group * self._page_bytes))
+                    job = _Offload(keys, host, self._put_pages, run, rid,
+                                   n_full - lo, nbytes)
+                    if self._behind is None:
+                        self._behind = _WriteBehind(self.store)
+                    self._behind.submit(job)
+                elif self.par is None or self.par.leader:
+                    self._put_pages(keys, pages)
                     with self._sp_ack:
                         self.store.conn.sync()
-                    self.stats["offload_bytes"] += n_pages * self._page_bytes
+                    self.stats["offload_bytes"] += nbytes
             except Exception as e:
-                err = e
+                job, err = None, e
+        # Its own work: not the wait for room behind other offloads.
+        own = time.perf_counter_ns() - t0 - queued
+        self.stats["offload_n"] += 1
         self._fold_store_stats()
+        if job is not None:
+            # Counted in offload_ns when it comes back (_take_back).
+            job.step_ns = own
+            self.stats["offload_behind_n"] += 1
+            return
+        self.stats["offload_ns"] += own
         if self._agree(int(err is not None), largest=True):
             # The output does not depend on the offload; losing it only
             # costs future cache hits.
             self._store_failed("offload", err)
             return
         self.stats["offloaded_pages"] += n_full - lo
+
+    def _take_back(self, job):
+        """Count one offload the write-behind thread handed back."""
+        self._behind.in_flight -= 1
+        for k, v in job.stats.items():
+            self.stats[k] += v
+        if job.dropped:
+            return
+        self.stats["offload_ns"] += job.step_ns + job.work_ns
+        if job.err is not None:
+            if self._store_ok:
+                self._store_failed("offload", job.err)
+            return
+        self.stats["offload_bytes"] += job.nbytes
+        self.stats["offloaded_pages"] += job.pages
+
+    def _fold_offloads(self):
+        """Count the offloads the write-behind thread has handed back."""
+        wb = self._behind
+        if wb is None:
+            return
+        while True:
+            try:
+                job = wb.done.get_nowait()
+            except queue.Empty:
+                break
+            self._take_back(job)
+        self._fold_store_stats()
+
+    def _wait_offloads(self, most, counted=True):
+        """Take back offloads until at most ``most`` are in flight;
+        returns the nanoseconds waited. ``counted``: a wait of the step,
+        timed as ``engine.offload.room_wait``."""
+        wb = self._behind
+        if wb is None or wb.in_flight <= most:
+            return 0
+        t0 = time.perf_counter_ns()
+        with self._sp_room if counted else contextlib.nullcontext():
+            while wb.in_flight > most:
+                self._take_back(wb.done.get())
+        self._fold_offloads()
+        return time.perf_counter_ns() - t0
+
+    def drain(self):
+        """Wait until every offload handed to the write-behind thread is
+        acknowledged in the store (or has failed) and counted in
+        ``stats``. ``run()`` drains before it returns; a caller that
+        drives ``step()`` itself drains when it needs the pages there."""
+        self._wait_offloads(0, counted=False)
 
     def _release(self, slot_idx, slot):
         # [0, released) already went back when those pages left the
@@ -1049,15 +1263,29 @@ class ServingEngine:
         dead = (slot.seq_len - window) // self.cfg.page_size
         if dead <= slot.released:
             return
-        self._offload_full_pages(slot, hi=dead)  # best-effort
+        self._offload_full_pages(slot, hi=dead, behind=True)  # best-effort
         self.free_pages.extend(slot.page_ids[slot.released:dead])
         slot.released = dead
+
+    def _done(self, slot):
+        """The slot has its last token: at its budget or at the EOS."""
+        return slot.total_generated() >= slot.work.req.max_new_tokens or (
+            self.sc.eos_id >= 0 and bool(slot.generated)
+            and slot.generated[-1] == self.sc.eos_id
+        )
 
     def _finish(self, slot_idx, slot):
         self.outputs[slot.work.req.request_id] = (
             slot.work.done + slot.generated
         )
-        self._offload_full_pages(slot)
+        # Behind the step while there is other work for it to hold up:
+        # a request waiting or a slot that runs on. A finish that leaves
+        # the engine idle offloads synchronously, so the store holds
+        # every offloaded page whenever the engine idles.
+        busy = bool(self.queue) or any(
+            s is not None and s is not slot and not self._done(s)
+            for s in self.slots)
+        self._offload_full_pages(slot, behind=busy)
         self._release(slot_idx, slot)
 
     def _preempt(self, slot_idx, slot):
@@ -1081,6 +1309,7 @@ class ServingEngine:
         Returns the number of active slots decoded."""
         t0 = time.perf_counter_ns()
         try:
+            self._fold_offloads()
             return self._step()
         finally:
             self.stats["step_ns"] += time.perf_counter_ns() - t0
@@ -1107,11 +1336,7 @@ class ServingEngine:
         # Sequences at max_new_tokens finish BEFORE the step (their last
         # token never needs its KV appended).
         for i, s in list(active):
-            done = s.total_generated() >= s.work.req.max_new_tokens or (
-                self.sc.eos_id >= 0 and s.generated
-                and s.generated[-1] == self.sc.eos_id
-            )
-            if done:
+            if self._done(s):
                 self._finish(i, s)
         active = [
             (i, s) for i, s in enumerate(self.slots) if s is not None
@@ -1425,7 +1650,8 @@ class ServingEngine:
 
     def run(self, requests=()):
         """Submit ``requests``, drive the loop to completion, and return
-        {request_id: generated token list}."""
+        {request_id: generated token list}; every offload is acknowledged
+        in the store by then (:meth:`drain`)."""
         for r in requests:
             self.submit(r)
         while self.queue or any(s is not None for s in self.slots):
@@ -1451,4 +1677,5 @@ class ServingEngine:
                     f"pages than exist ({self.sc.total_pages - 1} usable); "
                     "completed outputs remain available in .outputs"
                 )
+        self.drain()
         return dict(self.outputs)

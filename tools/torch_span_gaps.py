@@ -17,8 +17,9 @@ and the server's spans on the torch clock. Prints one JSON line:
   benchmark's own timers around ``put_kv_pages`` and ``conn.sync()``;
 - ``gaps``: the ``--top`` longest stretches of the traced file in which
   no kernel or copy ran on the card, each with the innermost program
-  span, the innermost benchmark span and the server spans the host was
-  in;
+  span and the innermost benchmark span the step's thread was in, the
+  innermost span of any other thread (``behind``: the write-behind
+  thread's offload) and the server spans;
 - ``device_ops``: the device rows by time, and any that carries a
   program span's name (there should be none).
 
@@ -128,10 +129,17 @@ def read_file(path, top):
         return float(e["ts"]), float(e["ts"]) + float(e["dur"])
 
     dev = [e for e in events if e.get("cat") in DEVICE_CATS]
-    prog = [(e["name"], *iv(e)) for e in events
-            if e.get("cat") == "cpu_op" and program_span(e["name"])]
+    # The thread that runs engine.step; any other host thread's spans
+    # (the write-behind thread's) are reported apart.
+    step = {e.get("tid") for e in events if e.get("name") == "engine.step"}
+    spans = [e for e in events
+             if e.get("cat") == "cpu_op" and program_span(e["name"])]
+    prog = [(e["name"], *iv(e)) for e in spans if e.get("tid") in step]
+    behind = [(e["name"], *iv(e)) for e in spans
+              if e.get("tid") not in step]
     bench = [(e["name"], *iv(e)) for e in events
-             if e.get("name") in trace.SPANS and e.get("pid") != 1]
+             if e.get("name") in trace.SPANS and e.get("pid") != 1
+             and e.get("tid") in step]
     server = [(e["name"], *iv(e)) for e in events if e.get("pid") == 1]
     merged = _union(iv(e) for e in dev)
     by_name = {}
@@ -146,6 +154,7 @@ def read_file(path, top):
         out.append({
             "ms": g / 1e3, "program": _innermost(prog, mid) or "no span",
             "benchmark": _innermost(bench, mid) or "no span",
+            "behind": _innermost(behind, mid) or "no span",
             "server": sorted({n for n, s, e in server if s < b and e > a})})
     window = (merged[-1][1] - merged[0][0]) if merged else 0.0
     busy = sum(e - s for s, e in merged)
@@ -155,7 +164,8 @@ def read_file(path, top):
             "device_ops": [[n, v / 1e6] for n, v in ops[:top]],
             "program_names_on_device": sorted(
                 n for n in by_name if program_span(n)),
-            "program_spans": len(prog), "server_spans": len(server)}
+            "program_spans": len(prog), "behind_spans": len(behind),
+            "server_spans": len(server)}
 
 
 def span_totals(stats, seconds):
