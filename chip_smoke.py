@@ -36,12 +36,16 @@ Phases, in order; any failure exits non-zero before the result line:
    them, and hd 24, 48 and 192; each case's kernel_ms (eager) and
    graph_ms, its split plan, two launches byte-equal, and K2's graph_ms
    over the same pages dequantized, beside the byte bound.
-   3c. The decode graph's KV write (csrc/kv_write.cu, the fixed-shape
-   write a llama.DecodeGraph replays) against its plain version, byte for
-   byte, bf16 Mistral-7B rows over the Mistral cell's pool (8193 pages):
-   rows past the table, idle rows on scratch page 0, the pool's last
-   page, ids outside the pool, mixed, at batch 1 and 32; timed at batch
-   32 (kernel_ms, graph_ms) against its byte bound.
+   3c. The decode step's KV write (csrc/kv_write.cu, the fixed-shape
+   write every decode step makes, eager or replayed) against its plain
+   version, byte for byte, over the cells' pool (8193 pages), at the
+   rows the engines give it: Mistral-7B's (8 kv heads x 128, bf16),
+   Trinity-Mini's (4 x 128, bf16, also a tp = 2 slice), a tp = 2 and an
+   ep rank's at f32, a tp = 8 slice (1 x 128, bf16 and f32) and Gemma's
+   (16 x 256 and 1 x 256, bf16): rows past the table, idle rows on
+   scratch page 0, the pool's last page, ids outside the pool, mixed,
+   at batch 1 and 32; timed at batch 32 at Mistral-7B's rows (kernel_ms,
+   graph_ms) against its byte bound.
 4. The main path at Llama-3.1-8B width (random weights from a seed)
    through the port's own server on SHM: prefill 4 prompts streaming
    every layer's pages, find the prefix on a fresh connection, restore
@@ -149,7 +153,8 @@ Phases, in order; any failure exits non-zero before the result line:
     noise reading), 4 cold requests and 4 that regenerate them
     through prefix hits in the port's SHM store: TTFT, decode ms/step
     and the gloo all-reduce's ms per call (two ranks time-sharing one
-    card, not a multi-GPU reading), K1/K2 launches per rank, the
+    card, not a multi-GPU reading), K1/K2 and KV-write launches per
+    rank (a KV write a layer each decode step), the
     offloaded pages against a single-process engine's under the same
     keys (two planted faults read against the same bound), every
     request teacher-forced through a dense single-process prefill by
@@ -219,8 +224,9 @@ Phases, in order; any failure exits non-zero before the result line:
     same weights and the kernels' worst leaf error is held to
     DELTA_FACTOR x the plain leaves'.
 14. A JSON line of per-kernel numbers (six kernels and the decode
-    graph's KV write, phase 3c, launches from phase 6, with no mesh or
-    Gemma counts; K2's, K3's, K4's and the KV write's also carry graph_ms; K1's, K5's and K6's also carry "hd256":
+    step's KV write: phase 3c, its launches from phase 6, and the row
+    shapes phase 3c held; K2's, K3's, K4's and the KV write's also carry
+    graph_ms; K1's, K5's and K6's also carry "hd256":
     phases 2 and 8 at the Gemma-7B and Gemma-2B widths; tp_launches:
     launches on phase 10's path; parallel_launches: per rank on phase
     11's; mesh_launches: per rank on phase 12's; gemma_launches: on phase
@@ -868,15 +874,24 @@ def phase_decode_q(torch, pq, pd, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 3c: the decode graph's KV write
+# phase 3c: the decode step's KV write
 # ---------------------------------------------------------------------------
 
-# The Mistral-7B cell's pool and table (perfbench: 8193 pages of 16
-# tokens, 256 pages a sequence); its KV rows, 8 kv heads x 128, are
-# Llama-3.1-8B's too.
-KVW_PAGES, KVW_WIDTH, KVW_PAGE, KVW_HEADS, KVW_HD = 8193, 256, 16, 8, 128
+# The cells' pool and table (perfbench: 8193 pages of 16 tokens, 256
+# pages a sequence, in all three).
+KVW_PAGES, KVW_WIDTH, KVW_PAGE = 8193, 256, 16
 KVW_CASES = ("past_table", "idle_rows", "last_page", "ids_outside_pool",
              "mixed")
+# The rows the decode step writes (kv heads, hd, dtype): Mistral-7B's
+# and Llama-3.1-8B's (8 x 128), Trinity-Mini's (4 x 128, also a tp = 2
+# rank's slice of 8 kv heads), a tp = 2 rank's and an ep rank's at f32
+# (phases 10 and 12's f32 engines), a tp = 8 slice (one head), and
+# Gemma's hd 256 (gemma-7b: 16 x 256, gemma-2b: 1 x 256). The first is
+# the one timed.
+KVW_ROWS = (("mistral", 8, 128, "bfloat16"), ("trinity", 4, 128, "bfloat16"),
+            ("tp2_f32", 4, 128, "float32"), ("ep_f32", 8, 128, "float32"),
+            ("tp8", 1, 128, "bfloat16"), ("tp8_f32", 1, 128, "float32"),
+            ("gemma7b", 16, 256, "bfloat16"), ("gemma2b", 1, 256, "bfloat16"))
 
 
 def kv_write_case(torch, name, batch, gen):
@@ -904,67 +919,77 @@ def kv_write_case(torch, name, batch, gen):
 
 def phase_kv_write(torch, kw):
     """The fixed-shape KV write (csrc/kv_write.cu) against its plain
-    version on the card, byte for byte, at bf16 Mistral-7B rows over the
-    cell's pool, at batch 1 and 32; timed at batch 32 against its byte
-    bound. Returns the batch-32 row of the kernels line."""
-    say("== phase 3c: the decode graph's KV write vs plain ==")
-    shape = (KVW_PAGES, KVW_PAGE, KVW_HEADS, KVW_HD)
+    version on the card, byte for byte, at each of KVW_ROWS over the
+    cells' pool, at batch 1 and 32; timed at batch 32 at Mistral-7B's
+    rows against its byte bound. Returns the batch-32 row of the kernels
+    line."""
+    say("== phase 3c: the decode step's KV write vs plain ==")
     dgen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    pools = [torch.randn(shape, dtype=torch.bfloat16, device="cuda",
-                         generator=dgen) for _ in range(2)]
-    row = {}
+    row = {"rows": [r[0] for r in KVW_ROWS]}
     worst = 0.0
-    for batch in (1, 32):
-        for name in KVW_CASES:
-            gen = torch.Generator().manual_seed(
-                SEED + 100 * batch + KVW_CASES.index(name))
-            page, slot = (t.cuda() for t in kv_write_case(
-                torch, name, batch, gen))
-            k, v = (torch.randn(batch, 1, KVW_HEADS, KVW_HD,
-                                dtype=torch.bfloat16, device="cuda",
-                                generator=dgen) for _ in range(2))
-            want = [p.clone() for p in pools]
-            kw.kv_write_plain(*want, k, v, page, slot)
-            got = [p.clone() for p in pools]
-            before = kw.launches
-            kw.kv_write(*got, k, v, page, slot)
-            torch.cuda.synchronize()
-            same = all(torch.equal(g.view(torch.int16), w.view(torch.int16))
-                       for g, w in zip(got, want))
-            err = max(abs_err(g, w) for g, w in zip(got, want))
-            worst = max(worst, err)
-            pg = page.clone()
-            pg[pg < 0] += KVW_PAGES
-            landed = int(((pg >= 0) & (pg < KVW_PAGES)).sum())
-            say(f"kv_write {name} batch {batch}: {landed} of {batch} rows "
-                f"land, byte-equal to the plain version: {same}, one "
-                f"launch: {kw.launches == before + 1}")
-            check(same, f"kv_write differs from its plain version "
-                  f"({name}, batch {batch})")
-            check(kw.launches == before + 1, "kv_write launch count")
-            if name in ("past_table", "ids_outside_pool") and batch > 1:
-                check(landed < batch, f"{name} dropped no row")
-            del want, got
-    # Timed on the last case (mixed, batch 32), writing in place.
-    kp, vp = pools
+    for label, heads, hd, dtype in KVW_ROWS:
+        dt = getattr(torch, dtype)
+        bits = torch.int16 if dt.itemsize == 2 else torch.int32
+        shape = (KVW_PAGES, KVW_PAGE, heads, hd)
+        pools = [torch.randn(shape, dtype=dt, device="cuda", generator=dgen)
+                 for _ in range(2)]
+        for batch in (1, 32):
+            for name in KVW_CASES:
+                gen = torch.Generator().manual_seed(
+                    SEED + 100 * batch + KVW_CASES.index(name))
+                page, slot = (t.cuda() for t in kv_write_case(
+                    torch, name, batch, gen))
+                k, v = (torch.randn(batch, 1, heads, hd, dtype=dt,
+                                    device="cuda", generator=dgen)
+                        for _ in range(2))
+                want = [p.clone() for p in pools]
+                kw.kv_write_plain(*want, k, v, page, slot)
+                got = [p.clone() for p in pools]
+                before = kw.launches
+                kw.kv_write(*got, k, v, page, slot)
+                torch.cuda.synchronize()
+                same = all(torch.equal(g.view(bits), w.view(bits))
+                           for g, w in zip(got, want))
+                err = max(abs_err(g, w) for g, w in zip(got, want))
+                worst = max(worst, err)
+                pg = page.clone()
+                pg[pg < 0] += KVW_PAGES
+                landed = int(((pg >= 0) & (pg < KVW_PAGES)).sum())
+                say(f"kv_write {label} ({heads} x {hd} {dtype}) {name} "
+                    f"batch {batch}: {landed} of {batch} rows land, "
+                    f"byte-equal to the plain version: {same}, one launch: "
+                    f"{kw.launches == before + 1}")
+                check(same, f"kv_write differs from its plain version "
+                      f"({label}, {name}, batch {batch})")
+                check(kw.launches == before + 1, "kv_write launch count")
+                if name in ("past_table", "ids_outside_pool") and batch > 1:
+                    check(landed < batch, f"{name} dropped no row")
+                del want, got
+        if label != KVW_ROWS[0][0]:
+            del pools
+            torch.cuda.empty_cache()
+            continue
+        # Timed on the last case (mixed, batch 32), writing in place.
+        kp, vp = pools
 
-    def kernel():
-        kw.kv_write(kp, vp, k, v, page, slot)
+        def kernel():
+            kw.kv_write(kp, vp, k, v, page, slot)
 
-    ms = cuda_ms(torch, kernel, 200)
-    dev_ms = graph_ms(torch, kernel)
-    plain_ms = cuda_ms(torch, lambda: kw.kv_write_plain(kp, vp, k, v, page,
-                                                        slot), 5, warmup=1)
-    row_bytes = KVW_HEADS * KVW_HD * 2
-    nbytes = 2 * 2 * batch * row_bytes + 2 * batch * 8  # k, v read + write
-    bms, by = bound_ms(0, nbytes, PEAK_BF16)
-    say(f"kv_write batch {batch}: kernel_ms {ms:.5f} graph_ms "
-        f"{dev_ms:.5f} plain_ms {plain_ms:.4f} bound_ms {bms:.6f} ({by}: "
-        f"{nbytes} bytes)")
-    row.update(err=worst, ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
-               bound_ms=bms, bound_by=by)
-    del pools, kp, vp
-    torch.cuda.empty_cache()
+        ms = cuda_ms(torch, kernel, 200)
+        dev_ms = graph_ms(torch, kernel)
+        plain_ms = cuda_ms(torch, lambda: kw.kv_write_plain(
+            kp, vp, k, v, page, slot), 5, warmup=1)
+        row_bytes = heads * hd * dt.itemsize
+        nbytes = 2 * 2 * batch * row_bytes + 2 * batch * 8  # k, v r + w
+        bms, by = bound_ms(0, nbytes, PEAK_BF16)
+        say(f"kv_write {label} batch {batch}: kernel_ms {ms:.5f} graph_ms "
+            f"{dev_ms:.5f} plain_ms {plain_ms:.4f} bound_ms {bms:.6f} "
+            f"({by}: {nbytes} bytes)")
+        row.update(ms=ms, graph_ms=dev_ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by)
+        del pools, kp, vp
+        torch.cuda.empty_cache()
+    row["err"] = worst
     return row
 
 
@@ -990,6 +1015,7 @@ def phase_main(torch, np, report, params, cfg=None, model=None,
     from infinistore_tpu_torch.models import llama
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
+    from infinistore_tpu_torch.ops import paged_kv_write as kw
     from infinistore_tpu_torch.ops.paged_attention import (
         paged_decode_attention)
 
@@ -1034,6 +1060,7 @@ def phase_main(torch, np, report, params, cfg=None, model=None,
         tcuda.reset_copy_counters()
         fa.reset_launches()
         pd.reset_launches()
+        kw.reset_launches()
         n_prefills = 0
         n_steps = 0
 
@@ -1207,12 +1234,15 @@ def phase_main(torch, np, report, params, cfg=None, model=None,
         del full, tail
 
         # -- the path ran through both kernels --
-        k1, k2 = fa.launches, pd.launches
+        k1, k2, kv = fa.launches, pd.launches, kw.launches
         say(f"launches: flash_prefill {k1} (= {L} x {n_prefills} "
-            f"prefills), paged_decode {k2} (= {L} x {n_steps} steps)")
+            f"prefills), paged_decode {k2} (= {L} x {n_steps} steps), "
+            f"kv_write {kv} (the same)")
         check(k1 == L * n_prefills, "flash prefill launch count")
         check(k2 == L * n_steps, "paged decode launch count")
-        report["launches"] = {"flash_prefill": k1, "paged_decode": k2}
+        check(kv == L * n_steps, "kv_write launch count")
+        report["launches"] = {"flash_prefill": k1, "paged_decode": k2,
+                              "kv_write": kv}
 
         # ---- checks outside the counted run ----
         if hit_vs_plain:
@@ -1738,7 +1768,8 @@ def decode_graph_check(torch, llama, pd, kw, params, cfg):
     page 0, each fed the eager step's argmax. Each replayed step's
     logits bit-equal to the eager step's (a replay that skipped or
     misplaced a kernel would differ), the pools equal after the run, the
-    eager step launching no KV-write kernel, and a profiler started
+    eager step launching the KV-write kernel once a layer, as a replay
+    does, and a profiler started
     after the capture seeing each replay's K2 (paged_split_kernel) and
     KV write (kv_write_kernel) under their own names, L of each a step.
     Returns
@@ -1803,8 +1834,8 @@ def decode_graph_check(torch, llama, pd, kw, params, cfg):
     check(all(same), "a replayed decode step's logits differ from the "
           "eager step's")
     check(pools, "the pools differ after replayed and eager steps")
-    check(eager_kv == 0, "the eager decode step launched the KV-write "
-          "kernel")
+    check(eager_kv == L * n, f"the eager decode steps launched the "
+          f"KV-write kernel {eager_kv} times, not {L * n}")
     check(seen["paged_split"] == L * (n - 1)
           and seen["kv_write"] == L * (n - 1),
           f"the profiler saw {dict(seen)} in {n - 1} replays")
@@ -3448,11 +3479,12 @@ def phase_moe(torch, np, report):
             serve["launches"] = {"flash_prefill": k1, "paged_decode": k2,
                                  "paged_verify": k3}
             tot = {k: eng_a.stats[k] + eng_b.stats[k] for k in eng_a.stats}
-            # The routed decode step stays eager: no graph, no KV write.
-            check(kw.launches == 0 and tot["decode_graph_captures"] == 0
+            # The routed decode step stays eager (no graph) and writes its
+            # KV with the kernel, once a layer a step, as K2 attends.
+            check(kw.launches == k2 and tot["decode_graph_captures"] == 0
                   and tot["decode_graph_replays"] == 0,
-                  f"MoE serving replayed a decode graph (kv_write "
-                  f"{kw.launches}, {tot['decode_graph_replays']} replays)")
+                  f"MoE serving: kv_write {kw.launches} launches against "
+                  f"K2's {k2}, {tot['decode_graph_replays']} replays")
             for key in ("prefix_hit_pages", "spec_accepted", "chunk_steps",
                         "burst_steps"):
                 check(tot[key] > 0, f"MoE serving never exercised {key}")
@@ -4286,6 +4318,7 @@ def tp_rank(rank, dev, store_port, f32_modes, f32_ref):
     from infinistore_tpu_torch.ops import flash_attention as fa
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops import paged_kv_write as kw
     from infinistore_tpu_torch.parallel import mesh as pmesh
 
     lead = rank == 0
@@ -4350,6 +4383,7 @@ def tp_rank(rank, dev, store_port, f32_modes, f32_ref):
         fa.reset_launches()
         pd.reset_launches()
         pv.reset_launches()
+        kw.reset_launches()
         model.calls.clear()
         legs = {}
         cold = run_leg(torch, eng, "tp_cold", [
@@ -4365,7 +4399,8 @@ def tp_rank(rank, dev, store_port, f32_modes, f32_ref):
                    prompts=prompts, calls=dict(model.calls),
                    launches={"flash_prefill": fa.launches,
                              "paged_decode": pd.launches,
-                             "paged_verify": pv.launches},
+                             "paged_verify": pv.launches,
+                             "kv_write": kw.launches},
                    stats=dict(eng.stats), pool_heads=eng.k_pages.shape[3])
         del eng
     finally:
@@ -4391,6 +4426,7 @@ def tp_rank(rank, dev, store_port, f32_modes, f32_ref):
     fa.reset_launches()
     pd.reset_launches()
     pv.reset_launches()
+    kw.reset_launches()
     for name, sc in f32_modes.items():
         eng = serving.ServingEngine(fshards, fcfg,
                                     serving.ServingConfig(**sc), mesh=mesh,
@@ -4404,7 +4440,8 @@ def tp_rank(rank, dev, store_port, f32_modes, f32_ref):
     stage("f32 engines served")
     out["f32_launches"] = {"flash_prefill": fa.launches,
                            "paged_decode": pd.launches,
-                           "paged_verify": pv.launches}
+                           "paged_verify": pv.launches,
+                           "kv_write": kw.launches}
     del fshards
     gc.collect()
     torch.cuda.empty_cache()
@@ -4533,6 +4570,8 @@ def phase_tp(torch, np, pd, pq, gen, report):
                   and k["paged_decode"] > 0, "tp paged decode launch count")
             check(k["paged_verify"] == L * calls.get("verify_step", 0),
                   "tp paged verify launch count")
+            check(k["kv_write"] == L * calls.get("decode_step", 0),
+                  f"tp kv_write launch count {k['kv_write']}")
 
         # The single-process engine on the same cold requests, its own
         # store; then the same keys' pages from both stores.
@@ -4619,6 +4658,12 @@ def phase_tp(torch, np, pd, pq, gen, report):
         ck = lead["f32_launches"]
         check(ck["paged_verify"] > 0, "K3 launch count in the f32 tp "
               "engines: 0")
+        # Each decode step writes its KV once a layer, as K2 attends.
+        for r in ranks:
+            fk = r["f32_launches"]
+            check(fk["kv_write"] == fk["paged_decode"] > 0,
+                  f"f32 tp kv_write launches {fk['kv_write']} against K2's "
+                  f"{fk['paged_decode']}")
         report["f32"] = {name: lead["f32"][name][1] for name in f32_modes}
 
         # (d) FSDP.
@@ -4649,6 +4694,7 @@ def phase_tp(torch, np, pd, pq, gen, report):
             + eng_c["flash_prefill"] + k1,
             "paged_decode": eng_b["paged_decode"] + eng_c["paged_decode"],
             "paged_verify": eng_b["paged_verify"] + eng_c["paged_verify"],
+            "kv_write": eng_b["kv_write"] + eng_c["kv_write"],
             "paged_decode_q": sum(
                 v["launches"] for k, v in report["decode_slices"].items()
                 if k.startswith("paged_decode_q")),
@@ -5134,8 +5180,11 @@ def par_rank(rank, dev, store_port, sizes):
     checks."""
     import torch
 
+    from infinistore_tpu_torch.ops import paged_kv_write as kw
+
     out = {"rank": rank}
     t_rank = time.perf_counter()
+    kw.reset_launches()
     for name, leg in (("sp", lambda: par_sp(torch, dev, sizes, out)),
                       ("pp", lambda: par_pp(torch, dev, sizes, out)),
                       ("ep", lambda: par_ep(torch, dev, sizes, out)),
@@ -5146,6 +5195,7 @@ def par_rank(rank, dev, store_port, sizes):
         out[name]["leg_s"] = time.perf_counter() - t0
         say(f"  [rank {rank}] {name} done "
             f"({time.perf_counter() - t_rank:.1f} s)")
+    out["kv_write"] = kw.launches
     return out
 
 
@@ -5163,6 +5213,9 @@ def par_checks(ranks, sizes, report, on_card=True):
         check(sp["launches"] == sp["blocks_computed"],
               f"rank {rk}: the ring launched K1 {sp['launches']} times for "
               f"{sp['blocks_computed']} blocks")
+        # No leg makes a decode step, so none writes KV rows.
+        check(r["kv_write"] == 0,
+              f"rank {rk}: kv_write launched {r['kv_write']} times")
         check(pp["fwd_err"] <= TOL_REL["bfloat16"],
               f"rank {rk}: pipeline output {pp['fwd_err']}")
         check(pp["worst_leaf_rel"] <= PAR_TOL_GRAD,
@@ -5294,7 +5347,8 @@ MESH_FAULT_PROMPT = 3  # (b): the 512-token request, the planted fault's
 MESH_SEEDS = dict(int8=SEED + 20, tp_moe=SEED + 21, ep_moe=SEED + 22,
                   f32=SEED + 23)
 MESH_KERNELS = ("flash_prefill", "paged_decode", "paged_verify",
-                "paged_decode_q", "flash_bwd_dq", "flash_bwd_dkv")
+                "paged_decode_q", "flash_bwd_dq", "flash_bwd_dkv",
+                "kv_write")
 
 
 def mesh_prompts(np, vocab, seed, lengths=TP_PROMPTS):
@@ -5366,13 +5420,15 @@ def mesh_rank(rank, dev, ports, n_new):
     from infinistore_tpu_torch.ops import paged_flash_decode as pd
     from infinistore_tpu_torch.ops import paged_flash_decode_q as pq
     from infinistore_tpu_torch.ops import paged_flash_verify as pv
+    from infinistore_tpu_torch.ops import paged_kv_write as kw
     from infinistore_tpu_torch.parallel import mesh as pmesh
 
     lead = rank == 0
     t_rank = time.perf_counter()
     counters = dict(zip(MESH_KERNELS, (
         (fa, "launches"), (pd, "launches"), (pv, "launches"),
-        (pq, "launches"), (fa, "dq_launches"), (fa, "dkv_launches"))))
+        (pq, "launches"), (fa, "dq_launches"), (fa, "dkv_launches"),
+        (kw, "launches"))))
     launched = collections.Counter()
 
     def counts():
@@ -5414,7 +5470,7 @@ def mesh_rank(rank, dev, ports, n_new):
         return [serving.Request(f"{tag}{i}", p, max_new_tokens=n)
                 for i, p in enumerate(prompts)]
 
-    for m in (fa, pd, pv, pq):
+    for m in (fa, pd, pv, pq, kw):
         m.reset_launches()
     cfgs = mesh_configs(hf, llama)
     tmesh = pmesh.make_mesh(pmesh.MeshConfig(dp=1, tp=MESH_RANKS), "cuda",
@@ -5901,6 +5957,11 @@ def mesh_checks(ranks, cfgs, report):
                      "flash_bwd_dq", "flash_bwd_dkv"):
             check(k.get(name, 0) > 0, f"rank {r}: {name} never launched on "
                   f"phase 12's path")
+        # Each decode step of every leg writes its KV once a layer, as K2
+        # attends (only decode steps launch either).
+        check(k.get("kv_write", 0) == k["paged_decode"],
+              f"rank {r}: kv_write launches {k.get('kv_write', 0)} against "
+              f"K2's {k['paged_decode']} on phase 12's path")
     n_layers = cfgs["f32_moe"].n_layers
     for r in ranks:
         k = r["d"]["train"]["launches"]
@@ -5950,9 +6011,10 @@ GEMMA_TRAIN_STEPS = 2
 # grow with depth (the 18-layer gap is printed beside it as a reading,
 # and each path's gap to an f32 reference is held by gemma_f32_gaps).
 GEMMA_SEEDS = dict(serve=SEED + 13, train=SEED + 14, parity=SEED + 15)
-# K1 at hd 256 (MHA and group 8), K2 at hd 256, K5 and K6 at hd 256.
+# K1 at hd 256 (MHA and group 8), K2 and the KV write at hd 256, K5 and
+# K6 at hd 256.
 GEMMA_KERNELS = ("flash_prefill", "paged_decode", "flash_bwd_dq",
-                 "flash_bwd_dkv")
+                 "flash_bwd_dkv", "kv_write")
 
 
 def gemma_config(hf, fields, **cut):
@@ -6139,6 +6201,7 @@ def phase_gemma(torch, np, report):
     launches["flash_prefill"] = (serve_launches["flash_prefill"]
                                  + train_launches["flash_prefill"])
     launches["paged_decode"] = serve_launches["paged_decode"]
+    launches["kv_write"] = serve_launches["kv_write"]
     launches["flash_bwd_dq"] = train_launches["flash_bwd_dq"]
     launches["flash_bwd_dkv"] = train_launches["flash_bwd_dkv"]
     say(f"launches on phase 13's path, all at hd 256: {launches} (serving "
@@ -6302,24 +6365,8 @@ def main():
             # Phase 8's Gemma-7B and Gemma-2B widths (library_ms: one
             # SDPA backward).
             "hd256": {w: r[key] for w, r in bwd["hd256"].items()}})
-    par_counts = dict(zip(("flash_prefill", "flash_bwd_dq",
-                           "flash_bwd_dkv"),
-                          zip(*par_report["launches"])))
-    for row in kernels:
-        row["tp_launches"] = tp_report["tp_launches"][row["name"]]
-        # Per rank, on phase 11's path (K2-K4 are not on it).
-        row["parallel_launches"] = list(par_counts.get(
-            row["name"], [0] * PAR_RANKS))
-        # Per rank, on phase 12's path (K4 is not on it).
-        row["mesh_launches"] = [r.get(row["name"], 0)
-                                for r in mesh_report["launches"]]
-        # On phase 13's path, every launch at hd 256 (K3 and K4 are not
-        # on it).
-        row["gemma_launches"] = gemma_report["launches"].get(row["name"],
-                                                             0)
-    # The decode graph's KV write replaces no TPU kernel (the JAX package
-    # writes with XLA's scatter); only single-device engines replay it,
-    # so it has no launches on the mesh and Gemma paths.
+    # The decode step's KV write replaces no TPU kernel (the JAX package
+    # writes with XLA's scatter); its launches are phase 6's.
     kernels.append({
         "name": "kv_write", "route": "cuda",
         "source": "infinistore_tpu_torch/csrc/kv_write.cu",
@@ -6329,7 +6376,23 @@ def main():
         "max_abs_err": kvw["err"], "ms": kvw["ms"],
         "graph_ms": kvw["graph_ms"], "plain_ms": kvw["plain_ms"],
         "bound_ms": kvw["bound_ms"], "bound_by": kvw["bound_by"],
-        "library_ms": None})
+        "library_ms": None, "rows": kvw["rows"]})
+    par_counts = dict(zip(("flash_prefill", "flash_bwd_dq",
+                           "flash_bwd_dkv"),
+                          zip(*par_report["launches"])))
+    for row in kernels:
+        row["tp_launches"] = tp_report["tp_launches"][row["name"]]
+        # Per rank, on phase 11's path (K2-K4 and the KV write are not
+        # on it).
+        row["parallel_launches"] = list(par_counts.get(
+            row["name"], [0] * PAR_RANKS))
+        # Per rank, on phase 12's path (K4 is not on it).
+        row["mesh_launches"] = [r.get(row["name"], 0)
+                                for r in mesh_report["launches"]]
+        # On phase 13's path, every launch at hd 256 (K3 and K4 are not
+        # on it).
+        row["gemma_launches"] = gemma_report["launches"].get(row["name"],
+                                                             0)
     main_path = {k: v for k, v in report.items()
                  if k not in ("k2", "launches")}
     say("main path: " + json.dumps(main_path))

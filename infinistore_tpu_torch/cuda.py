@@ -25,8 +25,8 @@ memory and the pool blocks, with no host staging.
   to its key's primary shard only (``allocate`` + ``write_cache`` are
   primary-routed, as in the JAX package).
 - **int8 pages** (``put_kv_pages_quantized`` / ``get_kv_pages_quantized``):
-  quantized and packed on the device (``ops/kv_quant.py``), then the same
-  copies as raw pages, on both paths.
+  quantized and packed on the device (``ops/kv_quant.py``), then put as
+  raw pages of the packed size.
 - **LayerStreamer**: per-layer offload overlapped with compute — the
   layer's device->host copy runs on a side stream behind an event, and
   an upload thread waits on that event.
@@ -476,24 +476,11 @@ class CudaKVStore:
     def put_kv_pages_quantized(self, keys, pages, sync=False):
         """Store pages [n_pages, page, n_kv, hd] int8-quantized (about
         half the bytes of bf16; see ``ops/kv_quant.py``). Quantizing and
-        packing run on the pages' device; on SHM the packed rows are
-        copied straight into the pool, as :meth:`put_kv_pages` copies
-        raw pages. Read back with :meth:`get_kv_pages_quantized`."""
-        n = pages.shape[0]
-        if n != len(keys):
-            raise ValueError("len(keys) must equal pages.shape[0]")
-        block = kv_quant.packed_page_bytes(tuple(pages.shape[1:]))
+        packing run on the pages' device; the packed pages, uint8
+        [n_pages, packed bytes], go through :meth:`put_kv_pages`. Read
+        back with :meth:`get_kv_pages_quantized`."""
         packed = kv_quant.pack_pages(*kv_quant.quantize_kv_pages(pages))
-        with self._spans().allocate.of(pages=n, nbytes=n * block):
-            blocks = self.conn.allocate(keys, block)
-        try:
-            self._write_pages(packed.reshape(-1), blocks, block, keys)
-        except BaseException:
-            _abort_uncommitted(self.conn, blocks, keys)
-            raise
-        if sync:
-            self.conn.sync()
-        return blocks
+        return self.put_kv_pages(keys, packed, sync)
 
     def get_kv_pages_quantized_raw(self, keys, page_shape, device=None):
         """Fetch int8-quantized pages without dequantizing: (int8

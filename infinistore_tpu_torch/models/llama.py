@@ -25,9 +25,10 @@ biases (``models.afmoe`` uses them all).
 
 ``decode_step(..., graph=DecodeGraph())`` replays the dense
 single-device step on the card as one CUDA graph (the JAX package gets
-the same from ``jit``): the same kernels on the same data, with the KV
-write of ``ops.paged_kv_write`` (a fixed shape) in place of the eager
-scatter, whose ``torch.nonzero`` a graph cannot hold.
+the same from ``jit``): the same kernels on the same data. Every
+decode step, eager or replayed, writes its KV through
+``ops.paged_kv_write`` (a fixed shape, no host sync); ``verify_step``'s
+m-token write keeps ``drop_mode_rows`` + ``scatter_rows``.
 
 Int8 weight-only quantization (``quantize_params``,
 ``init_params_quantized``): every 2-D matmul weight becomes an
@@ -585,11 +586,10 @@ def decode_step(params, cfg: LlamaConfig, token, seq_lens, k_pages, v_pages,
 
 
 def _decode(params, cfg, token, seq_lens, k_pages, v_pages, page_table,
-            ffn=None, tp=None, fixed_write=False):
-    """The body of :func:`decode_step`. ``fixed_write``: the KV write of
-    ``ops.paged_kv_write`` (a fixed shape, no host sync: what a CUDA graph
-    can hold) in place of ``drop_mode_rows`` + ``scatter_rows``; both
-    drop the same targets and write the same rows."""
+            ffn=None, tp=None):
+    """The body of :func:`decode_step`, eager or captured: each layer's
+    new k and v rows go to the pools through ``ops.paged_kv_write`` (a
+    fixed shape, no host sync)."""
     disable_tf32()
     final_ln = _tp_begin(params, cfg, tp)
     b = token.shape[0]
@@ -601,30 +601,15 @@ def _decode(params, cfg, token, seq_lens, k_pages, v_pages, page_table,
     target_page = page_table.gather(
         1, page_idx.clamp(max=page_table.shape[1] - 1)[:, None])[:, 0]
     # A position past the table has no page: aim it outside the pool so
-    # the scatter drops it.
+    # the write drops it.
     target_page = torch.where(in_table, target_page.long(), n_pages)
-    slot = seq_lens % cfg.page_size
+    slot = (seq_lens % cfg.page_size).long()
     lens = (seq_lens + 1).to(torch.int32)
-    if fixed_write:
-        slot = slot.long()
-
-        def write(li, k, v):
-            write_kv_rows(k_pages[li], v_pages[li], k, v, target_page, slot)
-    else:
-        # Every layer writes the same (page, slot): find the targets once
-        # (the scatter drops those outside the pool, as JAX's mode="drop").
-        entries, rows = drop_mode_rows(target_page[:, None], slot[:, None],
-                                       n_pages, cfg.page_size)
-
-        def write(li, k, v):
-            scatter_rows(k_pages[li], k, entries, rows)
-            scatter_rows(v_pages[li], v, entries, rows)
-
     kinds = layer_kinds(cfg)
     for li, layer in enumerate(_layers(params, tp)):
         window, rope_on = kinds[li]
         q, k, v, h = _qkv(layer, x, cfg, positions, tp, rope_on)
-        write(li, k, v)
+        write_kv_rows(k_pages[li], v_pages[li], k, v, target_page, slot)
         attn = decode_attention(q[:, 0].contiguous(), k_pages[li],
                                 v_pages[li], page_table, lens,
                                 window=window)
@@ -654,8 +639,7 @@ class DecodeGraph:
     ``decode_step(..., graph=)``. The graph holds the whole step (embed,
     every layer's q/k/v, KV write, K2, output projection and MLP, the
     final norm and the logits): the eager step's kernels in its order, on
-    its data, but with the KV write of ``ops.paged_kv_write`` (a fixed
-    shape, no host sync). A call copies ``token``, ``seq_lens`` and
+    its data. A call copies ``token``, ``seq_lens`` and
     ``page_table`` into the graph's static inputs and replays; weights
     and pools are read where they lay at capture, so the step is captured
     anew whenever a leaf's or a pool's address, an input's shape or dtype,
@@ -712,7 +696,7 @@ class DecodeGraph:
         def body():
             token, seq_lens, page_table = static
             return _decode(params, cfg, token, seq_lens, k_pages, v_pages,
-                           page_table, fixed_write=True)[0]
+                           page_table)[0]
 
         before = [m.launches for m in self.COUNTED]
         try:

@@ -6,8 +6,9 @@ pools, with JAX's scatter ``mode="drop"``: a page or slot in [-size, -1]
 wraps, any other outside the pool writes nothing, and of rows that land
 on one target the last writes. ``paged_attention.drop_mode_rows`` +
 ``scatter_rows`` do the same with a ``torch.nonzero`` (a host sync, and a
-shape that depends on the data); this write has neither, so a CUDA graph
-can hold it (``models.llama.DecodeGraph``). :func:`kv_write_plain` is its
+shape that depends on the data); this write has neither, so every
+decode step takes it, and a CUDA graph can hold it
+(``models.llama.DecodeGraph``). :func:`kv_write_plain` is its
 plain version, which the CPU tests hold to ``drop_mode_rows`` +
 ``scatter_rows``; :func:`write_kv_rows` takes it for CPU tensors only.
 """

@@ -33,11 +33,11 @@ uncached tail, decode all slots in lockstep, offload finished pages.
   (``engine.decode``: ``engine.decode.dispatch`` queues the step's
   kernels, ``engine.decode.wait`` waits for its tokens) and offload
   (``engine.offload``, the step's own part, counted as ``offload_step``:
-  ``engine.offload.gather``, the store's put spans and
-  ``engine.offload.ack``, or, behind the step, the staging and
-  ``engine.offload.room_wait``; on the write-behind thread
-  ``engine.offload.write`` around the put and ``engine.offload.ack``)
-  each add ``<key>_ns`` / ``<key>_n``
+  ``engine.offload.gather``, then either ``engine.offload.write`` or,
+  behind the step, the staging and ``engine.offload.room_wait``;
+  ``engine.offload.write``, on the step's thread or on the write-behind
+  thread, holds the store's put spans and each run's
+  ``engine.offload.ack``) each add ``<key>_ns`` / ``<key>_n``
   (:class:`~infinistore_tpu_torch.utils.profiling.Span`; under a torch
   profiler also ranges with the request id); the store's own span
   counters are folded in after each store call; ``queue_wait_*``,
@@ -428,33 +428,53 @@ def _checksum(x, shape=None, offsets=None):
 
 
 class _Offload:
-    """One offload handed to the write-behind thread: its keys and host
-    pages (page-major), the put to make and the keys a run puts, what
-    the engine counts once it is back, and what came back (the thread's
-    time, its span increments, an error, or ``dropped`` after an earlier
-    failure)."""
+    """One offload: its keys and pages (page-major; host pages behind the
+    step, the pool's gathered pages when it waits), the put to make and
+    the keys a run puts, what the engine counts once it is back, and
+    what came back (the step's and the write's time, the write's span
+    increments, an error, or ``dropped`` after an earlier failure)."""
 
     __slots__ = ("keys", "host", "put", "run", "rid", "pages", "nbytes",
                  "step_ns", "work_ns", "stats", "err", "dropped")
 
-    def __init__(self, keys, host, put, run, rid, pages, nbytes):
-        self.keys, self.host, self.put, self.run = keys, host, put, run
-        self.rid, self.pages, self.nbytes = rid, pages, nbytes
-        self.step_ns = self.work_ns = 0
+    def __init__(self, put, rid, pages, nbytes):
+        self.put, self.rid, self.pages, self.nbytes = put, rid, pages, nbytes
+        self.keys = self.host = None
+        self.run = self.step_ns = self.work_ns = 0
         self.stats, self.err, self.dropped = {}, None, False
+
+    def write(self, store):
+        """Write the offload in runs of ``run`` keys: ``put(keys, pages)``
+        (allocate and send), then ``store.conn.sync()`` (the ack), then
+        the next run. Records an error and the time on the job, the spans
+        ``engine.offload.write`` and ``engine.offload.ack`` in its
+        ``stats``, and lets go of the pages."""
+        write = Span(self.stats, "engine.offload.write", "offload_write")
+        ack = Span(self.stats, "engine.offload.ack", "offload_ack")
+        t0 = time.perf_counter_ns()
+        try:
+            with write.of(rid=self.rid, pages=len(self.keys),
+                          nbytes=self.nbytes):
+                for a in range(0, len(self.keys), self.run):
+                    self.put(self.keys[a:a + self.run],
+                             self.host[a:a + self.run])
+                    with ack:
+                        store.conn.sync()
+        except Exception as e:
+            self.err = e
+        finally:
+            self.host = None
+            self.work_ns = time.perf_counter_ns() - t0
 
 
 class _WriteBehind:
     """An engine's write-behind thread. It writes the offloads handed to
-    it in order, in runs of whole pages: ``put(keys, host pages)``
-    (allocate and send), then ``store.conn.sync()`` (the ack), then the
-    next run; then it lets go of the host pages and hands the offload
-    back on ``done``. After a failure it writes nothing more:
-    later offloads come back dropped. The thread runs while offloads
-    wait and ends when none does; it is a daemon, and a connection closed
-    under it ends it through the error. It writes nothing of the
-    engine's: its spans count into its own dict, whose increments ride
-    back on each offload, and the engine's thread folds them."""
+    it in order (:meth:`_Offload.write`) and hands each back on ``done``.
+    After a failure it writes nothing more: later offloads come back
+    dropped. The thread runs while offloads wait and ends when none does;
+    it is a daemon, and a connection closed under it ends it through the
+    error. It writes nothing of the engine's: each offload carries its
+    own span counts back, and the engine's thread adds them."""
 
     def __init__(self, store):
         self.store = store
@@ -464,10 +484,6 @@ class _WriteBehind:
         self._lock = threading.Lock()
         self._thread = None
         self._failed = False
-        self._stats = {}
-        self._sp_write = Span(self._stats, "engine.offload.write",
-                              "offload_write")
-        self._sp_ack = Span(self._stats, "engine.offload.ack", "offload_ack")
 
     def submit(self, job):
         with self._lock:
@@ -490,30 +506,14 @@ class _WriteBehind:
                     self._thread = None
                     return
                 job = self._jobs.popleft()
-            self._write(job)
-
-    def _write(self, job):
-        seen = dict(self._stats)
-        t0 = time.perf_counter_ns()
-        try:
-            if self._failed:
-                job.dropped = True
-            else:
-                with self._sp_write.of(rid=job.rid, pages=len(job.keys),
-                                       nbytes=job.nbytes):
-                    for a in range(0, len(job.keys), job.run):
-                        job.put(job.keys[a:a + job.run],
-                                job.host[a:a + job.run])
-                        with self._sp_ack:
-                            self.store.conn.sync()
-        except Exception as e:
-            job.err = e
-            self._failed = True
-        finally:
-            job.host = None
-            job.work_ns = time.perf_counter_ns() - t0
-            job.stats = {k: v - seen[k] for k, v in self._stats.items()}
-            self.done.put(job)
+            try:
+                if self._failed:
+                    job.dropped, job.host = True, None
+                else:
+                    job.write(self.store)
+                    self._failed = job.err is not None
+            finally:
+                self.done.put(job)
 
 
 class ServingEngine:
@@ -619,6 +619,7 @@ class ServingEngine:
             "decode_graph_captures": 0, "decode_graph_replays": 0,
             "offload_ns": 0, "offload_n": 0, "offload_behind_n": 0,
             "offload_write_ns": 0, "offload_write_n": 0,
+            "offload_ack_ns": 0, "offload_ack_n": 0,
         }
         # The single-token decode step replayed as one CUDA graph, where
         # this engine can hold one (_decode_graph).
@@ -642,7 +643,6 @@ class ServingEngine:
                                 "offload_step")
         self._sp_gather = Span(self.stats, "engine.offload.gather",
                                "offload_gather")
-        self._sp_ack = Span(self.stats, "engine.offload.ack", "offload_ack")
         self._sp_room = Span(self.stats, "engine.offload.room_wait",
                              "offload_room_wait")
         # The write-behind thread (_WriteBehind), made at its first use.
@@ -1099,22 +1099,23 @@ class ServingEngine:
         partial tail pages would poison page-granular prefix matching —
         and not [0, cached_pages) (the store has them) nor [0, released)
         (offloaded when they left the window). The pages go page-major,
-        each page's every (layer, kind) together: one batched put, then
-        ``conn.sync()``.
+        each page's every (layer, kind) together, as one
+        :class:`_Offload`, which puts them and waits for the ack.
 
         With ``behind`` (finish and windowed release while the engine
         has other work) the gathered pages are staged to host memory and
-        handed to the write-behind thread, which puts them and waits for
-        the ack, a run of whole pages at a time (OFFLOAD_RUN_BYTES); the
-        pool pages are free once this returns, and a probe misses a page
-        until its run is acknowledged. Otherwise
-        (preemption; always under a mesh, whose ranks agree on the
-        outcome, and on the int8 wire, whose put quantizes on the
-        device) the offload waits for those in flight, then for its own
-        ack: the pages are durable in the store before their pool pages
-        can be reused. Under tp the kv heads are gathered and tp rank 0
-        puts the whole pages (under ep ep rank 0 puts its own, whole);
-        the ranks' agreement on the outcome waits for its sync."""
+        the offload is handed to the write-behind thread, which writes it
+        a run of whole pages at a time (OFFLOAD_RUN_BYTES); the pool
+        pages are free once this returns, and a probe misses a page until
+        its run is acknowledged. Otherwise (preemption; always under a
+        mesh, whose ranks agree on the outcome, and on the int8 wire,
+        whose put quantizes on the device) the offload waits for those in
+        flight, then the step's thread writes it from the pool's pages in
+        one run: the pages are durable in the store before their pool
+        pages can be reused. Under tp the kv heads are gathered and tp
+        rank 0 puts the whole pages (under ep ep rank 0 puts its own,
+        whole); the ranks' agreement on the outcome waits for its
+        sync."""
         behind = (behind and self.par is None
                   and not self.sc.quantized_store)
         if not behind:
@@ -1134,8 +1135,11 @@ class ServingEngine:
         n_pages = (n_full - lo) * group
         nbytes = n_pages * self._page_bytes
         rid = slot.work.req.request_id
-        job = err = None
-        queued = 0
+        leader = self.par is None or self.par.leader
+        # Its bytes: those this rank puts.
+        job = _Offload(self._put_pages, rid, n_full - lo,
+                       nbytes if leader else 0)
+        queued, submitted = 0, False
         t0 = time.perf_counter_ns()
         with self._sp_offload.of(rid=rid, pages=n_pages, nbytes=nbytes):
             try:
@@ -1145,7 +1149,7 @@ class ServingEngine:
                                              digests=new_digests)
                            for li in range(cfg.n_layers)
                            for kind in ("k", "v")]
-                keys = [k for page in zip(*by_kind) for k in page]
+                job.keys = [k for page in zip(*by_kind) for k in page]
                 with self._sp_gather:
                     pages = torch.stack([self.k_pages.index_select(1, sel),
                                          self.v_pages.index_select(1, sel)],
@@ -1154,51 +1158,46 @@ class ServingEngine:
                         pages = self.par.gather_heads(pages)
                     # [L, 2, n, ...] -> page-major [n, L, 2, ...].
                     pages = pages.movedim(2, 0).contiguous()
-                pages = pages.reshape(-1, *cfg.kv_page_shape())
+                job.host = pages.reshape(-1, *cfg.kv_page_shape())
                 if behind:
                     queued = self._wait_offloads(OFFLOADS_IN_FLIGHT - 1)
                     stage = getattr(self.store, "stage_pages", None)
-                    host = pages.cpu() if stage is None else stage(pages)
-                    run = group * max(1, OFFLOAD_RUN_BYTES
-                                      // (group * self._page_bytes))
-                    job = _Offload(keys, host, self._put_pages, run, rid,
-                                   n_full - lo, nbytes)
+                    job.host = (job.host.cpu() if stage is None
+                                else stage(job.host))
+                    job.run = group * max(1, OFFLOAD_RUN_BYTES
+                                          // (group * self._page_bytes))
                     if self._behind is None:
                         self._behind = _WriteBehind(self.store)
                     self._behind.submit(job)
-                elif self.par is None or self.par.leader:
-                    self._put_pages(keys, pages)
-                    with self._sp_ack:
-                        self.store.conn.sync()
-                    self.stats["offload_bytes"] += nbytes
+                    submitted = True
+                else:
+                    job.run = n_pages  # one put, one ack
             except Exception as e:
-                job, err = None, e
-        # Its own work: not the wait for room behind other offloads.
-        own = time.perf_counter_ns() - t0 - queued
+                job.err = e
+            # Its own work: not the wait for room behind other offloads,
+            # nor the write (the job's work_ns).
+            job.step_ns = time.perf_counter_ns() - t0 - queued
+            if not behind and job.err is None and leader:
+                job.write(self.store)
         self.stats["offload_n"] += 1
         self._fold_store_stats()
-        if job is not None:
-            # Counted in offload_ns when it comes back (_take_back).
-            job.step_ns = own
+        if submitted:
             self.stats["offload_behind_n"] += 1
-            return
-        self.stats["offload_ns"] += own
-        if self._agree(int(err is not None), largest=True):
-            # The output does not depend on the offload; losing it only
-            # costs future cache hits.
-            self._store_failed("offload", err)
-            return
-        self.stats["offloaded_pages"] += n_full - lo
+        else:
+            self._take_back(job)
 
     def _take_back(self, job):
-        """Count one offload the write-behind thread handed back."""
-        self._behind.in_flight -= 1
+        """Count one offload, written behind the step or waited for. Its
+        outcome is what the ranks of the mesh's inner dim agree on (only
+        a waited offload has a mesh)."""
         for k, v in job.stats.items():
             self.stats[k] += v
         if job.dropped:
             return
         self.stats["offload_ns"] += job.step_ns + job.work_ns
-        if job.err is not None:
+        if self._agree(int(job.err is not None), largest=True):
+            # The output does not depend on the offload; losing it only
+            # costs future cache hits.
             if self._store_ok:
                 self._store_failed("offload", job.err)
             return
@@ -1215,6 +1214,7 @@ class ServingEngine:
                 job = wb.done.get_nowait()
             except queue.Empty:
                 break
+            wb.in_flight -= 1
             self._take_back(job)
         self._fold_store_stats()
 
@@ -1228,7 +1228,9 @@ class ServingEngine:
         t0 = time.perf_counter_ns()
         with self._sp_room if counted else contextlib.nullcontext():
             while wb.in_flight > most:
-                self._take_back(wb.done.get())
+                job = wb.done.get()
+                wb.in_flight -= 1
+                self._take_back(job)
         self._fold_offloads()
         return time.perf_counter_ns() - t0
 

@@ -1,27 +1,33 @@
-"""The decode step's fixed-shape KV write and the decode graph's plumbing,
-on the CPU.
+"""The decode step's one KV write and the decode graph's plumbing, on the
+CPU.
 
 ``ops.paged_kv_write.kv_write_plain`` (the plain version of the CUDA
-write a ``llama.DecodeGraph`` captures) against ``drop_mode_rows`` +
-``scatter_rows`` (the eager step's write): the same rows land, the same
-are dropped, and of rows that share a target the last writes. The
-decode body with either write gives the same logits and pools;
-``decode_step(..., graph=)`` on CPU tensors takes the eager step; and an
-engine holds a graph only on a card, with no mesh, for a family that
-offers one. ``kv_write_plain`` is also held to the JAX package's own
-drop-mode write (``scatter_kv_to_pages``) on the same pools, rows and
-targets. The CUDA kernel itself, and the graph against the eager step,
-are checked on the card by ``chip_smoke.py`` (phases 3c and 6) and
+write every decode step makes, eager or captured by a
+``llama.DecodeGraph``) against ``drop_mode_rows`` + ``scatter_rows``
+(``verify_step``'s write): the same rows land, the same are dropped,
+and of rows that share a target the last writes. ``kv_write_plain`` is
+also held to the JAX package's own drop-mode write
+(``scatter_kv_to_pages``) on the same pools, rows and targets, and the
+port's ``decode_step`` (llama and moe, with and without a window) to the
+JAX package's on the same weights and inputs. ``decode_step(...,
+graph=)`` on CPU tensors takes the eager step; and an engine holds a
+graph only on a card, with no mesh, for a family that offers one. The
+CUDA kernel itself, and the graph against the eager step, are checked
+on the card by ``chip_smoke.py`` (phases 3c and 6) and
 ``tools/torch_decode_graph_ab.py``."""
 
+import dataclasses
 import os
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from infinistore_tpu.models import llama as jl
+from infinistore_tpu.models import moe as jm
 from infinistore_tpu.ops import paged_attention as jpa
 from infinistore_tpu_torch import serving
 from infinistore_tpu_torch.models import llama, moe
@@ -30,6 +36,9 @@ from infinistore_tpu_torch.ops.paged_attention import (drop_mode_rows,
                                                        scatter_rows)
 
 N_PAGES, PAGE, N_KV, HD, WIDTH = 9, 4, 2, 8, 3
+# The port's f32 decode step against the JAX package's: the tolerance of
+# the two packages' dense and paged parity tests (test_torch_llama.py).
+TOL = 2e-4
 
 
 def _targets(page_table, seq_lens):
@@ -73,7 +82,7 @@ CASES = ("past_table", "inactive", "last_page", "ids_outside_pool",
 
 @pytest.mark.parametrize("batch", (1, 32))
 @pytest.mark.parametrize("name", CASES)
-def test_fixed_write_matches_drop_mode_scatter(name, batch):
+def test_kv_write_matches_drop_mode_scatter(name, batch):
     gen = torch.Generator().manual_seed(CASES.index(name) * 100 + batch)
     table, lens = _case(name, batch, gen)
     page, slot = _targets(table, lens)
@@ -101,7 +110,7 @@ def test_fixed_write_matches_drop_mode_scatter(name, batch):
 
 @pytest.mark.parametrize("batch", (1, 32))
 @pytest.mark.parametrize("name", CASES)
-def test_fixed_write_matches_jax_drop_mode(name, batch):
+def test_kv_write_matches_jax_drop_mode(name, batch):
     """kv_write_plain against the JAX package's scatter (mode="drop") on
     the same pools, rows and targets, negative wraps and ids outside the
     pool among them. JAX leaves the order of rows that share a target
@@ -168,18 +177,48 @@ def _step_inputs(cfg, batch, gen):
     return token, lens, pools, table
 
 
+def _numpy_tree(jparams):
+    return jax.tree_util.tree_map(np.asarray, jparams)
+
+
 @pytest.mark.parametrize("window", (0, 6))
-def test_decode_body_with_fixed_write_equals_eager_step(window):
-    cfg = _small(window)
+@pytest.mark.parametrize("family", ("llama", "moe"))
+def test_decode_step_write_matches_jax_decode_step(family, window):
+    """The port's decode step (its one KV write, ``write_kv_rows``)
+    against the JAX package's (``scatter_kv_to_pages``, mode="drop") on
+    the same weights, pools and inputs: a row past the table and an idle
+    row on scratch page 0 among them. Logits and both pools, f32. The
+    MoE's capacity drops no token; the JAX step routes the idle row and
+    the port's does not, so for the MoE the idle row's logits and page 0
+    (where its later layers' KV land) are left out."""
+    fields = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
+                  n_kv_heads=2, d_ff=64, max_seq=64, page_size=PAGE,
+                  window=window, dtype="float32")
+    if family == "llama":
+        jmod, tmod, jcfg = jl, llama, jl.LlamaConfig(**fields)
+        cfg = llama.LlamaConfig(**fields)
+    else:
+        jmod, tmod = jm, moe
+        jcfg = jm.MoEConfig(**fields, n_experts=4, top_k=2,
+                            capacity_factor=4.0)
+        cfg = moe.MoEConfig(**dataclasses.asdict(jcfg))
+    jparams = jmod.init_params(jax.random.PRNGKey(5 + window), jcfg)
+    params = llama.params_from_jax(_numpy_tree(jparams), device="cpu")
     gen = torch.Generator().manual_seed(7 + window)
-    params = llama.init_params(gen, cfg, "cpu")
     token, lens, (kp, vp), table = _step_inputs(cfg, 5, gen)
-    kp2, vp2 = kp.clone(), vp.clone()
-    want, _, _ = llama.decode_step(params, cfg, token, lens, kp, vp, table)
-    got, _, _ = llama._decode(params, cfg, token, lens, kp2, vp2, table,
-                              fixed_write=True)
-    assert torch.equal(got, want)
-    assert torch.equal(kp2, kp) and torch.equal(vp2, vp)
+    want, jk, jv = jmod.decode_step(
+        jparams, jcfg, jnp.asarray(token.numpy()), jnp.asarray(lens.numpy()),
+        jnp.asarray(kp.numpy()), jnp.asarray(vp.numpy()),
+        jnp.asarray(table.numpy()))
+    got, k, v = tmod.decode_step(params, cfg, token, lens, kp, vp, table)
+    rows = slice(None) if family == "llama" else slice(0, -1)
+    pages = slice(None) if family == "llama" else slice(1, None)
+    np.testing.assert_allclose(got[rows].numpy(), np.asarray(want)[rows],
+                               rtol=TOL, atol=TOL)
+    for t, j in ((k, jk), (v, jv)):
+        np.testing.assert_allclose(t[:, pages].numpy(),
+                                   np.asarray(j)[:, pages], rtol=TOL,
+                                   atol=TOL)
 
 
 def test_decode_step_with_graph_on_cpu_takes_the_eager_step():

@@ -5,7 +5,8 @@ pages are staged to host memory and handed to one write-behind thread,
 which puts them and waits for the ack; the step goes on. Checked: the
 outputs and the stored bytes, a probe of pages still in flight, the
 bound on offloads in flight, a failing put, a connection closed under
-the thread, and the paths that stay synchronous."""
+the thread, the paths that wait for their ack, and that both kinds of
+offload store the same."""
 
 import threading
 import time
@@ -227,7 +228,7 @@ def test_outputs_and_stored_pages_match(params, store, monkeypatch,
     assert s["offloaded_pages"] * GROUP == sum(len(k) for k in gate.puts)
     assert s["offload_bytes"] == sum(p.numel() * 4 for p in snaps)
     assert s["offload_ack_n"] == len(gate.puts)
-    assert s["offload_write_n"] == s["offload_behind_n"]
+    assert s["offload_write_n"] == s["offload_n"]
     assert 0 < s["offload_step_ns"] - s["offload_room_wait_ns"] \
         <= s["offload_ns"]
     assert eng._behind.in_flight == 0
@@ -510,4 +511,45 @@ def test_preemption_and_a_mesh_offload_synchronously(params, store,
     assert all(t is main for t in mesh_gate.threads)
     assert meshed.par.agreed >= 3 and s["offloaded_pages"] > 0
     assert out == _storeless(params, reqs, max_slots=1, total_pages=32)
+    assert not thread_errors
+
+
+@pytest.mark.parametrize("kind", ["shm", "stream"])
+def test_offloads_behind_and_waited_store_the_same(params, kind,
+                                                   monkeypatch,
+                                                   thread_errors):
+    """(g) The same requests served twice, each time on a fresh server:
+    once by a busy engine, so offloads go behind the step in runs of one
+    pool page, and once by an engine with the mesh stand-in, so every
+    offload waits and is written in one run. The store holds the same
+    bytes under the same keys, and the engines count the same offloads,
+    pages and bytes."""
+    _runs_of(monkeypatch, 1)
+    held, stats = [], []
+    for waited in (False, True):
+        srv = InfiniStoreServer(ServerConfig(
+            service_port=0, prealloc_size=0.0625, minimal_allocate_size=4))
+        srv.start()
+        conn, st = _connect(srv, kind)
+        try:
+            gate = _Gate(st)
+            eng = ts.ServingEngine(params, CFG, ts.ServingConfig(
+                model_id=f"behind-g-{kind}", max_slots=2, total_pages=48),
+                store=gate, device="cpu")
+            if waited:
+                eng.par = _Mesh()
+            eng.run(_requests(18, (40, 21, 35, 50), (9, 5, 12, 7)))
+            keys = [k for put in gate.puts for k in put]
+            held.append(dict(zip(keys, _read(st, keys))))
+            stats.append(eng.stats)
+        finally:
+            st.close()
+            conn.close()
+            srv.stop()
+    behind, waits = stats
+    assert behind["offload_behind_n"] > 0 == waits["offload_behind_n"]
+    for key in ("offload_n", "offloaded_pages", "offload_bytes"):
+        assert behind[key] == waits[key] > 0, key
+    assert held[0].keys() == held[1].keys()
+    assert all(torch.equal(held[0][k], held[1][k]) for k in held[0])
     assert not thread_errors

@@ -214,17 +214,18 @@ def test_profiler_ranges_nest_with_request_ids(params, store):
                "engine.decode.dispatch": "engine.decode",
                "engine.decode.wait": "engine.decode",
                "engine.offload.gather": "engine.offload",
-               "engine.offload.ack": "engine.offload",
-               "store.allocate": "engine.offload",
-               "store.stage": "engine.offload",
+               "engine.offload.write": "engine.offload",
+               "engine.offload.ack": "engine.offload.write",
+               "store.allocate": "engine.offload.write",
+               "store.stage": "engine.offload.write",
                ("store.commit" if kind == "shm" else "store.send"):
-               "engine.offload"}
+               "engine.offload.write"}
     for child, parent in parents.items():
         assert ev.get(child), child
         for e in ev[child]:
             assert e.cpu_parent is not None and e.cpu_parent.name == parent
     for name in ("engine.admit", "engine.probe", "engine.prefill",
-                 "engine.offload"):
+                 "engine.offload", "engine.offload.write"):
         assert sorted(e.kwinputs["rid"] for e in ev[name]) == ["q0", "q1"]
     offload = ev["engine.offload"][0].kwinputs
     assert offload["pages"] > 0
